@@ -3,18 +3,35 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Drives the port's main path — MobileNet-v1 α=1.0 @ 192×192, random weights
-from a fixed seed, post-training int8 quantization, then
-``repro_torch.deploy.build`` (schedule → plan → validate → compile) and
-``Deployment.run``/``serve`` — at three arena budgets: none (reorder only,
-884 736 B), 512 KB (Pex, 322 560 B) and 224 KB (2-D tiled cascade,
-221 696 B).  Before that it builds the Hopper kernels K1–K3 from
-``src/repro_torch/kernels/conv_quant/csrc`` with ``nvcc`` and holds each
-against its plain PyTorch version on the card, bit for bit, at every
-distinct launch configuration of the main path plus hostile shapes, and
-times it there.  On the main path it resets the kernels' launch counts,
-and fails unless every kernel was launched; each card output must equal
-the port's plain CPU path on the same schedule and plan, bit for bit.
+Builds the six Hopper kernels from ``src/repro_torch/kernels/*/csrc`` with
+``nvcc`` (one process per source, all at once) — the int8 convs K1–K3,
+the fused conv→add kernels K4/K5 and the float32 pointwise conv K6 — and
+holds each against its plain PyTorch version on the card, at every
+distinct launch configuration of the paths below plus hostile shapes, and
+times it there.  Integer kernels must be bit-exact; K6 must stay within
+the worst-case float32 dot-product error bound (see ``F32_BOUND``).
+
+Then it drives the port's paths, random weights from fixed seeds, each
+with every kernel's launch count set to 0 just before it and read just
+after (the launches of the kernel checks above do not count):
+
+* MobileNet-v1 α=1.0 @ 192×192 int8 through ``repro_torch.deploy.build``
+  and ``Deployment.run``/``serve`` at three arena budgets: none (reorder
+  only, 884 736 B), 512 KB (Pex, 322 560 B), 224 KB (2-D tiled cascade,
+  221 696 B) — K1–K3, bit-exact against the port's plain CPU path;
+* the same network in float32 at none / 2 MB / 1 MB (3 538 944 /
+  1 290 240 / 995 328 B): K6 launched once per k=1, stride-1 conv of the
+  schedule (13 / 79 / 200), outputs within ``F32_TOL`` of the CPU path;
+* the SwiftNet cell of the paper's Table 1, float32 (1 253 376 B, 17 K6
+  launches) and int8 (313 344 B, K1–K3), reorder only;
+* Table 1 itself: ``MicroInterpreter`` on the card runs the int8 SwiftNet
+  cell in 512 KB − 200 KB = 319 488 B of SRAM only in the reordered order
+  (313 344 B peak, 1 550 978 B moved, 36 defrag passes; the default order
+  raises ``MemoryError`` and needs 368 640 B), with outputs equal to the
+  compiled executor's;
+* the public entry point ``kernels.qconv_add_fused`` (K4/K5) at every int8
+  conv shape of the SwiftNet and reorder-only MobileNet schedules with a
+  seeded residual, bit-exact against ``qconv_fused`` then ``qadd``.
 
 It imports only ``repro_torch``, torch and numpy.  Any failed check
 raises (exit code 1); without CUDA, or without the repository around it,
@@ -37,15 +54,37 @@ KB = 1024
 MODEL = (1.0, 192)                  # MobileNet-v1 alpha, resolution
 # arena budgets and the bytes each must plan to (the repo's goldens)
 BUDGETS = ((None, 884736), (512 * KB, 322560), (224 * KB, 221696))
+# float32: (budget, arena bytes, k=1/stride-1 convs in the schedule)
+F32_BUDGETS = ((None, 3538944, 13), (2048 * KB, 1290240, 79),
+               (1024 * KB, 995328, 200))
+SWIFT_F32, SWIFT_F32_K6, SWIFT_INT8 = 1253376, 17, 313344
+TABLE1_CAPACITY = 512 * KB - 200 * KB   # NUCLEO-F767ZI SRAM less framework
+# (peak_sram, bytes_moved, defrag_passes, steps) of the reference
+TABLE1 = {"reordered": (313344, 1550978, 36, 36),
+          "default": (368640, 1371266, 36, 36)}
+# float32 network outputs, card vs the port's CPU path: sums in other
+# orders (K6's fmaf chain, cuDNN, MKL) over ~30 layers
+F32_TOL = dict(rtol=1e-4, atol_frac=1e-5)     # atol = atol_frac * max|cpu|
+# K6 vs its plain version, per element: |got - want| <= F32_BOUND * (Cin
+# + 2) * (sum_k |x_k w_k| + |b|) — twice the worst-case error of a float32
+# dot product of Cin terms plus the bias add, for any summation order
+F32_BOUND = 2 * 2.0 ** -24
 DEVICE = "cuda:0"
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak
+H100_F32_OPS_PER_S = 67e12          # float32 without tensor cores
 # What each kernel replaces: the TPU kernel's function, file:line
 REPLACES = {
     "qconv1x1": "src/repro/kernels/conv_quant/kernel.py:103",
     "qdwconv": "src/repro/kernels/conv_quant/kernel.py:349",
     "qconv": "src/repro/kernels/conv_quant/kernel.py:299",
+    "qconv1x1_add": "src/repro/kernels/conv_quant/kernel.py:148",
+    "qconv_add": "src/repro/kernels/conv_quant/kernel.py:322",
+    "conv1x1": "src/repro/kernels/conv_pointwise/kernel.py:44",
 }
+SOURCES = {n: f"src/repro_torch/kernels/conv_quant/csrc/{n}.cu"
+           for n in REPLACES}
+SOURCES["conv1x1"] = "src/repro_torch/kernels/conv_pointwise/csrc/conv1x1.cu"
 # test_torch_qconv.py's hostile shapes: odd H/W, 1-lane channels, stride
 # 2, asymmetric pads (H, W, Cin, Cout, k, stride, hpad, wpad; Cout=0 for
 # depthwise)
@@ -59,6 +98,16 @@ HOSTILE = [
     (10, 9, 6, 0, 3, 1, (1, 1), (2, 0)),
 ]
 HOSTILE_QP = ((0.0123, 3, -5), (0.5, -2, 4))     # (mult, zp_in, zp_out)
+# fused add params (mult_a, mult_b, zp_a, zp_b, zp_out); zp_a None = the
+# conv's zp_out.  Plain; saturating both rails; a negative multiplier.
+ADD_QP = ((0.71, 0.39, None, 2, -7), (23.5, 17.25, 60, 0, 100),
+          (0.5, -0.75, 9, -3, 1))
+# K6 hostile shapes (H, W, Cin, Cout, bias, relu): M = 1, Cin = 1, Cout = 1
+# and 2, odd M, Cin across several tiles
+HOSTILE_F32 = [(1, 1, 1, 1, False, True), (1, 1, 16, 2, True, True),
+               (7, 9, 1, 5, True, False), (13, 11, 3, 2, False, True),
+               (5, 7, 33, 1, True, True), (3, 5, 1030, 65, False, False),
+               (1, 1, 1024, 1024, True, True), (9, 9, 12, 22, False, True)]
 
 
 def log(msg: str) -> None:
@@ -110,21 +159,36 @@ def device_time(torch, fn, reps: int = 3):
     return sum(by_name.values()), top
 
 
-class Checks:
-    """The int8 conv kernels held against their plain versions: one
-    launch configuration per key, inputs in strided two-lane views like
-    the arena's (lanes ``pitch`` bytes apart, not a multiple of 4)."""
+def add_params(addp, zp_out):
+    mult_a, mult_b, zp_a, zp_b, zp_add = addp
+    return (mult_a, mult_b, zp_out if zp_a is None else zp_a, zp_b, zp_add)
 
-    def __init__(self, torch, np, device):
+
+def is_pointwise(op) -> bool:
+    return (op.kind == "conv" and op.attrs.get("k", 1) == 1
+            and op.attrs["stride"] == 1)
+
+
+class Checks:
+    """Every kernel held against its plain version: one launch
+    configuration per key, inputs in strided two-lane views like the
+    arena's (lanes ``pitch`` bytes apart: not a multiple of 4 for int8,
+    of 16 for float32)."""
+
+    def __init__(self, torch, np, device, wrappers):
         from repro_torch.core.partition import same_pads
+        from repro_torch.kernels.conv_pointwise import ops as pw_ops
+        from repro_torch.kernels.conv_pointwise import ref as pw_ref
         from repro_torch.kernels.conv_quant import ops, ref
         self.torch, self.np, self.device = torch, np, device
         self.ops, self.ref, self.same_pads = ops, ref, same_pads
+        self.pw_ops, self.pw_ref = pw_ops, pw_ref
         self.rng = np.random.default_rng(0)
-        self.configs = {}    # key -> (kernel, macs, bytes, qparams)
-        self.mismatches = {k: 0 for k in ops.KERNEL_WRAPPERS}
-        self.max_err = {k: 0 for k in ops.KERNEL_WRAPPERS}
-        self.checked = {k: 0 for k in ops.KERNEL_WRAPPERS}
+        self.configs = {}    # key -> (kernel, macs, bytes, spec)
+        self.mismatches = {k: 0 for k in wrappers}
+        self.max_err = {k: 0 for k in wrappers}
+        self.checked = {k: 0 for k in wrappers}
+        self.max_rel = 0.0   # K6: max |got - want| / max |want|, per call
 
     def _pads(self, n, k, stride, pad):
         if pad is not None:
@@ -140,25 +204,41 @@ class Checks:
             device=self.device)
         return buf[:, 5:5 + n].view(self.torch.int8).view(lanes, *shape)
 
+    def _lanes_f32(self, shape, lanes=2):
+        n = int(self.np.prod(shape))
+        pitch = n + 2 + ((n + 2) % 4 == 0)      # elements; 4*pitch % 16 != 0
+        buf = self.torch.as_tensor(self.rng.standard_normal(
+            (lanes, pitch)).astype(self.np.float32), device=self.device)
+        assert (4 * pitch) % 16 and buf.stride(0) == pitch
+        return buf[:, 1:1 + n].view(lanes, *shape)
+
     def _rand(self, shape):
         return self.torch.as_tensor(
             self.rng.integers(-128, 128, shape, dtype=self.np.int8),
             device=self.device)
 
+    def _randn(self, shape, scale=1.0):
+        return self.torch.as_tensor((self.rng.standard_normal(shape) * scale)
+                                    .astype(self.np.float32),
+                                    device=self.device)
+
     def case(self, tag, kind, h, w, cin, cout, k, stride, hpad, wpad,
-             mult, zp_in, zp_out):
-        """Route one configuration as ``qconv_fused``/``qdwconv_fused``
-        do and compare the kernel with the plain version (once per
-        ``tag`` and shape)."""
+             mult, zp_in, zp_out, addp=None):
+        """Route one int8 configuration as ``qconv_fused``/
+        ``qdwconv_fused``/``qconv_add_fused`` (``addp`` given) do and
+        compare the kernel with the plain version (once per ``tag`` and
+        shape)."""
         hp = self._pads(h, k, stride, hpad)
         wp = self._pads(w, k, stride, wpad)
         oh = (h + hp[0] + hp[1] - k) // stride + 1
         ow = (w + wp[0] + wp[1] - k) // stride + 1
-        key = (tag, kind, h, w, cin, cout, k, stride, hp, wp)
+        key = (tag, kind, h, w, cin, cout, k, stride, hp, wp, addp)
         if key in self.configs:
             return
         x = self._lanes((h, w, cin))
         qp = dict(mult=mult, zp_in=zp_in, zp_out=zp_out)
+        pw = k == 1 and stride == 1 and hp == (0, 0) and wp == (0, 0)
+        extra = 0
         if kind == "qdwconv":
             name, wt = "qdwconv", self._rand((k, k, cin))
             macs = oh * ow * cin * k * k
@@ -167,7 +247,27 @@ class Checks:
                                    out=out, **qp)
             want = self.ref.qdwconv_ref(x, wt, stride=stride, hpad=hp,
                                         wpad=wp, **qp)
-        elif k == 1 and stride == 1 and hp == (0, 0) and wp == (0, 0):
+        elif addp is not None:
+            r = self._lanes((oh, ow, cout))
+            extra = r[0].numel()
+            out = self._lanes((oh, ow, cout))
+            ap = add_params(addp, zp_out)
+            if pw:
+                name, wt = "qconv1x1_add", self._rand((cin, cout))
+                got = self.ops.qconv1x1_add(x, wt, r, add_params=ap,
+                                            out=out, **qp)
+                want = self.ref.qconv1x1_add_ref(x, wt, r, add_params=ap,
+                                                 **qp)
+            else:
+                name, wt = "qconv_add", self._rand((k, k, cin, cout))
+                got = self.ops.qconv_add(x, wt, r, stride=stride, hpad=hp,
+                                         wpad=wp, add_params=ap, out=out,
+                                         **qp)
+                want = self.ref.qconv_add_ref(x, wt, r, stride=stride,
+                                              hpad=hp, wpad=wp,
+                                              add_params=ap, **qp)
+            macs = oh * ow * cout * k * k * cin
+        elif pw:
             name, wt = "qconv1x1", self._rand((cin, cout))
             macs = h * w * cin * cout
             out = self._lanes((oh, ow, cout))
@@ -187,21 +287,61 @@ class Checks:
         self.max_err[name] = max(self.max_err[name], int(diff.max()))
         self.mismatches[name] += int((diff != 0).sum())
         self.checked[name] += 1
-        nbytes = x[0].numel() + wt.numel() + out[0].numel()
-        self.configs[key] = (name, macs, nbytes, qp)
+        nbytes = x[0].numel() + wt.numel() + out[0].numel() + extra
+        self.configs[key] = (name, macs, nbytes,
+                             (h, w, cin, cout, k, stride, hp, wp, qp, addp))
+
+    def case_f32(self, tag, h, w, cin, cout, bias=False, relu=True):
+        """K6 against its plain version, within the float32 bound."""
+        key = (tag, "conv1x1", h, w, cin, cout, bias, relu)
+        if key in self.configs:
+            return
+        torch = self.torch
+        x = self._lanes_f32((h, w, cin))
+        wt = self._randn((cin, cout), 0.1)
+        b = self._randn((cout,)) if bias else None
+        out = self._lanes_f32((h, w, cout))
+        got = self.pw_ops.conv1x1(x, wt, b, relu=relu, out=out)
+        want = self.pw_ref.conv1x1_ref(x, wt, b, relu=relu)
+        torch.cuda.synchronize()
+        assert got is out
+        diff = (got.double() - want.double()).abs()
+        mag = x.abs().double() @ wt.abs().double()
+        if b is not None:
+            mag = mag + b.abs().double()
+        bound = F32_BOUND * (cin + 2) * mag
+        name = "conv1x1"
+        self.mismatches[name] += int((diff > bound).sum())
+        self.max_err[name] = max(self.max_err[name], float(diff.max()))
+        self.max_rel = max(self.max_rel, float(
+            diff.max() / want.abs().max().clamp_min(1e-30)))
+        self.checked[name] += 1
+        nbytes = 4 * (x[0].numel() + wt.numel() + out[0].numel()
+                      + (cout if bias else 0))
+        self.configs[key] = (name, h * w * cin * cout, nbytes,
+                             (h, w, cin, cout, bias, relu))
 
     def from_deployment(self, d):
+        """The int8 convs of a deployment's schedule — each also as K4/K5
+        with a residual — or its k=1, stride-1 float32 convs."""
         g = d.exec_graph
         for op in d.schedule:
+            a = op.attrs
+            if is_pointwise(op):
+                h, w, cin = g.tensors[op.inputs[0]].shape
+                self.case_f32("main", h, w, cin,
+                              g.tensors[op.output].shape[-1])
             if op.kind not in ("qconv", "qdwconv"):
                 continue
-            a = op.attrs
             h, w, cin = g.tensors[op.inputs[0]].shape
             wq = a["weight_q"]
-            self.case("main", op.kind, h, w, cin,
-                      wq.shape[3] if op.kind == "qconv" else 0, wq.shape[0],
-                      a["stride"], a.get("pex_pads"), a.get("pex_wpads"),
-                      a["mult"], a["zp_in"], a["zp_out"])
+            args = (op.kind, h, w, cin,
+                    wq.shape[3] if op.kind == "qconv" else 0, wq.shape[0],
+                    a["stride"], a.get("pex_pads"), a.get("pex_wpads"),
+                    a["mult"], a["zp_in"], a["zp_out"])
+            self.case("main", *args)
+            if op.kind == "qconv":
+                self.case("main", *args, addp=ADD_QP[0])
 
     def hostile(self):
         for i, (mult, zi, zo) in enumerate(HOSTILE_QP):
@@ -209,6 +349,12 @@ class Checks:
                 kind = "qdwconv" if cout == 0 else "qconv"
                 self.case(f"hostile{i}", kind, h, w, cin, cout, k, s, hp,
                           wp, mult, zi, zo)
+                if cout:
+                    for addp in ADD_QP:
+                        self.case(f"hostile{i}", kind, h, w, cin, cout, k,
+                                  s, hp, wp, mult, zi, zo, addp=addp)
+        for (h, w, cin, cout, bias, relu) in HOSTILE_F32:
+            self.case_f32("hostile", h, w, cin, cout, bias, relu)
 
     def largest(self, name):
         keys = [k for k, v in self.configs.items()
@@ -220,50 +366,242 @@ class Checks:
         """kernel_ms, plain_ms, library_ms and the bound at the largest
         main-path configuration of kernel ``name``."""
         torch = self.torch
-        key = self.largest(name)
-        _, macs, nbytes, qp = self.configs[key]
-        _, _, h, w, cin, cout, k, stride, hp, wp = key
-        x = self._rand((1, h, w, cin))
-        lib = None
-        if name == "qconv1x1":
-            wt = self._rand((cin, cout))
-            out = torch.empty((1, h, w, cout), dtype=torch.int8,
-                              device=self.device)
-            run = lambda: self.ops.qconv1x1(x, wt, out=out, **qp)  # noqa
-            plain = lambda: self.ref.qconv1x1_ref(x, wt, **qp)  # noqa
+        _, macs, nbytes, spec = self.configs[self.largest(name)]
+        lib, lib_name = None, ""
+        if name == "conv1x1":
+            h, w, cin, cout, _, _ = spec
+            x = self._randn((1, h, w, cin))
+            wt = self._randn((cin, cout), 0.1)
+            out = torch.empty((1, h, w, cout), device=self.device)
+            run = lambda: self.pw_ops.conv1x1(x, wt, out=out)  # noqa: E731
+            plain = lambda: self.pw_ref.conv1x1_ref(x, wt)  # noqa: E731
             a2 = x.reshape(h * w, cin)
-            b2 = wt.t().contiguous().t()        # column-major operand
-            lib = lambda: torch._int_mm(a2, b2)  # noqa: E731
-        elif name == "qconv":
-            wt = self._rand((k, k, cin, cout))
-            run = lambda: self.ops.qconv(x, wt, stride=stride, hpad=hp,  # noqa
-                                         wpad=wp, **qp)
-            plain = lambda: self.ref.qconv_ref(x, wt, stride=stride,  # noqa
-                                               hpad=hp, wpad=wp, **qp)
+            lib = lambda: torch.matmul(a2, wt)  # noqa: E731
+            lib_name = " (torch.matmul, TF32 off, bare product)"
+            peak, shape = H100_F32_OPS_PER_S, f"{h}x{w}x{cin}->{cout}"
         else:
-            wt = self._rand((k, k, cin))
-            run = lambda: self.ops.qdwconv(x, wt, stride=stride, hpad=hp,  # noqa
-                                           wpad=wp, **qp)
-            plain = lambda: self.ref.qdwconv_ref(x, wt, stride=stride,  # noqa
-                                                 hpad=hp, wpad=wp, **qp)
+            h, w, cin, cout, k, stride, hp, wp, qp, addp = spec
+            x = self._rand((1, h, w, cin))
+            pads = dict(stride=stride, hpad=hp, wpad=wp)
+            oh = (h + hp[0] + hp[1] - k) // stride + 1
+            ow = (w + wp[0] + wp[1] - k) // stride + 1
+            r = self._rand((1, oh, ow, cout)) if addp else None
+            ap = add_params(addp, qp["zp_out"]) if addp else None
+            if name == "qconv1x1":
+                wt = self._rand((cin, cout))
+                out = torch.empty((1, h, w, cout), dtype=torch.int8,
+                                  device=self.device)
+                run = lambda: self.ops.qconv1x1(x, wt, out=out, **qp)  # noqa
+                plain = lambda: self.ref.qconv1x1_ref(x, wt, **qp)  # noqa
+                a2 = x.reshape(h * w, cin)
+                b2 = wt.t().contiguous().t()        # column-major operand
+                lib = lambda: torch._int_mm(a2, b2)  # noqa: E731
+                lib_name = " (torch._int_mm, bare int8 product)"
+            elif name == "qconv1x1_add":
+                wt = self._rand((cin, cout))
+                run = lambda: self.ops.qconv1x1_add(  # noqa: E731
+                    x, wt, r, add_params=ap, **qp)
+                plain = lambda: self.ref.qconv1x1_add_ref(  # noqa: E731
+                    x, wt, r, add_params=ap, **qp)
+            elif name == "qconv":
+                wt = self._rand((k, k, cin, cout))
+                run = lambda: self.ops.qconv(x, wt, **pads, **qp)  # noqa
+                plain = lambda: self.ref.qconv_ref(  # noqa: E731
+                    x, wt, **pads, **qp)
+            elif name == "qconv_add":
+                wt = self._rand((k, k, cin, cout))
+                run = lambda: self.ops.qconv_add(  # noqa: E731
+                    x, wt, r, add_params=ap, **pads, **qp)
+                plain = lambda: self.ref.qconv_add_ref(  # noqa: E731
+                    x, wt, r, add_params=ap, **pads, **qp)
+            else:
+                wt = self._rand((k, k, cin))
+                run = lambda: self.ops.qdwconv(x, wt, **pads, **qp)  # noqa
+                plain = lambda: self.ref.qdwconv_ref(  # noqa: E731
+                    x, wt, **pads, **qp)
+            peak = H100_INT8_OPS_PER_S
+            shape = f"{h}x{w}x{cin}" + ("" if name == "qdwconv" else
+                                        f"->{cout}") + \
+                f" k={k} s={stride} pads={hp}/{wp}"
         kernel_ms = time_ms(torch, run)
         plain_ms = time_ms(torch, plain, iters=10, warmup=2)
-        library_ms = None if lib is None else time_ms(torch, lib)
+        library_ms = None
+        if lib is not None:
+            with self.pw_ref.full_f32_matmul():
+                library_ms = time_ms(torch, lib)
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = 2 * macs / H100_INT8_OPS_PER_S * 1e3
-        shape = f"{h}x{w}x{cin}" + (f"->{cout}" if cout else "") + \
-            f" k={k} s={stride} pads={hp}/{wp}"
+        t_ops = 2 * macs / peak * 1e3
+        rel = (f", max_rel_err {self.max_rel:.3e} (of max|want|), within "
+               f"the f32 bound" if name == "conv1x1" else "")
         log(f"kernels {name}: {self.checked[name]} configs, "
             f"{self.mismatches[name]} mismatches, max_abs_err "
-            f"{self.max_err[name]}; at {shape}: kernel_ms {kernel_ms:.5f}, "
-            f"plain_ms {plain_ms:.5f}, library_ms "
+            f"{self.max_err[name]}{rel}; at {shape}: kernel_ms "
+            f"{kernel_ms:.5f}, plain_ms {plain_ms:.5f}, library_ms "
             f"{'none' if library_ms is None else f'{library_ms:.5f}'}"
-            f"{' (torch._int_mm, bare int8 product)' if lib else ''}, "
-            f"bound_ms {max(t_bytes, t_ops):.7f} [{card}]")
+            f"{lib_name}, bound_ms {max(t_bytes, t_ops):.7f} [{card}]")
         return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                     bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     shape=shape)
+
+
+class Paths:
+    """The port's paths, each driven with every launch count set to 0
+    just before it and read just after; ``launches`` sums them."""
+
+    def __init__(self, torch, np, wrappers, card):
+        from repro_torch.graphs import random_input
+        from repro_torch.mcu.compile import compile_schedule
+        self.torch, self.np, self.card = torch, np, card
+        self.wrappers = wrappers
+        self.random_input, self.compile_schedule = random_input, \
+            compile_schedule
+        self.launches = {n: 0 for n in wrappers}
+
+    def reset(self):
+        for f in self.wrappers.values():
+            f.launches = 0
+
+    def read(self):
+        self.torch.cuda.synchronize()
+        got = {n: f.launches for n, f in self.wrappers.items()}
+        for n, v in got.items():
+            self.launches[n] += v
+        return got
+
+    def same(self, got, want, exact):
+        if exact:
+            self.np.testing.assert_array_equal(got, want)
+        else:
+            self.np.testing.assert_allclose(
+                got, want, rtol=F32_TOL["rtol"],
+                atol=F32_TOL["atol_frac"] * float(self.np.abs(want).max()))
+
+    def deployment(self, label, d, seed, exact):
+        """One request through ``d.run`` (per-inference launches), held
+        against the port's plain CPU path on the same schedule and plan;
+        run p50, device busy time, and ``serve`` of 8 requests at
+        ``micro_batch`` 4 against one-shot runs."""
+        np, torch = self.np, self.torch
+        t0 = time.perf_counter()
+        g = d.graph
+        x = self.random_input(g, seed=seed)
+        self.reset()
+        out = d.run(x)
+        per_inf = {n: f.launches for n, f in self.wrappers.items()
+                   if f.launches}
+        (name, val), = out.items()
+        assert val.shape == tuple(g.tensors[name].shape), val.shape
+        assert val.dtype == (np.int8 if exact else np.float32)
+        assert np.isfinite(val).all()
+        runs = []
+        for _ in range(10):
+            t1 = time.perf_counter()
+            d.run(x)
+            runs.append((time.perf_counter() - t1) * 1e3)
+        busy, top = device_time(torch, lambda: d.run(x))
+        p50 = statistics.median(runs)
+        reqs = [self.random_input(g, seed=s) for s in range(8)]
+        eng = d.engine(micro_batch=4)
+        served = eng.serve(reqs)
+        one_shot = [d.run(r)[name] for r in reqs]
+        self.read()
+        plain = self.compile_schedule(d.exec_graph, d.schedule, d.plan,
+                                      device="cpu").run(x)
+        self.same(val, plain[name], exact)
+        assert eng.stats.dispatches == 2 and eng.stats.padded_lanes == 0
+        for o, want in zip(served, one_shot):
+            self.same(o[name], want, exact)
+        log(f"phase main-path {label}: {d.schedule_result.method}, arena "
+            f"{d.arena_bytes} B, {len(d.schedule)} ops, launches/inference "
+            f"{per_inf}, card == cpu plain path "
+            f"({'bit-exact' if exact else 'within F32_TOL'}), serve 8 == "
+            f"one-shot; run p50 {p50:.3f} ms, serve "
+            f"{eng.stats.requests_per_s:.2f} req/s (micro_batch 4); "
+            f"device busy {busy:.3f} ms/run (profiler), idle share "
+            f"{1 - busy / p50:.3f} of p50; top "
+            + ", ".join(f"{n} {t:.3f} ms" for n, t in top)
+            + f" [{self.card}] ({time.perf_counter() - t0:.2f} s)")
+        return per_inf
+
+    def table1(self, d, device):
+        """The paper's Table 1 on the card: the int8 SwiftNet cell fits
+        512 KB - 200 KB of SRAM only in the reordered order."""
+        from repro_torch.mcu import MicroInterpreter
+        np = self.np
+        t0 = time.perf_counter()
+        g = d.exec_graph
+        x = self.random_input(g, seed=7)
+        self.reset()
+        interp = MicroInterpreter(g, capacity=TABLE1_CAPACITY, device=device)
+        try:
+            interp.run(x, schedule=g.default_schedule())
+        except MemoryError as e:
+            overflow = str(e)
+        else:
+            raise AssertionError("the default order fit in "
+                                 f"{TABLE1_CAPACITY} B; Table 1 says not")
+        rep = interp.run(x, schedule=d.schedule)
+        full = MicroInterpreter(g, device=device).run(x)
+        launches = self.read()
+        got = {k: (r.peak_sram, r.bytes_moved, r.defrag_passes, r.steps)
+               for k, r in (("reordered", rep), ("default", full))}
+        assert rep.fits and got == TABLE1, got
+        compiled = d.run(x)
+        for o in g.outputs:
+            np.testing.assert_array_equal(rep.outputs[o], compiled[o])
+            np.testing.assert_array_equal(full.outputs[o], compiled[o])
+        assert all(launches[n] > 0 for n in ("qconv1x1", "qdwconv", "qconv"))
+        log(f"phase table1: MicroInterpreter on {device}, capacity "
+            f"{TABLE1_CAPACITY} B: default order -> MemoryError "
+            f"({overflow}); reordered fits, peak_sram/bytes_moved/"
+            f"defrag_passes/steps {got['reordered']}; default unconstrained "
+            f"{got['default']}; outputs == compiled executor (bit-exact); "
+            f"launches {launches}; reordered run {rep.wall_time_s:.3f} s "
+            f"[{self.card}] ({time.perf_counter() - t0:.2f} s)")
+
+    def fused_add(self, deployments, device):
+        """``kernels.qconv_add_fused`` at every int8 conv shape of the
+        given deployments, with a seeded residual: K4/K5 launched, each
+        output equal to ``qconv_fused`` then ``qadd``."""
+        import repro_torch.kernels as kernels
+        from repro_torch.kernels.conv_quant.ref import qadd
+        torch, np = self.torch, self.np
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(3)
+        calls, seen = [], set()
+        for d in deployments:
+            g = d.exec_graph
+            for op in d.schedule:
+                a = op.attrs
+                shape = (g.tensors[op.inputs[0]].shape, a["weight_q"].shape,
+                         a["stride"]) if op.kind == "qconv" else None
+                if shape is None or shape in seen:
+                    continue
+                seen.add(shape)
+                x = torch.as_tensor(rng.integers(-128, 128, shape[0],
+                                                 dtype=np.int8),
+                                    device=device)
+                w = torch.as_tensor(a["weight_q"], device=device)
+                r = torch.as_tensor(rng.integers(
+                    -128, 128, g.tensors[op.output].shape, dtype=np.int8),
+                    device=device)
+                qp = dict(stride=a["stride"], mult=a["mult"],
+                          zp_in=a["zp_in"], zp_out=a["zp_out"])
+                calls.append((x, w, r, qp, add_params(ADD_QP[0],
+                                                      a["zp_out"])))
+        self.reset()
+        outs = [kernels.qconv_add_fused(x, w, r, add_params=ap, **qp)
+                for x, w, r, qp, ap in calls]
+        launches = self.read()
+        for (x, w, r, qp, ap), got in zip(calls, outs):
+            want = qadd(kernels.qconv_fused(x, w, **qp), r, *ap)
+            assert torch.equal(got, want)
+        assert launches["qconv1x1_add"] > 0 and launches["qconv_add"] > 0
+        log(f"phase fused-add: kernels.qconv_add_fused at {len(calls)} conv "
+            f"shapes of the int8 schedules, launches {launches}, each == "
+            f"qconv_fused then qadd (bit-exact) "
+            f"({time.perf_counter() - t0:.2f} s)")
 
 
 def main() -> int:
@@ -282,9 +620,12 @@ def main() -> int:
         return 2
 
     import repro_torch.deploy as deploy
-    from repro_torch.graphs import mobilenet_v1_graph, random_input
-    from repro_torch.kernels.conv_quant import build, ops
-    from repro_torch.mcu.compile import compile_schedule
+    from repro_torch.graphs import mobilenet_v1_graph, swiftnet_cell_graph
+    from repro_torch.kernels import build
+    from repro_torch.kernels.conv_pointwise import ops as pw_ops
+    from repro_torch.kernels.conv_quant import ops
+    wrappers = {**ops.KERNEL_WRAPPERS, **pw_ops.KERNEL_WRAPPERS}
+    assert set(wrappers) == set(REPLACES)
 
     # ------------------------------------------------------------ device
     t0 = time.perf_counter()
@@ -297,82 +638,76 @@ def main() -> int:
 
     # ------------------------------------------------------------- build
     t0 = time.perf_counter()
-    secs = build.build()
+    secs = build.build_all()
+    assert set(secs) == set(REPLACES), secs
     log(f"phase build: nvcc sm_90a, one process per source in parallel: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
         + f" -> {build.BUILD_DIR} ({time.perf_counter() - t0:.2f} s)")
 
     # --------------------------------------------------- schedule + plan
-    deployments = []
-    for budget, golden in BUDGETS:
+    def planned(label, graph, golden, **kw):
         t0 = time.perf_counter()
-        d = deploy.build(mobilenet_v1_graph(*MODEL), quantize=True,
-                         arena_budget=budget, device=device)
-        assert d.arena_bytes == golden, (budget, d.arena_bytes, golden)
-        log(f"phase schedule budget={budget}: {d.schedule_result.method}, "
-            f"arena {d.arena_bytes} B, {len(d.schedule)} ops "
+        d = deploy.build(graph, device=device, **kw)
+        assert d.arena_bytes == golden, (label, d.arena_bytes, golden)
+        log(f"phase schedule {label}: {d.schedule_result.method}, arena "
+            f"{d.arena_bytes} B, {len(d.schedule)} ops "
             f"({time.perf_counter() - t0:.2f} s)")
-        deployments.append((budget, d))
+        return d
+
+    int8 = [(b, planned(f"int8 budget={b}", mobilenet_v1_graph(*MODEL),
+                        golden, quantize=True, arena_budget=b))
+            for b, golden in BUDGETS]
+    f32 = []
+    for b, golden, n_pw in F32_BUDGETS:
+        d = planned(f"f32 budget={b}", mobilenet_v1_graph(*MODEL), golden,
+                    arena_budget=b)
+        assert sum(map(is_pointwise, d.schedule)) == n_pw
+        f32.append((b, d, n_pw))
+    swift_f32 = planned("swiftnet f32", swiftnet_cell_graph(), SWIFT_F32)
+    swift_int8 = planned("swiftnet int8", swiftnet_cell_graph(), SWIFT_INT8,
+                         quantize=True)
+    assert sum(map(is_pointwise, swift_f32.schedule)) == SWIFT_F32_K6
 
     # ------------------------------------- kernels vs plain, on the card
     t0 = time.perf_counter()
-    checks = Checks(torch, np, device)
-    for _, d in deployments:
+    checks = Checks(torch, np, device, wrappers)
+    for d in ([d for _, d in int8] + [d for _, d, _ in f32]
+              + [swift_f32, swift_int8]):
         checks.from_deployment(d)
     n_main = len(checks.configs)
     checks.hostile()
     log(f"phase kernels-vs-plain: {n_main} main-path configs + "
         f"hostile shapes, checked per kernel {checks.checked}, mismatches "
-        f"{checks.mismatches} ({time.perf_counter() - t0:.2f} s)")
+        f"{checks.mismatches} (int8: bit-exact; conv1x1: within "
+        f"{F32_BOUND:.3e} * (Cin + 2) * sum|x w|) "
+        f"({time.perf_counter() - t0:.2f} s)")
     assert all(v == 0 for v in checks.mismatches.values()), checks.mismatches
-    timings = {name: checks.timing(name, card)
-               for name in ops.KERNEL_WRAPPERS}
+    assert all(v > 0 for v in checks.checked.values()), checks.checked
+    timings = {name: checks.timing(name, card) for name in wrappers}
 
-    # ------------------------------------------------------- main path
-    for f in ops.KERNEL_WRAPPERS.values():
-        f.launches = 0
-    for i, (budget, d) in enumerate(deployments):
-        t0 = time.perf_counter()
-        g = d.graph
-        x = random_input(g, seed=100 + i)
-        before = {n: f.launches for n, f in ops.KERNEL_WRAPPERS.items()}
-        out = d.run(x)
-        per_inf = {n: f.launches - before[n]
-                   for n, f in ops.KERNEL_WRAPPERS.items()}
-        (name, val), = out.items()
-        assert val.shape == tuple(g.tensors[name].shape), val.shape
-        assert val.dtype == np.int8
-        plain = compile_schedule(d.exec_graph, d.schedule, d.plan,
-                                 device="cpu").run(x)
-        np.testing.assert_array_equal(val, plain[name])
-        runs = []
-        for _ in range(10):
-            t1 = time.perf_counter()
-            d.run(x)
-            runs.append((time.perf_counter() - t1) * 1e3)
-        busy, top = device_time(torch, lambda: d.run(x))
-        p50 = statistics.median(runs)
-        reqs = [random_input(g, seed=s) for s in range(8)]
-        eng = d.engine(micro_batch=4)
-        served = eng.serve(reqs)
-        assert eng.stats.dispatches == 2 and eng.stats.padded_lanes == 0
-        for r, o in zip(reqs, served):
-            np.testing.assert_array_equal(o[name], d.run(r)[name])
-        log(f"phase main-path budget={budget}: "
-            f"{d.schedule_result.method}, arena {d.arena_bytes} B, "
-            f"launches/inference {per_inf}, card == cpu plain path, "
-            f"serve 8 == one-shot; run p50 {p50:.3f} ms, serve "
-            f"{eng.stats.requests_per_s:.2f} req/s (micro_batch 4); "
-            f"device busy {busy:.3f} ms/run (profiler), idle share "
-            f"{1 - busy / p50:.3f} of p50; top "
-            + ", ".join(f"{n} {t:.3f} ms" for n, t in top)
-            + f" [{card}] ({time.perf_counter() - t0:.2f} s)")
-    launches = {n: f.launches for n, f in ops.KERNEL_WRAPPERS.items()}
+    # ------------------------------------------------------- main paths
+    paths = Paths(torch, np, wrappers, card)
+    for i, (budget, d) in enumerate(int8):
+        per_inf = paths.deployment(f"int8 budget={budget}", d, 100 + i,
+                                   exact=True)
+        assert all(per_inf.get(n, 0) > 0
+                   for n in ("qconv1x1", "qdwconv", "qconv")), per_inf
+    for i, (budget, d, n_pw) in enumerate(f32):
+        per_inf = paths.deployment(f"f32 budget={budget}", d, 200 + i,
+                                   exact=False)
+        assert per_inf == {"conv1x1": n_pw}, per_inf
+    per_inf = paths.deployment("swiftnet f32", swift_f32, 300, exact=False)
+    assert per_inf == {"conv1x1": SWIFT_F32_K6}, per_inf
+    per_inf = paths.deployment("swiftnet int8", swift_int8, 301, exact=True)
+    assert all(per_inf.get(n, 0) > 0
+               for n in ("qconv1x1", "qdwconv", "qconv")), per_inf
+    paths.table1(swift_int8, device)
+    paths.fused_add([swift_int8, int8[0][1]], device)
+    launches = paths.launches
     assert all(v > 0 for v in launches.values()), launches
 
-    src = "src/repro_torch/kernels/conv_quant/csrc/{}.cu"
     summary = {"kernels": [
-        {"name": n, "route": "cuda", "source": src.format(n),
+        {"name": n, "route": "cuda", "source": SOURCES[n],
          "replaces": REPLACES[n], "launches": launches[n],
          "max_abs_err": checks.max_err[n], "ms": t["ms"],
          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

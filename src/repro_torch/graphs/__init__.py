@@ -1,3 +1,6 @@
+from .figure1 import (figure1_executable_graph, figure1_graph,
+                      figure1_int8_graph)
+from .swiftnet import swiftnet_cell_graph
 from .mobilenet import mobilenet_v1_graph
 from .quantize import (QParams, QuantizedModel, build_quantized,
                        int8_scheduling_graph, quantize_graph)
@@ -28,6 +31,7 @@ def random_input(graph, seed: int = 0):
     return {name: rng.standard_normal(shape).astype(np.float32)}
 
 
-__all__ = ["mobilenet_v1_graph", "graph_dtypes", "random_input", "QParams",
-           "QuantizedModel", "build_quantized", "int8_scheduling_graph",
-           "quantize_graph"]
+__all__ = ["figure1_executable_graph", "figure1_graph", "figure1_int8_graph",
+           "swiftnet_cell_graph", "mobilenet_v1_graph", "graph_dtypes",
+           "random_input", "QParams", "QuantizedModel", "build_quantized",
+           "int8_scheduling_graph", "quantize_graph"]

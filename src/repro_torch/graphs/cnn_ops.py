@@ -17,9 +17,12 @@ receptive-field edits and ``params.apply_params`` all go through it.
 Numerics: int8 ops are bit-identical to the JAX package's.  Integer
 convolutions accumulate as an exact float64 convolution (``kernels/
 conv_quant/ref.py``), requantization replays ``round(f32(acc) *
-f32(mult)) + zp_out`` literally, and ``qadd`` is the same integer
-fixed-point sequence.  Float32 ops agree with XLA within accumulation
-order; TF32 is switched off for them on the card.
+f32(mult)) + zp_out`` literally, and ``qadd`` (also in ``ref.py``, as the
+plain half of the fused conv→add kernels) is the same integer fixed-point
+sequence.  ``qconv2d``/``qdwconv2d`` go through the kernel wrappers, so on
+the card the int8 ops run the Hopper kernels.  Float32 ops agree
+with XLA within accumulation order; TF32 is switched off for them on the
+card.
 """
 from __future__ import annotations
 
@@ -32,9 +35,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.graph import Graph, Operator
 from repro_torch.core.partition import PEX_ATTR, SliceSpec, same_pads
+from repro_torch.kernels.conv_pointwise.ops import conv1x1_fused
 from repro_torch.kernels.conv_quant.ops import qconv_fused, qdwconv_fused
-from repro_torch.kernels.conv_quant.ref import (INT8_MAX, INT8_MIN,
-                                                qconv_ref, qdwconv_ref,
+from repro_torch.kernels.conv_quant.ref import (INT8_MAX, INT8_MIN, qadd,
                                                 requantize)
 
 
@@ -355,26 +358,19 @@ def qconv2d(x, w, stride: int, mult: float, zp_in: int, zp_out: int,
             hpad: Optional[Tuple[int, int]] = None,
             wpad: Optional[Tuple[int, int]] = None):
     """x: (..., H, W, Cin) int8; w: (k, k, Cin, Cout) int8; SAME padding;
-    fused relu (lower clamp at ``zp_out``).  The plain version (K3's)."""
-    k = w.shape[0]
-    hp = _pads(x.shape[-3], k, stride) if hpad is None else tuple(hpad)
-    wp = _pads(x.shape[-2], w.shape[1], stride) if wpad is None else \
-        tuple(wpad)
-    return qconv_ref(x, _const(w, x), stride=stride, mult=mult, zp_in=zp_in,
-                     zp_out=zp_out, hpad=hp, wpad=wp)
+    fused relu (lower clamp at ``zp_out``).  Through ``qconv_fused``: K1 or
+    K3 on a CUDA tensor, their plain versions on a CPU one."""
+    return qconv_fused(x, _const(w, x), stride=stride, mult=mult,
+                       zp_in=zp_in, zp_out=zp_out, hpad=hpad, wpad=wpad)
 
 
 def qdwconv2d(x, w, stride: int, mult: float, zp_in: int, zp_out: int,
               hpad: Optional[Tuple[int, int]] = None,
               wpad: Optional[Tuple[int, int]] = None):
-    """Depthwise twin of ``qconv2d``: w (k, k, C, 1) int8."""
-    k = w.shape[0]
-    hp = _pads(x.shape[-3], k, stride) if hpad is None else tuple(hpad)
-    wp = _pads(x.shape[-2], w.shape[1], stride) if wpad is None else \
-        tuple(wpad)
-    wc = _const(w, x).reshape(k, w.shape[1], x.shape[-1])
-    return qdwconv_ref(x, wc, stride=stride, mult=mult, zp_in=zp_in,
-                       zp_out=zp_out, hpad=hp, wpad=wp)
+    """Depthwise twin of ``qconv2d``: w (k, k, C, 1) int8; K2 on a CUDA
+    tensor."""
+    return qdwconv_fused(x, _const(w, x), stride=stride, mult=mult,
+                         zp_in=zp_in, zp_out=zp_out, hpad=hpad, wpad=wpad)
 
 
 def qmaxpool2d(x, k: int, stride: int,
@@ -385,34 +381,6 @@ def qmaxpool2d(x, k: int, stride: int,
     hp = _pads(x.shape[-3], k, stride) if hpad is None else tuple(hpad)
     wp = _pads(x.shape[-2], k, stride) if wpad is None else tuple(wpad)
     return _window_max(x, k, stride, hp, wp, INT8_MIN)
-
-
-# qadd runs in fixed point: the two rescale multipliers are quantized to
-# QADD_SHIFT fractional bits on the host and the whole op is int32
-# arithmetic + an integer round-half-even — integer ops cannot be contracted
-# into an FMA, so it is bit-identical in every execution context.
-QADD_SHIFT = 16
-
-
-def _round_half_even_rshift(acc, shift: int):
-    """Round-half-even of ``acc / 2**shift`` in pure integer arithmetic
-    (``acc`` any signed int tensor; arithmetic right shift floors)."""
-    base = acc >> shift
-    rem = acc - (base << shift)          # in [0, 2**shift)
-    half = 1 << (shift - 1)
-    return torch.where(rem > half, base + 1,
-                       torch.where(rem < half, base, base + (base & 1)))
-
-
-def qadd(a, b, mult_a: float, mult_b: float, zp_a: int, zp_b: int,
-         zp_out: int):
-    ma = int(round(float(mult_a) * (1 << QADD_SHIFT)))
-    mb = int(round(float(mult_b) * (1 << QADD_SHIFT)))
-    assert abs(ma) + abs(mb) <= (1 << 23), "qadd multipliers too large"
-    acc = ((a.to(torch.int32) - zp_a) * ma
-           + (b.to(torch.int32) - zp_b) * mb)
-    y = _round_half_even_rshift(acc, QADD_SHIFT) + zp_out
-    return torch.clamp(y, INT8_MIN, INT8_MAX).to(torch.int8)
 
 
 def qavgpool(x):
@@ -558,18 +526,27 @@ def redistribute_receptive_field(graph: Graph, shrink: str, grow: str,
 # Rules for the arena executor (mcu/compile.py) live next to the semantics
 # they mirror.  Each rebuilds the op's computation from attrs (weights from
 # the executor's device cache, plus the explicit pads a partial-execution
-# clone carries in ``pex_pads``/``pex_wpads``).  The int8 convs go through
-# the kernel wrappers, which launch the Hopper kernels on a CUDA arena and
-# run the plain versions on a CPU one — writing straight into the output's
-# arena view either way.
+# clone carries in ``pex_pads``/``pex_wpads``).  The int8 convs and the
+# k=1, stride-1 f32 convs go through the kernel wrappers, which launch the
+# Hopper kernels on a CUDA arena and run the plain versions on a CPU one —
+# writing straight into the output's arena view either way.  Every other
+# f32 conv is ``F.conv2d`` with TF32 off, as the reference computes those
+# outside any Pallas kernel.
 from repro_torch.mcu.compile import register_lowering  # noqa: E402
 
 
 @register_lowering("conv")
 def _lower_conv(ctx, op: Operator, x, *, out):
-    return conv2d(x, ctx.param(op, "weight"), op.attrs["stride"],
-                  hpad=op.attrs.get("pex_pads"),
-                  wpad=op.attrs.get("pex_wpads"))
+    a = op.attrs
+    if a.get("k", 1) == 1 and a["stride"] == 1:
+        # the reference's use_pallas branch: every k=1, stride-1 f32 conv is
+        # the pointwise kernel K6 (ReLU, no bias), writing into the arena
+        for key in ("pex_pads", "pex_wpads"):
+            assert tuple(a.get(key) or (0, 0)) == (0, 0), (op.name, key)
+        return conv1x1_fused(x, ctx.param(op, "weight")[0, 0], relu=True,
+                             out=out)
+    return conv2d(x, ctx.param(op, "weight"), a["stride"],
+                  hpad=a.get("pex_pads"), wpad=a.get("pex_wpads"))
 
 
 @register_lowering("dwconv")

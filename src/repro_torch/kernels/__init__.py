@@ -1,3 +1,5 @@
-from .conv_quant.ops import qconv_fused, qdwconv_fused
+from .conv_pointwise.ops import conv1x1_fused
+from .conv_quant.ops import qconv_add_fused, qconv_fused, qdwconv_fused
 
-__all__ = ["qconv_fused", "qdwconv_fused"]
+__all__ = ["conv1x1_fused", "qconv_fused", "qdwconv_fused",
+           "qconv_add_fused"]

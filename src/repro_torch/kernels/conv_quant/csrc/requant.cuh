@@ -17,3 +17,15 @@ __device__ __forceinline__ int8_t requant_relu(int acc, float mult,
   f = fminf(fmaxf(f, (float)zp_out), 127.0f);
   return (int8_t)__float2int_rn(f);
 }
+
+// The plain conv epilogue (K1, K3): requantize with the fused ReLU.  An
+// epilogue maps (int32 accumulator, lane, element index in the lane) to
+// the int8 output.
+struct RequantRelu {
+  float mult;
+  int zp_out;
+  __device__ __forceinline__ int8_t operator()(int acc, long long,
+                                               long long) const {
+    return requant_relu(acc, mult, zp_out);
+  }
+};

@@ -1,5 +1,7 @@
-"""Host wrappers of the int8 conv kernels K1–K3, and the q-op drop-ins
-``qconv_fused``/``qdwconv_fused`` with the reference's routing rule.
+"""Host wrappers of the int8 conv kernels K1–K5, and the q-op drop-ins
+``qconv_fused``/``qdwconv_fused``/``qconv_add_fused`` with the reference's
+routing rule (k=1, stride 1 and no pads to the 1x1 kernel K1/K4,
+everything else to the implicit-GEMM kernel K3/K5).
 
 The device decides, not a knob (the reference's ``use_pallas`` and
 ``interpret`` are gone): on a CUDA tensor a wrapper launches its Hopper
@@ -25,7 +27,8 @@ import torch
 
 from repro_torch.core.partition import same_pads
 
-from . import build, ref
+from . import ref
+from .build import CONV_QUANT
 
 
 def _pads(n: int, k: int, stride: int) -> Tuple[int, int]:
@@ -40,8 +43,8 @@ def _require_int8(name: str, t: torch.Tensor) -> None:
 
 
 def _lanes(name: str, t: torch.Tensor) -> Tuple[int, int]:
-    """(lanes, batch stride in bytes) of an NHWC int8 tensor whose every
-    lane is contiguous; raises on any other layout."""
+    """(lanes, batch stride in elements — bytes for int8) of an NHWC
+    tensor whose every lane is contiguous; raises on any other layout."""
     if t.dim() not in (3, 4):
         raise ValueError(f"{name} must be [H,W,C] or [B,H,W,C], got "
                          f"shape {tuple(t.shape)}")
@@ -79,12 +82,25 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
     if not w.is_contiguous():
         raise ValueError(f"{name}: weights must be contiguous")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    fn = getattr(build.load(name), f"{name}_launch")
-    rc = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), *args, x.device.index or 0,
-            ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    CONV_QUANT.launch(name, ctypes.c_void_p(x.data_ptr()),
+                      ctypes.c_void_p(w.data_ptr()),
+                      ctypes.c_void_p(out.data_ptr()), *args,
+                      x.device.index or 0, ctypes.c_void_p(stream))
+
+
+def _residual(r: torch.Tensor, shape, like: torch.Tensor, add_params):
+    """Check the residual of a fused conv -> add against the output
+    ``shape``; returns (r's pointer, its batch stride in bytes, ma, mb,
+    zp_a, zp_b, zp_out) for the kernel."""
+    _require_int8("r", r)
+    if tuple(r.shape) != tuple(shape) or r.device != like.device:
+        raise ValueError(f"r is {tuple(r.shape)} on {r.device}, expected "
+                         f"{tuple(shape)} on {like.device}")
+    _, r_bs = _lanes("r", r)
+    mult_a, mult_b, zp_a, zp_b, zp_add = add_params
+    ma, mb = ref.qadd_multipliers(mult_a, mult_b)
+    return (ctypes.c_void_p(r.data_ptr()), r_bs, ma, mb, int(zp_a),
+            int(zp_b), int(zp_add))
 
 
 def _out_hw(h: int, w: int, k: int, stride: int, hpad, wpad):
@@ -175,10 +191,79 @@ def qdwconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
     return out
 
 
+def qconv1x1_add(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
+                 mult: float, zp_in: int, zp_out: int,
+                 add_params: Tuple[float, float, int, int, int],
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4: K1, then the fixed-point ``qadd`` with the residual ``r`` [...,
+    H, W, Cout] int8; ``add_params = (mult_a, mult_b, zp_a, zp_b,
+    zp_out)``, leg *a* being the conv's output."""
+    _require_int8("x", x)
+    _require_int8("w", w)
+    lanes, x_bs = _lanes("x", x)
+    h, wd, cin = x.shape[-3:]
+    if w.dim() != 2 or w.shape[0] != cin:
+        raise ValueError(f"w must be [Cin={cin}, Cout], got "
+                         f"{tuple(w.shape)}")
+    shape = (*x.shape[:-1], w.shape[1])
+    res = _residual(r, shape, x, add_params)
+    if x.device.type == "cpu":
+        return _plain(ref.qconv1x1_add_ref(
+            x, w, r, mult=mult, zp_in=zp_in, zp_out=zp_out,
+            add_params=add_params), out)
+    out = _destination(out, shape, x)
+    _, o_bs = _lanes("out", out)
+    if out.numel():
+        _launch("qconv1x1_add", x, w, out, lanes, h * wd, cin, w.shape[1],
+                x_bs, o_bs, float(np.float32(mult)), zp_in, zp_out, *res)
+        qconv1x1_add.launches += 1
+    return out
+
+
+def qconv_add(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
+              stride: int, mult: float, zp_in: int, zp_out: int,
+              hpad: Tuple[int, int], wpad: Tuple[int, int],
+              add_params: Tuple[float, float, int, int, int],
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5: K3, then the fixed-point ``qadd`` with the residual ``r`` [...,
+    OH, OW, Cout] int8."""
+    _require_int8("x", x)
+    _require_int8("w", w)
+    lanes, x_bs = _lanes("x", x)
+    h, wd, cin = x.shape[-3:]
+    if w.dim() != 4 or w.shape[0] != w.shape[1] or w.shape[2] != cin:
+        raise ValueError(f"w must be [k, k, Cin={cin}, Cout], got "
+                         f"{tuple(w.shape)}")
+    k, cout = w.shape[0], w.shape[3]
+    oh, ow = _out_hw(h, wd, k, stride, hpad, wpad)
+    shape = (*x.shape[:-3], oh, ow, cout)
+    res = _residual(r, shape, x, add_params)
+    if x.device.type == "cpu":
+        return _plain(ref.qconv_add_ref(
+            x, w, r, stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
+            hpad=hpad, wpad=wpad, add_params=add_params), out)
+    out = _destination(out, shape, x)
+    _, o_bs = _lanes("out", out)
+    if out.numel():
+        _launch("qconv_add", x, w, out, lanes, h, wd, cin, cout, oh, ow, k,
+                stride, hpad[0], wpad[0], x_bs, o_bs,
+                float(np.float32(mult)), zp_in, zp_out, *res)
+        qconv_add.launches += 1
+    return out
+
+
 qconv1x1.launches = 0
 qconv.launches = 0
 qdwconv.launches = 0
-KERNEL_WRAPPERS = {"qconv1x1": qconv1x1, "qdwconv": qdwconv, "qconv": qconv}
+qconv1x1_add.launches = 0
+qconv_add.launches = 0
+KERNEL_WRAPPERS = {"qconv1x1": qconv1x1, "qdwconv": qdwconv, "qconv": qconv,
+                   "qconv1x1_add": qconv1x1_add, "qconv_add": qconv_add}
+
+
+def _is_1x1(k: int, stride: int, hpad, wpad) -> bool:
+    return (k == 1 and stride == 1 and hpad in (None, (0, 0))
+            and wpad in (None, (0, 0)))
 
 
 # ------------------------------------------------------ q-op drop-ins
@@ -193,14 +278,39 @@ def qconv_fused(x: torch.Tensor, w: torch.Tensor, *, stride: int,
     hpad = None if hpad is None else tuple(hpad)
     wpad = None if wpad is None else tuple(wpad)
     k = w.shape[0]
-    if (k == 1 and stride == 1 and hpad in (None, (0, 0))
-            and wpad in (None, (0, 0))):
+    if _is_1x1(k, stride, hpad, wpad):
         return qconv1x1(x, w.reshape(w.shape[2:]), mult=mult, zp_in=zp_in,
                         zp_out=zp_out, out=out)
     hp = _pads(x.shape[-3], k, stride) if hpad is None else hpad
     wp = _pads(x.shape[-2], w.shape[1], stride) if wpad is None else wpad
     return qconv(x, w, stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
                  hpad=hp, wpad=wp, out=out)
+
+
+def qconv_add_fused(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
+                    stride: int, mult: float, zp_in: int, zp_out: int,
+                    add_params: Tuple[float, float, int, int, int],
+                    hpad: Optional[Tuple[int, int]] = None,
+                    wpad: Optional[Tuple[int, int]] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Drop-in for a ``qconv2d -> qadd`` chain (residual ``r`` is the add's
+    second leg), bit-identical to the two q-ops run separately.  ``w`` is
+    in the graph's (k, k, Cin, Cout) layout; ``add_params = (mult_a,
+    mult_b, zp_a, zp_b, zp_out)`` in the qadd argument order.  k=1,
+    stride=1 and no pads go to K4, everything else to K5."""
+    hpad = None if hpad is None else tuple(hpad)
+    wpad = None if wpad is None else tuple(wpad)
+    add_params = tuple(add_params)
+    k = w.shape[0]
+    if _is_1x1(k, stride, hpad, wpad):
+        return qconv1x1_add(x, w.reshape(w.shape[2:]), r, mult=mult,
+                            zp_in=zp_in, zp_out=zp_out,
+                            add_params=add_params, out=out)
+    hp = _pads(x.shape[-3], k, stride) if hpad is None else hpad
+    wp = _pads(x.shape[-2], w.shape[1], stride) if wpad is None else wpad
+    return qconv_add(x, w, r, stride=stride, mult=mult, zp_in=zp_in,
+                     zp_out=zp_out, hpad=hp, wpad=wp, add_params=add_params,
+                     out=out)
 
 
 def qdwconv_fused(x: torch.Tensor, w: torch.Tensor, *, stride: int,
@@ -219,5 +329,6 @@ def qdwconv_fused(x: torch.Tensor, w: torch.Tensor, *, stride: int,
                    out=out)
 
 
-__all__ = ["qconv1x1", "qconv", "qdwconv", "qconv_fused", "qdwconv_fused",
+__all__ = ["qconv1x1", "qconv", "qdwconv", "qconv1x1_add", "qconv_add",
+           "qconv_fused", "qdwconv_fused", "qconv_add_fused",
            "KERNEL_WRAPPERS"]

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the int8 conv kernels K1–K3.
+"""Plain PyTorch versions of the int8 conv kernels K1–K5.
 
 Each is the q-op written out directly: a **float64** convolution of
 ``x - zp_in`` with the int8 weights, cast to int32, then the literal
@@ -17,6 +17,10 @@ Winograd algorithm can be chosen.
 The kernel wrappers in ``ops.py`` call these for tensors on the CPU, and
 the tests compare them with the JAX package.  Nothing on the CUDA path
 calls them.  Tensors are NHWC with an optional leading batch dimension.
+
+The fused conv -> add kernels K4/K5 are K1/K3 followed by ``qadd``, the
+port's fixed-point add (it lives here, and ``graphs/cnn_ops.py`` imports
+it, so that the plain K4/K5 and the graph op are one function).
 """
 from __future__ import annotations
 
@@ -82,5 +86,69 @@ def qdwconv_ref(x: torch.Tensor, w: torch.Tensor, *, stride: int,
     return requantize(acc, mult, zp_out, lo=zp_out)
 
 
+# qadd runs in fixed point: the two rescale multipliers are quantized to
+# QADD_SHIFT fractional bits on the host and the whole op is int32
+# arithmetic + an integer round-half-even — integer ops cannot be contracted
+# into an FMA, so it is bit-identical in every execution context.
+QADD_SHIFT = 16
+
+
+def qadd_multipliers(mult_a: float, mult_b: float) -> Tuple[int, int]:
+    """(ma, mb): the add's multipliers with QADD_SHIFT fractional bits
+    (Python's ``round``, half to even, as the reference).  Their sum of
+    magnitudes is held to 2**23, as the reference asserts, so that the
+    int32 accumulator cannot overflow (|x - zp| <= 255)."""
+    ma = int(round(float(mult_a) * (1 << QADD_SHIFT)))
+    mb = int(round(float(mult_b) * (1 << QADD_SHIFT)))
+    if abs(ma) + abs(mb) > (1 << 23):
+        raise ValueError(f"qadd multipliers too large: |{mult_a}| + "
+                         f"|{mult_b}| > 128")
+    return ma, mb
+
+
+def _round_half_even_rshift(acc: torch.Tensor, shift: int) -> torch.Tensor:
+    """Round-half-even of ``acc / 2**shift`` in pure integer arithmetic
+    (``acc`` any signed int tensor; arithmetic right shift floors)."""
+    base = acc >> shift
+    rem = acc - (base << shift)          # in [0, 2**shift)
+    half = 1 << (shift - 1)
+    return torch.where(rem > half, base + 1,
+                       torch.where(rem < half, base, base + (base & 1)))
+
+
+def qadd(a: torch.Tensor, b: torch.Tensor, mult_a: float, mult_b: float,
+         zp_a: int, zp_b: int, zp_out: int) -> torch.Tensor:
+    """int8 + int8 -> int8 at the output params, no ReLU."""
+    ma, mb = qadd_multipliers(mult_a, mult_b)
+    acc = ((a.to(torch.int32) - zp_a) * ma
+           + (b.to(torch.int32) - zp_b) * mb)
+    y = _round_half_even_rshift(acc, QADD_SHIFT) + zp_out
+    return torch.clamp(y, INT8_MIN, INT8_MAX).to(torch.int8)
+
+
+def qconv1x1_add_ref(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
+                     mult: float, zp_in: int, zp_out: int,
+                     add_params: Tuple[float, float, int, int, int]
+                     ) -> torch.Tensor:
+    """K4's function: K1's, then ``qadd`` with the residual ``r`` [..., H,
+    W, Cout] int8.  ``add_params = (mult_a, mult_b, zp_a, zp_b, zp_out)``,
+    leg *a* being the conv's output."""
+    y = qconv1x1_ref(x, w, mult=mult, zp_in=zp_in, zp_out=zp_out)
+    return qadd(y, r, *add_params)
+
+
+def qconv_add_ref(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
+                  stride: int, mult: float, zp_in: int, zp_out: int,
+                  hpad: Tuple[int, int], wpad: Tuple[int, int],
+                  add_params: Tuple[float, float, int, int, int]
+                  ) -> torch.Tensor:
+    """K5's function: K3's, then ``qadd`` with the residual ``r`` [..., OH,
+    OW, Cout] int8."""
+    y = qconv_ref(x, w, stride=stride, mult=mult, zp_in=zp_in,
+                  zp_out=zp_out, hpad=hpad, wpad=wpad)
+    return qadd(y, r, *add_params)
+
+
 __all__ = ["requantize", "qconv1x1_ref", "qconv_ref", "qdwconv_ref",
-           "INT8_MIN", "INT8_MAX"]
+           "qadd", "qadd_multipliers", "qconv1x1_add_ref", "qconv_add_ref",
+           "QADD_SHIFT", "INT8_MIN", "INT8_MAX"]

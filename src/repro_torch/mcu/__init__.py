@@ -1,5 +1,7 @@
+from .interpreter import InterpreterReport, MicroInterpreter
 from .compile import (CompiledExecutor, LoweringCtx, compile_schedule,
                       lower_op, register_lowering)
 
-__all__ = ["CompiledExecutor", "LoweringCtx", "compile_schedule",
+__all__ = ["MicroInterpreter", "InterpreterReport",
+           "CompiledExecutor", "LoweringCtx", "compile_schedule",
            "lower_op", "register_lowering"]

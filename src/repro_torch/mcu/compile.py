@@ -21,9 +21,13 @@ buffer, the byte-addressed SRAM arena of TFLite-Micro:
   view.  Inplace chains (``pex_concat``, ``pex_ring_push``) alias to one
   offset, so their read-modify-write at that offset is the shared buffer;
 * ``pex_slice``/``pex_concat``/``pex_ring_push``/``pex_ring_read`` are
-  lowered from the structured attrs the partition rewrite records.
-  ``op.fn`` is never called: the partition simulator's closures are numpy.
-  A kind without a rule is refused when the program is compiled;
+  lowered from the structured attrs the partition rewrite records; their
+  ``op.fn`` (the partition simulator's numpy closures) is never called;
+* a kind without a rule falls back to its ``op.fn``, as the reference's
+  does: the fn runs once per lane on that lane's unbatched ``[*shape]``
+  views (what the reference's ``vmap`` hands it), and each lane's result
+  is copied into that lane's output view.  A kind with neither a rule nor
+  an ``fn`` is refused when the program is compiled;
 * ``pex_ring_read`` windows with a single integer-exact consumer are
   **zero-copy**: the gathered window is handed to the consumer as a tensor
   and never written to the arena (``_zero_copy_reads``);
@@ -113,8 +117,37 @@ def register_lowering(kind: str):
     return deco
 
 
+def _store(name: str, val: torch.Tensor, out: torch.Tensor) -> None:
+    """Copy a lowered value into its arena view, refusing what would be
+    silently cast or reshaped."""
+    if val.dtype != out.dtype:
+        raise ValueError(
+            f"{name}: lowered output is {val.dtype}, graph declares "
+            f"{out.dtype} — quantized semantics must requantize before "
+            f"writing to the arena")
+    if val.numel() != out.numel():
+        raise ValueError(
+            f"{name}: lowered output has {val.numel()} elements, the arena "
+            f"view holds {out.numel()}")
+    out.copy_(val.reshape(out.shape))
+
+
+def _fallback(ctx: LoweringCtx, op: Operator, *args, out):
+    """A kind without a rule: ``op.fn`` on each lane's unbatched inputs,
+    each result copied into that lane's output view."""
+    if op.fn is None:
+        raise ValueError(
+            f"operator {op.name!r} (kind={op.kind!r}) has neither a lowering "
+            f"rule nor executable semantics")
+    for lane in range(out.shape[0]):
+        val = torch.as_tensor(op.fn(*[a[lane] for a in args]),
+                              device=out.device)
+        _store(op.output, val, out[lane])
+    return out
+
+
 def lower_op(ctx: LoweringCtx, op: Operator, *args, out=None):
-    return _RULES[op.kind](ctx, op, *args, out=out)
+    return _RULES.get(op.kind, _fallback)(ctx, op, *args, out=out)
 
 
 def _ring_spans(start: int, n: int, rows: int):
@@ -442,20 +475,8 @@ class CompiledExecutor:
             return
         out = self._view(arena, op.output)
         val = lower_op(self._ctx, op, *args, out=out)
-        if val is out:
-            return
-        if val.dtype != out.dtype:
-            raise ValueError(
-                f"{op.output}: lowered output is {val.dtype}, graph "
-                f"declares {self._ctx.dtype(op.output)} — quantized "
-                f"semantics must requantize before writing to the arena")
-        if val.numel() != out.numel():
-            size = self.offsets[op.output][1]
-            raise ValueError(
-                f"{op.output}: lowered output has "
-                f"{val.numel() * val.element_size() // out.shape[0]} bytes "
-                f"per lane, plan expects {size}")
-        out.copy_(val.reshape(out.shape))
+        if val is not out:
+            _store(op.output, val, out)
 
     def execute(self, arena: torch.Tensor) -> torch.Tensor:
         """Run the program in place on every lane of ``arena``."""
@@ -544,10 +565,10 @@ def compile_schedule(graph: Graph,
                     f"misaligned byte offset {offsets[t][0]}; plan with "
                     f"ArenaPlanner.plan(..., alignment=None) so offsets "
                     f"are aligned to the widest itemsize")
-        if op.kind not in _RULES:
+        if op.kind not in _RULES and op.fn is None:
             raise ValueError(
-                f"operator {op.name!r} (kind={op.kind!r}) has no lowering "
-                f"rule; the executor never calls op.fn")
+                f"operator {op.name!r} (kind={op.kind!r}) has neither a "
+                f"lowering rule nor executable semantics")
     ctx = LoweringCtx(graph, dev)
     zc = frozenset(_zero_copy_reads(graph, sched))
     items = _plan_items(ctx, offsets, sched)

@@ -15,6 +15,8 @@ from repro.core import greedy_schedule as jax_greedy
 from repro.core import partition_graph as jax_partition
 from repro.core import schedule as jax_schedule
 from repro.core.graph import Graph as JaxGraph
+from repro.graphs import figure1_executable_graph as jax_fig1_exec
+from repro.graphs import figure1_int8_graph as jax_fig1_int8
 from repro.graphs import mobilenet_v1_graph as jax_mobilenet
 from repro.graphs.cnn_ops import CNNBuilder as JaxBuilder
 from repro.graphs.cnn_ops import conv2d as jax_conv2d
@@ -26,7 +28,8 @@ from repro_torch.core import (ArenaPlanner, greedy_schedule,
                               partition_graph, schedule)
 from repro_torch.core.graph import Graph
 from repro_torch.errors import GuardViolation
-from repro_torch.graphs import mobilenet_v1_graph, random_input
+from repro_torch.graphs import (figure1_executable_graph, figure1_int8_graph,
+                                mobilenet_v1_graph, random_input)
 from repro_torch.graphs.cnn_ops import CNNBuilder
 from repro_torch.mcu.compile import CANARY_BYTE, compile_schedule
 
@@ -165,6 +168,31 @@ def test_guard_canaries_catch_a_stomped_byte():
         ex.verify_guards(arena)
 
 
+@pytest.mark.parametrize("which", ["float32", "int8"])
+def test_op_fn_fallback_runs_figure1(which):
+    """Figure 1's kinds (``conv2d``, ``concat``) have no lowering rule: the
+    executor runs their ``op.fn`` lane by lane, as the reference traces
+    it.  int8 bit-exact and f32 within tolerance of the reference
+    executor, 4 960 B of arena under the optimal order, and each of three
+    lanes equal to its one-shot run."""
+    jg, pg = ((jax_fig1_exec(), figure1_executable_graph())
+              if which == "float32" else
+              (jax_fig1_int8(), figure1_int8_graph()))
+    order = ["op1", "op4", "op6", "op2", "op3", "op5", "op7"]
+    ex = check_twin_executors(jg, [jg.op_by_name(n) for n in order], pg,
+                              [pg.op_by_name(n) for n in order],
+                              random_input(pg), exact=which == "int8")
+    assert ex.arena_size == 4960
+    xs = [random_input(pg, seed=s) for s in range(3)]
+    arena = ex.new_arena(3)
+    for lane, x in enumerate(xs):
+        ex.write_inputs(arena, lane, x)
+    ex.execute(arena)
+    for lane, x in enumerate(xs):
+        np.testing.assert_array_equal(ex.outputs_from(arena, lane)["t7"],
+                                      ex.run(x)["t7"])
+
+
 def test_compile_rejects_misaligned_plan_and_unknown_kinds():
     g = Graph()
     g.add_tensor("a", 1001, (1001,), dtype="int8")
@@ -176,8 +204,9 @@ def test_compile_rejects_misaligned_plan_and_unknown_kinds():
     assert plan.offset_of("b") % 4 != 0
     with pytest.raises(ValueError, match="misaligned"):
         compile_schedule(g, sched, plan, device="cpu")
-    # aligned, but kind "op" has no lowering rule: refused, never op.fn
-    with pytest.raises(ValueError, match="no lowering rule"):
+    # aligned, but kind "op" has neither a lowering rule nor an op.fn to
+    # fall back to: refused when the program is compiled
+    with pytest.raises(ValueError, match="neither a lowering rule"):
         compile_schedule(g, sched, device="cpu")
 
 

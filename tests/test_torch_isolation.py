@@ -13,6 +13,7 @@ import torch
 import repro_torch.deploy as deploy
 from repro_torch.errors import DeviceInitError
 from repro_torch.graphs import mobilenet_v1_graph, quantize_graph
+from repro_torch.mcu import MicroInterpreter
 from repro_torch.mcu.compile import compile_schedule
 from repro_torch.serving import GraphServingEngine
 
@@ -68,3 +69,5 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         quantize_graph(g)
     with pytest.raises(DeviceInitError):
         GraphServingEngine(g)
+    with pytest.raises(DeviceInitError, match="device='cpu'"):
+        MicroInterpreter(g)
