@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Builds the six Hopper kernels from ``src/repro_torch/kernels/*/csrc`` with
-``nvcc`` (one process per source, all at once) — the int8 convs K1–K3,
-the fused conv→add kernels K4/K5 and the float32 pointwise conv K6 — and
-holds each against its plain PyTorch version on the card, at every
-distinct launch configuration of the paths below plus hostile shapes, and
-times it there.  Integer kernels must be bit-exact; K6 must stay within
-the worst-case float32 dot-product error bound (see ``F32_BOUND``).
+Builds the eight Hopper kernels from ``src/repro_torch/kernels/*/csrc``
+with ``nvcc`` (one process per source, all at once) — the int8 convs
+K1–K3, the fused conv→add kernels K4/K5, the float32 pointwise conv K6,
+flash attention K7 and decode attention K8 — and holds each against its
+plain PyTorch version on the card, at every distinct launch configuration
+of the paths below plus hostile shapes, and times it there.  Integer
+kernels must be bit-exact; K6 must stay within the worst-case float32
+dot-product error bound (see ``F32_BOUND``); K7/K8 within ``F32_ATTN`` of
+max|want| in float32 and one bf16 ulp in bf16.
 
 Then it drives the port's paths, random weights from fixed seeds, each
 with every kernel's launch count set to 0 just before it and read just
@@ -31,7 +33,16 @@ after (the launches of the kernel checks above do not count):
   compiled executor's;
 * the public entry point ``kernels.qconv_add_fused`` (K4/K5) at every int8
   conv shape of the SwiftNet and reorder-only MobileNet schedules with a
-  seeded residual, bit-exact against ``qconv_fused`` then ``qadd``.
+  seeded residual, bit-exact against ``qconv_fused`` then ``qadd``;
+* LLM serving of Llama-3.2-3B at full width and depth (28 layers, bf16,
+  random weights drawn on the card) through ``repro_torch.launch.serve``'s
+  ``ServingEngine``: the reference launcher's traffic (8 prompts of 4–23
+  tokens, 12 new tokens, ``max_batch`` 4, ``cache_len`` 96) and long
+  prompts (4 × 1024 tokens, 16 new, ``cache_len`` 2048) — K7 28× per
+  prefill, K8 28× per decode step — with prefill/decode times, tokens/s,
+  the device's busy time and the KV-arena bytes; decoding token t after a
+  prefill of t−1 against prefilling t tokens (``CONT_TOL``); a 2-layer
+  variant on the card against the port's CPU path (``CPU_TOL``).
 
 It imports only ``repro_torch``, torch and numpy.  Any failed check
 raises (exit code 1); without CUDA, or without the repository around it,
@@ -41,6 +52,8 @@ it exits 2 before printing any result.  The line before the last is
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import re
 import statistics
@@ -81,10 +94,60 @@ REPLACES = {
     "qconv1x1_add": "src/repro/kernels/conv_quant/kernel.py:148",
     "qconv_add": "src/repro/kernels/conv_quant/kernel.py:322",
     "conv1x1": "src/repro/kernels/conv_pointwise/kernel.py:44",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:70",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:64",
 }
 SOURCES = {n: f"src/repro_torch/kernels/conv_quant/csrc/{n}.cu"
            for n in REPLACES}
 SOURCES["conv1x1"] = "src/repro_torch/kernels/conv_pointwise/csrc/conv1x1.cu"
+for _n in ("flash_attention", "decode_attention"):
+    SOURCES[_n] = f"src/repro_torch/kernels/{_n}/csrc/{_n}.cu"
+ATTENTION = ("flash_attention", "decode_attention")
+H100_BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
+# ---- the LLM serving phases: Llama-3.2-3B at full width and depth, bf16,
+# random weights drawn on the card by the launcher (torch.Generator seed 0)
+LLM_ARCH = "llama3.2-3b"
+# (label, requests, prompt tokens (None: the reference launcher's 4-23),
+# new tokens, max_batch, cache_len, the KV block bytes it must plan)
+LLM_MIXES = (("short", 8, None, 12, 4, 96, 11_010_436),
+             ("long", 4, 1024, 16, 4, 2048, 234_889_220))
+# Decoding token t after a prefill of t-1 tokens against prefilling t
+# tokens, at full depth in bf16: max |delta logit| <= CONT_TOL * max|logit|.
+# Both paths round every activation to bf16 (2^-9 relative), but through
+# other GEMM shapes (M = B*S vs B) and other attention kernels (K7 vs K8),
+# so activations differ by about an ulp per layer; over 28 residual layers
+# that is ~0.5 % of a logit's scale — 3e-2 leaves a 6x margin.
+CONT_TOL, CONT_T = 3e-2, 64
+# The same 2-layer model (full width, the first two layers' weights) on the
+# card and on the port's CPU path, both bf16: the same one-ulp-per-layer
+# argument over 2 layers instead of 28 gives ~0.1 %; 2e-2 * max|logit|.
+CPU_TOL, CPU_LAYERS, CPU_S, CPU_STEPS = 2e-2, 2, 12, 3
+# K7/K8 against their plain versions.  float32: |got - want| <= F32_ATTN *
+# max|want| (the JAX package's own kernel tests use 2e-5); bf16: within one
+# bf16 ulp of want plus 1e-6 * max|want| — both compute in float32 from the
+# same bf16 inputs and round once, so they differ by at most the rounding
+# of two float32 values that differ in the last float32 bits.
+F32_ATTN, BF16_ATTN_ABS = 2e-5, 1e-6
+K8_CACHES = 6       # K8 is timed over this many caches in turn (see timing)
+# hostile K7 shapes (B, Sq, Skv, H, K, D, causal, packed): S 1 / 17 / 1000,
+# GQA 1, 3 and 4, D 64 / 96 / 128, Sq < Skv, non-causal; `packed` reads
+# q/k/v as strided slices of one [B, S, H+2K, D] projection
+HOSTILE_K7 = [(1, 1, 1, 2, 2, 64, True, False),
+              (2, 17, 17, 6, 2, 128, True, False),
+              (1, 1000, 1000, 4, 1, 64, True, False),
+              (2, 64, 256, 8, 2, 128, True, False),
+              (1, 100, 300, 3, 3, 128, False, False),
+              (2, 5, 37, 12, 4, 96, True, False),
+              (1, 1000, 1000, 24, 8, 128, False, True),
+              (2, 129, 129, 24, 8, 128, True, True)]
+# hostile K8 shapes (B, S, H, K, D, lengths, strided): caches of 96 and
+# 2048 rows, lengths 1, S and between, GQA 1, 3 and 4; `strided` caches are
+# views of a longer cache
+HOSTILE_K8 = [(1, 96, 8, 8, 128, (1,), False),
+              (4, 2048, 24, 8, 128, (1, 1039, 2048, 700), False),
+              (3, 96, 12, 3, 64, (5, 96, 50), True),
+              (2, 17, 16, 4, 128, (17, 3), False),
+              (2, 2048, 8, 8, 64, (2048, 1), True)]
 # test_torch_qconv.py's hostile shapes: odd H/W, 1-lane channels, stride
 # 2, asymmetric pads (H, W, Cin, Cout, k, stride, hpad, wpad; Cout=0 for
 # depthwise)
@@ -604,6 +667,380 @@ class Paths:
             f"({time.perf_counter() - t0:.2f} s)")
 
 
+class AttentionChecks:
+    """K7 and K8 held against their plain versions on the card, once per
+    launch configuration; ``record`` wraps the model's calls of the two
+    kernels to collect the configurations the LLM phases launch."""
+
+    def __init__(self, torch, np, device):
+        from repro_torch.kernels.decode_attention import ops as dec_ops
+        from repro_torch.kernels.decode_attention import ref as dec_ref
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        from repro_torch.kernels.flash_attention import ref as fa_ref
+        self.torch, self.np, self.device = torch, np, device
+        self.fa_ops, self.fa_ref = fa_ops, fa_ref
+        self.dec_ops, self.dec_ref = dec_ops, dec_ref
+        self.gen = torch.Generator(device=device).manual_seed(1)
+        self.seen = set()
+        self.checked = {n: 0 for n in ATTENTION}
+        self.mismatches = {n: 0 for n in ATTENTION}
+        self.max_err = {n: 0.0 for n in ATTENTION}
+        self.max_rel = {n: 0.0 for n in ATTENTION}
+        self.main_k7, self.main_k8 = [], []    # configs the paths launched
+
+    @contextlib.contextmanager
+    def record(self):
+        """Record every K7/K8 launch configuration of the model while the
+        block runs (the wrappers' counts are untouched)."""
+        import repro_torch.kernels as kernels
+        fa, dec = kernels.flash_attention, kernels.decode_attention
+
+        def flash(q, k, v, *, causal=True):
+            self.main_k7.append((tuple(q.shape), tuple(k.shape), q.dtype,
+                                 causal))
+            return fa(q, k, v, causal=causal)
+
+        def decode(q, k_cache, v_cache, lengths):
+            self.main_k8.append((tuple(q.shape), tuple(k_cache.shape),
+                                 q.dtype, lengths.clone()))
+            return dec(q, k_cache, v_cache, lengths)
+
+        kernels.flash_attention, kernels.decode_attention = flash, decode
+        try:
+            yield
+        finally:
+            kernels.flash_attention, kernels.decode_attention = fa, dec
+
+    def _randn(self, shape, dtype):
+        return self.torch.randn(shape, generator=self.gen,
+                                device=self.device).to(dtype)
+
+    def _compare(self, name, got, want):
+        torch = self.torch
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        wmax = float(want.float().abs().max())
+        if got.dtype == torch.float32:
+            bound = F32_ATTN * wmax
+        else:
+            w = want.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+            ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+            bound = ulp + BF16_ATTN_ABS * wmax
+        assert torch.isfinite(got.float()).all(), name
+        self.mismatches[name] += int((diff > bound).sum())
+        self.max_err[name] = max(self.max_err[name], float(diff.max()))
+        self.max_rel[name] = max(self.max_rel[name],
+                                 float(diff.max()) / max(wmax, 1e-30))
+        self.checked[name] += 1
+
+    def k7(self, B, Sq, Skv, H, K, D, dtype, causal, packed=False):
+        key = ("k7", B, Sq, Skv, H, K, D, dtype, causal, packed)
+        if key in self.seen:
+            return
+        self.seen.add(key)
+        if packed:      # q/k/v as slices of one projection: strided heads
+            assert Sq == Skv
+            qkv = self._randn((B, Sq, H + 2 * K, D), dtype)
+            q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+        else:
+            q = self._randn((B, Sq, H, D), dtype)
+            k = self._randn((B, Skv, K, D), dtype)
+            v = self._randn((B, Skv, K, D), dtype)
+        got = self.fa_ops.flash_attention(q, k, v, causal=causal)
+        want = self.fa_ref.attention_ref(q, k, v, causal=causal)
+        self._compare("flash_attention", got, want)
+
+    def k8(self, B, S, H, K, D, dtype, lengths, strided=False):
+        key = ("k8", B, S, H, K, D, dtype, tuple(lengths), strided)
+        if key in self.seen:
+            return
+        self.seen.add(key)
+        torch = self.torch
+        q = self._randn((B, H, D), dtype)
+        extra = 7 if strided else 0     # caches as views of longer ones
+        kc = self._randn((B, S + extra, K, D), dtype)[:, :S]
+        vc = self._randn((B, S + extra, K, D), dtype)[:, :S]
+        L = torch.tensor(lengths, dtype=torch.int32, device=self.device)
+        got = self.dec_ops.decode_attention(q, kc, vc, L)
+        want = self.dec_ref.decode_attention_ref(q, kc, vc, L)
+        self._compare("decode_attention", got, want)
+
+    def hostile(self):
+        torch = self.torch
+        for dtype in (torch.float32, torch.bfloat16):
+            for (B, Sq, Skv, H, K, D, causal, packed) in HOSTILE_K7:
+                self.k7(B, Sq, Skv, H, K, D, dtype, causal, packed)
+            for (B, S, H, K, D, lengths, strided) in HOSTILE_K8:
+                self.k8(B, S, H, K, D, dtype, lengths, strided)
+
+    def main_path(self):
+        """Every distinct configuration the recorded phases launched."""
+        n = len(self.seen)
+        for (qs, ks, dtype, causal) in self.main_k7:
+            B, Sq, H, D = qs
+            self.k7(B, Sq, ks[1], H, ks[2], D, dtype, causal)
+        for (qs, ks, dtype, lengths) in self.main_k8:
+            B, H, D = qs
+            self.k8(B, ks[1], H, ks[2], D, dtype, tuple(lengths.tolist()))
+        return len(self.seen) - n
+
+    def largest(self, name):
+        """The main-path configuration of the most work: K7 by query x key
+        pairs, K8 by valid cache rows."""
+        if name == "flash_attention":
+            return max(self.main_k7, key=lambda c: c[0][0] * c[0][2]
+                       * c[0][1] * c[1][1])
+        return max(self.main_k8, key=lambda c: c[0][1] * int(c[3].sum()))
+
+    def timing(self, name, card):
+        """kernel_ms, plain_ms, library_ms and the bound at the largest
+        main-path configuration of K7 or K8."""
+        torch = self.torch
+        import torch.nn.functional as F
+        if name == "flash_attention":
+            (B, Sq, H, D), ks, dtype, causal = self.largest(name)
+            Skv, K = ks[1], ks[2]
+            q = self._randn((B, Sq, H, D), dtype)
+            k = self._randn((B, Skv, K, D), dtype)
+            v = self._randn((B, Skv, K, D), dtype)
+            run = lambda: self.fa_ops.flash_attention(  # noqa: E731
+                q, k, v, causal=causal)
+            plain = lambda: self.fa_ref.attention_ref(  # noqa: E731
+                q, k, v, causal=causal)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=True)
+            # query-key pairs the causal mask keeps (queries are the last
+            # Sq positions): each costs 2·D flops in q·k and 2·D in p·v
+            off = Skv - Sq
+            pairs = sum(min(Skv, max(0, off + i + 1)) for i in range(Sq)) \
+                if causal else Sq * Skv
+            flops = 4 * B * H * D * pairs
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) \
+                * q.element_size()
+            shape = (f"B{B} Sq{Sq} Skv{Skv} H{H}/K{K} D{D} {dtype} "
+                     f"causal={causal}")
+            lib_name = "F.scaled_dot_product_attention(is_causal, enable_gqa)"
+        else:
+            (B, H, D), ks, dtype, lengths = self.largest(name)
+            S, K = ks[1], ks[2]
+            q = self._randn((B, H, D), dtype)
+            # each decode layer reads another layer's cache, which is not in
+            # L2: successive calls cycle over K8_CACHES caches of > 50 MB
+            caches = itertools.cycle([
+                (self._randn((B, S, K, D), dtype),
+                 self._randn((B, S, K, D), dtype))
+                for _ in range(K8_CACHES)])
+            L = lengths.to(self.device)
+            run = lambda: self.dec_ops.decode_attention(  # noqa: E731
+                q, *next(caches), L)
+            plain = lambda: self.dec_ref.decode_attention_ref(  # noqa: E731
+                q, *next(caches), L)
+            mask = (torch.arange(S, device=self.device)[None]
+                    < L[:, None])[:, None, None, :]
+
+            def lib():
+                kc, vc = next(caches)
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=True)
+            rows = int(lengths.sum())
+            flops = 4 * H * D * rows
+            nbytes = (2 * q.numel() + 2 * rows * K * D) * q.element_size() \
+                + 4 * B
+            shape = (f"B{B} S{S} H{H}/K{K} D{D} {dtype} lengths "
+                     f"{sorted(set(lengths.tolist()))}")
+            lib_name = (f"F.scaled_dot_product_attention(bool mask, "
+                        f"enable_gqa); {K8_CACHES} caches in turn, cold in L2")
+        peak = H100_BF16_OPS_PER_S if dtype == torch.bfloat16 \
+            else H100_F32_OPS_PER_S
+        kernel_ms = time_ms(torch, run)
+        plain_ms = time_ms(torch, plain, iters=10, warmup=2)
+        library_ms = time_ms(torch, lib)
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        log(f"kernels {name}: {self.checked[name]} configs, "
+            f"{self.mismatches[name]} mismatches, max_abs_err "
+            f"{self.max_err[name]:.3e}, max_rel_err {self.max_rel[name]:.3e} "
+            f"(of max|want|); at {shape}: kernel_ms {kernel_ms:.5f}, "
+            f"plain_ms {plain_ms:.5f}, library_ms {library_ms:.5f} "
+            f"({lib_name}), bound_ms {max(t_bytes, t_ops):.7f} "
+            f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) [{card}]")
+        return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    shape=shape)
+
+
+class Llm:
+    """The LLM serving path of the port: Llama-3.2-3B at full width and
+    depth in bf16 through ``repro_torch.launch.serve``'s engine, K7 on every
+    prefill layer, K8 on every decode layer."""
+
+    def __init__(self, torch, np, device, paths, attn, card):
+        from repro_torch.configs import get_config
+        from repro_torch.launch import serve as launch_serve
+        self.torch, self.np, self.device = torch, np, device
+        self.paths, self.attn, self.card = paths, attn, card
+        self.launch_serve = launch_serve
+        t0 = time.perf_counter()
+        self.cfg = get_config(LLM_ARCH)
+        # the launcher's own engine: random bf16 weights drawn on the card
+        self.engine = launch_serve.build_engine(
+            LLM_ARCH, max_batch=LLM_MIXES[0][4], cache_len=LLM_MIXES[0][5],
+            device=device)
+        self.params = self.engine.params
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in self._leaves(self.params))
+        log(f"phase llm-init: {LLM_ARCH} ({self.cfg.num_layers} layers, d "
+            f"{self.cfg.d_model}, {self.cfg.num_heads} heads / "
+            f"{self.cfg.num_kv_heads} kv heads of {self.cfg.head_dim_}, "
+            f"vocab {self.cfg.vocab_size}, {self.cfg.dtype}): {n} parameters "
+            f"drawn on the card, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            f"allocated ({time.perf_counter() - t0:.2f} s)")
+
+    @staticmethod
+    def _leaves(tree):
+        for v in tree.values():
+            yield from (Llm._leaves(v) if isinstance(v, dict) else (v,))
+
+    def _requests(self, n, prompt, max_new):
+        from repro_torch.serving import Request
+        if prompt is None:      # the reference launcher's traffic
+            return self.launch_serve.make_requests(self.cfg, n, max_new)
+        rng = self.np.random.default_rng(1)
+        return [Request(rid=i, prompt=rng.integers(
+            0, self.cfg.vocab_size, prompt).astype(self.np.int32),
+            max_new_tokens=max_new) for i in range(n)]
+
+    def serve(self, label, n, prompt, max_new, max_batch, cache_len,
+              block_bytes):
+        """One traffic mix through ``ServingEngine.serve``: a warm-up
+        request, then the counted run (K7 28x per prefill, K8 28x per
+        decode step), then a profiled run for the device's busy time."""
+        from repro_torch.serving import ServingEngine
+        torch, np, L = self.torch, self.np, self.cfg.num_layers
+        t0 = time.perf_counter()
+        eng = ServingEngine(self.cfg, self.params, max_batch=max_batch,
+                            cache_len=cache_len, device=self.device)
+        assert eng.block_bytes == block_bytes, (eng.block_bytes, block_bytes)
+        reqs = self._requests(n, prompt, max_new)
+        eng.serve(reqs[:1])                               # warm-up
+        self.paths.reset()
+        with self.attn.record():
+            results = eng.serve(reqs)
+        launches = self.paths.read()
+        batches = [reqs[i:i + max_batch] for i in range(0, n, max_batch)]
+        steps = sum(max(r.max_new_tokens for r in b) - 1 for b in batches)
+        want = {"flash_attention": L * len(batches),
+                "decode_attention": L * steps}
+        assert {k: launches[k] for k in ATTENTION} == want, (launches, want)
+        assert all(v == 0 for k, v in launches.items()
+                   if k not in ATTENTION), launches
+        for r, q in zip(results, reqs):
+            assert r.rid == q.rid and len(r.tokens) == q.max_new_tokens
+            assert all(0 <= t < self.cfg.vocab_size for t in r.tokens)
+        st = eng.stats
+        assert st.kv_arena_peak_bytes == max_batch * block_bytes
+        assert st.kv_static_bytes == n * block_bytes
+        assert st.peak_concurrent == max_batch and st.requests == n
+        per_batch = [(results[i].prefill_ms, results[i].decode_ms)
+                     for i in range(0, n, max_batch)]
+        dec_tokens = sum(len(b) * (max(r.max_new_tokens for r in b) - 1)
+                         for b in batches)
+        dec_s = sum(d for _, d in per_batch) / 1e3
+        wall_ms = st.wall_s * 1e3
+        busy, top = device_time(torch, lambda: eng.serve(reqs), reps=1)
+        log(f"phase llm-{label}: {n} requests (prompts "
+            f"{sorted({len(r.prompt) for r in reqs})} tokens), {max_new} new "
+            f"tokens each, max_batch {max_batch}, cache_len {cache_len}: "
+            f"launches {launches} (K7 {L}/prefill, K8 {L}/decode step); "
+            f"per batch prefill_ms/decode_ms "
+            + ", ".join(f"{p:.3f}/{d:.3f}" for p, d in per_batch)
+            + f"; decode {1e3 * dec_s / steps:.3f} ms/step, "
+            f"{dec_tokens / dec_s:.2f} tokens/s; serve wall {wall_ms:.3f} ms, "
+            f"device busy {busy:.3f} ms (profiler), idle share "
+            f"{1 - busy / wall_ms:.3f}; top "
+            + ", ".join(f"{nm} {t:.3f} ms" for nm, t in top)
+            + f"; block_bytes {eng.block_bytes} B, kv_arena_peak_bytes "
+            f"{st.kv_arena_peak_bytes} B, kv_static_bytes "
+            f"{st.kv_static_bytes} B, peak_concurrent {st.peak_concurrent}; "
+            f"first tokens {results[0].tokens[:6]} [{self.card}] "
+            f"({time.perf_counter() - t0:.2f} s)")
+
+    def continuation(self):
+        """Decoding token t after a prefill of t-1 tokens gives the logits
+        of prefilling t tokens (tests/test_arch_smoke.py:78-93) at full
+        width and depth: K7 against K8."""
+        from repro_torch.models import Model
+        torch, np = self.torch, self.np
+        t0 = time.perf_counter()
+        model = Model(self.cfg)
+        toks = torch.as_tensor(np.random.default_rng(2).integers(
+            0, self.cfg.vocab_size, (2, CONT_T)), device=self.device)
+        self.paths.reset()
+        with self.attn.record():
+            full, _ = model.prefill(self.params, {"tokens": toks})
+            _, cache = model.prefill(self.params, {"tokens": toks[:, :-1]},
+                                     cache_len=CONT_T)
+            dec, _ = model.decode_step(self.params, cache, toks[:, -1])
+        launches = self.paths.read()
+        assert launches["flash_attention"] == 2 * self.cfg.num_layers
+        assert launches["decode_attention"] == self.cfg.num_layers
+        assert torch.isfinite(full).all() and torch.isfinite(dec).all()
+        err = float((dec - full).abs().max())
+        scale = float(full.abs().max())
+        log(f"phase llm-continuation: B 2, t {CONT_T}: max|decode(t) - "
+            f"prefill(t)| {err:.5f} of max|logit| {scale:.5f} "
+            f"(ratio {err / scale:.5f}, tolerance {CONT_TOL}); launches "
+            f"{launches} ({time.perf_counter() - t0:.2f} s)")
+        assert err <= CONT_TOL * scale, (err, scale)
+
+    def card_vs_cpu(self):
+        """A 2-layer variant at full width (the first two layers' weights)
+        on the card and on the port's plain CPU path: prefill and
+        teacher-forced decode steps agree."""
+        from repro_torch.models import Model
+        torch, np = self.torch, self.np
+        t0 = time.perf_counter()
+        cfg = self.cfg.replace(num_layers=CPU_LAYERS)
+        card = dict(self.params)
+        card["blocks"] = {k: v[:CPU_LAYERS] for k, v in
+                          self.params["blocks"].items()}
+        cpu = {k: v.cpu() for k, v in card.items() if k != "blocks"}
+        cpu["blocks"] = {k: v.cpu() for k, v in card["blocks"].items()}
+        model = Model(cfg)
+        rng = np.random.default_rng(3)
+        toks = rng.integers(0, cfg.vocab_size, (2, CPU_S))
+        steps = rng.integers(0, cfg.vocab_size, (CPU_STEPS, 2))
+        self.paths.reset()
+        with self.attn.record():
+            got = [model.prefill(card, {"tokens": torch.as_tensor(
+                toks, device=self.device)}, cache_len=CPU_S + CPU_STEPS)]
+            for t in steps:
+                got.append(model.decode_step(card, got[-1][1],
+                                             torch.as_tensor(t)))
+        launches = self.paths.read()
+        want = [model.prefill(cpu, {"tokens": torch.as_tensor(toks)},
+                              cache_len=CPU_S + CPU_STEPS)]
+        for t in steps:
+            want.append(model.decode_step(cpu, want[-1][1],
+                                          torch.as_tensor(t)))
+        ratios = []
+        for (g, _), (w, _) in zip(got, want):
+            err = float((g.cpu() - w).abs().max())
+            ratios.append(err / float(w.abs().max()))
+        assert launches["flash_attention"] == CPU_LAYERS
+        assert launches["decode_attention"] == CPU_LAYERS * CPU_STEPS
+        log(f"phase llm-card-vs-cpu: {CPU_LAYERS} layers at full width, "
+            f"prefill of {CPU_S} tokens + {CPU_STEPS} decode steps, bf16: "
+            f"max|card - cpu| / max|cpu logit| per call "
+            + ", ".join(f"{r:.5f}" for r in ratios)
+            + f" (tolerance {CPU_TOL}); launches {launches} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        assert max(ratios) <= CPU_TOL, ratios
+
+
 def main() -> int:
     t_all = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
@@ -624,7 +1061,11 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.conv_pointwise import ops as pw_ops
     from repro_torch.kernels.conv_quant import ops
-    wrappers = {**ops.KERNEL_WRAPPERS, **pw_ops.KERNEL_WRAPPERS}
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    cnn_wrappers = {**ops.KERNEL_WRAPPERS, **pw_ops.KERNEL_WRAPPERS}
+    wrappers = {**cnn_wrappers, **fa_ops.KERNEL_WRAPPERS,
+                **dec_ops.KERNEL_WRAPPERS}
     assert set(wrappers) == set(REPLACES)
 
     # ------------------------------------------------------------ device
@@ -670,7 +1111,7 @@ def main() -> int:
 
     # ------------------------------------- kernels vs plain, on the card
     t0 = time.perf_counter()
-    checks = Checks(torch, np, device, wrappers)
+    checks = Checks(torch, np, device, cnn_wrappers)
     for d in ([d for _, d in int8] + [d for _, d, _ in f32]
               + [swift_f32, swift_int8]):
         checks.from_deployment(d)
@@ -683,7 +1124,7 @@ def main() -> int:
         f"({time.perf_counter() - t0:.2f} s)")
     assert all(v == 0 for v in checks.mismatches.values()), checks.mismatches
     assert all(v > 0 for v in checks.checked.values()), checks.checked
-    timings = {name: checks.timing(name, card) for name in wrappers}
+    timings = {name: checks.timing(name, card) for name in cnn_wrappers}
 
     # ------------------------------------------------------- main paths
     paths = Paths(torch, np, wrappers, card)
@@ -703,6 +1144,30 @@ def main() -> int:
                for n in ("qconv1x1", "qdwconv", "qconv")), per_inf
     paths.table1(swift_int8, device)
     paths.fused_add([swift_int8, int8[0][1]], device)
+
+    # ------------------------------------------- the LLM serving path
+    t0 = time.perf_counter()
+    attn = AttentionChecks(torch, np, device)
+    attn.hostile()
+    log(f"phase attention-hostile: K7/K8 vs plain at the hostile shapes "
+        f"(float32 within {F32_ATTN} * max|want|, bf16 within one ulp + "
+        f"{BF16_ATTN_ABS} * max|want|): checked {attn.checked}, mismatches "
+        f"{attn.mismatches} ({time.perf_counter() - t0:.2f} s)")
+    assert all(v == 0 for v in attn.mismatches.values()), attn.mismatches
+    llm = Llm(torch, np, device, paths, attn, card)
+    for mix in LLM_MIXES:
+        llm.serve(*mix)
+    llm.continuation()
+    llm.card_vs_cpu()
+    t0 = time.perf_counter()
+    n_main = attn.main_path()
+    log(f"phase attention-main-path: K7/K8 vs plain at the {n_main} "
+        f"launch configurations of the LLM phases not checked above: "
+        f"checked {attn.checked}, mismatches {attn.mismatches} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    assert all(v == 0 for v in attn.mismatches.values()), attn.mismatches
+    checks.max_err.update(attn.max_err)
+    timings.update({name: attn.timing(name, card) for name in ATTENTION})
     launches = paths.launches
     assert all(v > 0 for v in launches.values()), launches
 

@@ -131,7 +131,10 @@ def build_all() -> Dict[str, float]:
     """Build every kernel of the port at once (one ``nvcc`` per source)."""
     from repro_torch.kernels.conv_pointwise.build import CONV_POINTWISE
     from repro_torch.kernels.conv_quant.build import CONV_QUANT
-    return build([(ks.csrc, n) for ks in (CONV_QUANT, CONV_POINTWISE)
+    from repro_torch.kernels.decode_attention.build import DECODE_ATTENTION
+    from repro_torch.kernels.flash_attention.build import FLASH_ATTENTION
+    return build([(ks.csrc, n) for ks in (CONV_QUANT, CONV_POINTWISE,
+                                          FLASH_ATTENTION, DECODE_ATTENTION)
                   for n in ks.names])
 
 

@@ -11,13 +11,17 @@ checkpoint — hands the values over explicitly:
   touched op's semantics and ``SliceSpec``;
 * ``quantized_model_from_qparams`` builds the int8 rewrite of a float graph
   from given per-tensor (scale, zero_point) pairs, through the same rewrite
-  as ``quantize_graph`` but without calibrating.
+  as ``quantize_graph`` but without calibrating;
+* ``llm_params_from_numpy`` turns an LLM parameter tree of numpy arrays
+  (the reference's ``init_params`` pytree, or a checkpoint) into the
+  port's ``models.init_params`` layout, checked name by name.
 """
 from __future__ import annotations
 
 from typing import Any, Mapping, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.graph import Graph
 from repro_torch.core.partition import PEX_ATTR
@@ -65,4 +69,35 @@ def quantized_model_from_qparams(
         n: QParams(float(s), int(zp)) for n, (s, zp) in qparams.items()})
 
 
-__all__ = ["apply_params", "quantized_model_from_qparams"]
+def llm_params_from_numpy(cfg, tree: Mapping[str, Any],
+                          device="cpu") -> dict:
+    """The port's LLM parameters from a tree of numpy arrays with the
+    reference's names and layout: every tensor of ``models.init_params``
+    for ``cfg`` (stacked ``[L, ...]`` blocks, as the reference stacks
+    them), cast to its dtype (bfloat16 arrays arrive through float32,
+    exactly) and put on ``device``.  Raises on a missing or extra name or
+    a shape that differs."""
+    from repro_torch.models.model import init_params
+    want = init_params(cfg, device="meta")
+
+    def convert(spec, node, path):
+        if isinstance(spec, dict):
+            got = sorted(node) if isinstance(node, Mapping) else type(node)
+            if got != sorted(spec):
+                raise ValueError(f"{path or 'params'}: names {got} != "
+                                 f"{sorted(spec)}")
+            return {k: convert(spec[k], node[k], f"{path}.{k}".lstrip("."))
+                    for k in spec}
+        arr = np.asarray(node)
+        if arr.shape != tuple(spec.shape):
+            raise ValueError(f"{path}: shape {arr.shape} != "
+                             f"{tuple(spec.shape)}")
+        t = torch.from_numpy(np.array(
+            arr, dtype=np.float32 if spec.dtype == torch.bfloat16 else None))
+        return t.to(device=device, dtype=spec.dtype)
+
+    return convert(want, tree, "")
+
+
+__all__ = ["apply_params", "llm_params_from_numpy",
+           "quantized_model_from_qparams"]

@@ -1,4 +1,5 @@
-"""Micro-batched serving of a deployed CNN graph on one device.
+"""Serving engines on one device: micro-batched CNN graphs, and LLM
+prefill + greedy decode.
 
 ``GraphServingEngine`` runs requests through a ``repro_torch.deploy.
 Deployment`` in **micro-batches**: each batch is one ``[micro_batch,
@@ -8,13 +9,31 @@ whole batch.  A ragged final batch keeps its unused lanes all zero: pad
 lanes are executed (every dispatch has the same geometry) but are
 **accounted separately** (``stats.padded_lanes``) and never read back —
 they are not requests, and per-request stats never count them.
+
+``ServingEngine`` runs prefill + greedy decode over batches of LLM
+requests (the reference's ``serving/engine.py:170-270``), on the card
+unless ``device="cpu"``: prompts of a batch are left-padded with token 0
+to the longest, and each admitted request owns a KV block of
+``kv_block_bytes`` in an arena kept by the paper's §4 dynamic allocator
+(first-fit + defragment, the L2 level of DESIGN.md §2), so the arena
+statistics come out equal to the reference's.  The reference's L1 level,
+``analyse_decode_schedule`` (a jaxpr reorder of the decode step), comes
+with the ``torch.fx`` front end (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.allocator import DynamicAllocator
 from repro_torch.core.graph import Graph
+from repro_torch.device import resolve_device
+from repro_torch.models.model import Model, init_cache
 from repro_torch.serving.faults import (FaultInjector, FaultPlan,
                                         dispatch_with_retry)
 from repro_torch.serving.stats import EngineStats
@@ -103,4 +122,119 @@ class GraphServingEngine:
         return results
 
 
-__all__ = ["GraphServingEngine"]
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray              # [S] int32
+    max_new_tokens: int = 16
+
+
+@dataclasses.dataclass
+class RequestResult:
+    rid: int
+    tokens: List[int]
+    prefill_ms: float
+    decode_ms: float
+
+
+def kv_block_bytes(cfg: ModelConfig, cache_len: int) -> int:
+    """Per-request KV/state bytes at full cache length (batch=1): the
+    bytes of every entry of ``init_cache``, as the reference counts them."""
+    c = init_cache(cfg, 1, cache_len, device="meta")
+    return sum(t.numel() * t.element_size() for t in c.values())
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServingEngine:
+    """Batch-mode LLM serving: prefill + greedy decode of up to
+    ``max_batch`` requests at a time, with a KV block per admitted request
+    in a ``DynamicAllocator`` arena (``hbm_budget`` its capacity, None =
+    unbounded).  ``params`` must lie on ``device`` (None: the card)."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
+                 cache_len: int = 128, hbm_budget: Optional[int] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params lie on {params['embed'].device}, the "
+                             f"engine serves on {self.device}")
+        self.cfg = cfg
+        self.model = Model(cfg)
+        self.params = params
+        self.max_batch = max_batch
+        self.cache_len = cache_len
+        # ---- L2: KV arena (virtual device-memory bookkeeping)
+        self.block_bytes = kv_block_bytes(cfg, cache_len)
+        self.arena = DynamicAllocator(capacity=hbm_budget)
+        self.stats = EngineStats(lanes=max_batch)
+
+    def serve(self, requests: Sequence[Request]) -> List[RequestResult]:
+        """Batch-mode serving: admit up to max_batch requests at a time.
+        All prompts in a batch are right-aligned to the longest one."""
+        results: List[RequestResult] = []
+        pending = list(requests)
+        peak_concurrent = 0
+        t_start = time.perf_counter()
+        latencies: List[float] = []
+        n_batches = 0
+        while pending:
+            batch = pending[:self.max_batch]
+            pending = pending[self.max_batch:]
+            # L2: allocate a KV block per admitted request
+            for r in batch:
+                self.arena.alloc(f"req{r.rid}", self.block_bytes)
+            peak_concurrent = max(peak_concurrent, len(batch))
+            results.extend(self._run_batch(batch))
+            n_batches += 1
+            t_done = time.perf_counter()
+            latencies.extend([t_done - t_start] * len(batch))
+            for r in batch:
+                self.arena.free(f"req{r.rid}")
+            self.arena.defragment()
+        wall = time.perf_counter() - t_start
+        self.stats.record_serve(requests=len(requests), padded_lanes=0,
+                                dispatches=n_batches, wall_s=wall,
+                                latencies_s=latencies)
+        self.stats.kv_arena_peak_bytes = self.arena.stats.peak_bytes
+        self.stats.kv_static_bytes = self.block_bytes * len(requests)
+        self.stats.peak_concurrent = peak_concurrent
+        return results
+
+    def _run_batch(self, batch: Sequence[Request]) -> List[RequestResult]:
+        B = len(batch)
+        S = max(len(r.prompt) for r in batch)
+        toks = np.zeros((B, S), np.int64)
+        for i, r in enumerate(batch):       # left-pad with token 0
+            toks[i, S - len(r.prompt):] = r.prompt
+        feed = {"tokens": torch.as_tensor(toks, device=self.device)}
+        t0 = time.perf_counter()
+        logits, cache = self.model.prefill(self.params, feed,
+                                           cache_len=self.cache_len)
+        _synchronize(self.device)
+        t_pre = (time.perf_counter() - t0) * 1e3
+
+        max_new = max(r.max_new_tokens for r in batch)
+        out: List[List[int]] = [[] for _ in batch]
+        t0 = time.perf_counter()
+        tok = torch.argmax(logits, -1)
+        for step in range(max_new):
+            host = tok.tolist()
+            for i, r in enumerate(batch):
+                if step < r.max_new_tokens:
+                    out[i].append(int(host[i]))
+            if step == max_new - 1:
+                break
+            logits, cache = self.model.decode_step(self.params, cache, tok)
+            tok = torch.argmax(logits, -1)
+        _synchronize(self.device)
+        t_dec = (time.perf_counter() - t0) * 1e3
+        return [RequestResult(r.rid, out[i], t_pre, t_dec)
+                for i, r in enumerate(batch)]
+
+
+__all__ = ["GraphServingEngine", "Request", "RequestResult", "ServingEngine",
+           "kv_block_bytes"]

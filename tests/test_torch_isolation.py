@@ -11,11 +11,14 @@ import pytest
 import torch
 
 import repro_torch.deploy as deploy
+from repro_torch.configs import get_config
 from repro_torch.errors import DeviceInitError
 from repro_torch.graphs import mobilenet_v1_graph, quantize_graph
+from repro_torch.launch import serve as launch_serve
 from repro_torch.mcu import MicroInterpreter
 from repro_torch.mcu.compile import compile_schedule
-from repro_torch.serving import GraphServingEngine
+from repro_torch.models import init_params
+from repro_torch.serving import GraphServingEngine, ServingEngine
 
 # One intra-op thread: the suite runs in several worker processes at
 # once, and idle OpenMP threads spinning in each would starve the rest.
@@ -27,7 +30,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def test_import_leaves_jax_and_the_reference_out():
     code = ("import sys, repro_torch, repro_torch.deploy, "
-            "repro_torch.mcu.compile, repro_torch.params\n"
+            "repro_torch.mcu.compile, repro_torch.params, "
+            "repro_torch.models, repro_torch.configs, "
+            "repro_torch.launch.serve\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -71,3 +76,11 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         GraphServingEngine(g)
     with pytest.raises(DeviceInitError, match="device='cpu'"):
         MicroInterpreter(g)
+    cfg = get_config("llama3.2-3b@smoke")
+    with pytest.raises(DeviceInitError, match="device='cpu'"):
+        init_params(cfg)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(DeviceInitError, match="device='cpu'"):
+        ServingEngine(cfg, params)
+    with pytest.raises(DeviceInitError, match="device='cpu'"):
+        launch_serve.main(["--arch", "llama3.2-3b@smoke", "--requests", "1"])
