@@ -8,10 +8,13 @@ with ``nvcc`` (one process per source, all at once) — the int8 convs
 K1–K3, the fused conv→add kernels K4/K5, the float32 pointwise conv K6,
 flash attention K7 and decode attention K8 — and holds each against its
 plain PyTorch version on the card, at every distinct launch configuration
-of the paths below plus hostile shapes, and times it there.  Integer
-kernels must be bit-exact; K6 must stay within the worst-case float32
+of the paths below plus hostile shapes (K1/K4's split-K edges among them),
+and times it there (K1 at every distinct shape of the reorder-only int8
+schedule, K7 at the largest prefill of each LLM mix).  Integer kernels
+must be bit-exact; K6 must stay within the worst-case float32
 dot-product error bound (see ``F32_BOUND``); K7/K8 within ``F32_ATTN`` of
-max|want| in float32 and one bf16 ulp in bf16.
+max|want| in float32 and one bf16 ulp in bf16.  The build phase prints
+``ptxas -v``'s registers and spills of K1, K4 and K7.
 
 Then it drives the port's paths, random weights from fixed seeds, each
 with every kernel's launch count set to 0 just before it and read just
@@ -53,6 +56,7 @@ it exits 2 before printing any result.  The line before the last is
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import re
@@ -139,7 +143,14 @@ HOSTILE_K7 = [(1, 1, 1, 2, 2, 64, True, False),
               (1, 100, 300, 3, 3, 128, False, False),
               (2, 5, 37, 12, 4, 96, True, False),
               (1, 1000, 1000, 24, 8, 128, False, True),
-              (2, 129, 129, 24, 8, 128, True, True)]
+              (2, 129, 129, 24, 8, 128, True, True),
+              # the bf16 body's tilings: D 40 (zero-padded to 64, not a
+              # multiple of 16), S 200 (not a multiple of the 128-row query
+              # or 64-key tile), a causal offset of 263 keys
+              (2, 77, 77, 4, 2, 40, True, False),
+              (1, 200, 200, 4, 2, 40, False, False),
+              (1, 200, 200, 6, 2, 128, True, False),
+              (1, 70, 333, 6, 3, 128, True, False)]
 # hostile K8 shapes (B, S, H, K, D, lengths, strided): caches of 96 and
 # 2048 rows, lengths 1, S and between, GQA 1, 3 and 4; `strided` caches are
 # views of a longer cache
@@ -161,6 +172,12 @@ HOSTILE = [
     (10, 9, 6, 0, 3, 1, (1, 1), (2, 0)),
 ]
 HOSTILE_QP = ((0.0123, 3, -5), (0.5, -2, 4))     # (mult, zp_in, zp_out)
+# K1/K4's split-K edges, three lanes a byte stride apart (H, W, Cin, Cout):
+# Cin 1 and 1 030 (ragged chunks), M 1, M 36 with Cout 1 024, Cout 5 and
+# 65; zero points at both ends of int8, mult scaled to Cin
+HOSTILE_SPLITK = [(1, 1, 1, 5), (7, 9, 1, 65), (1, 1, 1030, 65),
+                  (6, 6, 1024, 1024), (6, 6, 1030, 5), (3, 5, 1030, 65)]
+SPLITK_ZP = ((-128, -3), (127, 4))                # (zp_in, zp_out)
 # fused add params (mult_a, mult_b, zp_a, zp_b, zp_out); zp_a None = the
 # conv's zp_out.  Plain; saturating both rails; a negative multiplier.
 ADD_QP = ((0.71, 0.39, None, 2, -7), (23.5, 17.25, 60, 0, 100),
@@ -186,17 +203,24 @@ def nvidia_smi() -> str:
 
 def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls, from
-    CUDA events around the whole run (launch gaps included)."""
+    CUDA events around the whole run (launch gaps included: a call whose
+    host side outlasts its kernels measures the host).  Python's garbage
+    collector is held off during the run, so that a collection of the
+    script's large graphs is not charged to one kernel."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
+    gc.disable()
+    try:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+    finally:
+        gc.enable()
     return start.elapsed_time(end) / iters
 
 
@@ -286,11 +310,11 @@ class Checks:
                                     device=self.device)
 
     def case(self, tag, kind, h, w, cin, cout, k, stride, hpad, wpad,
-             mult, zp_in, zp_out, addp=None):
+             mult, zp_in, zp_out, addp=None, lanes=2):
         """Route one int8 configuration as ``qconv_fused``/
         ``qdwconv_fused``/``qconv_add_fused`` (``addp`` given) do and
         compare the kernel with the plain version (once per ``tag`` and
-        shape)."""
+        shape), over ``lanes`` lanes a byte stride apart."""
         hp = self._pads(h, k, stride, hpad)
         wp = self._pads(w, k, stride, wpad)
         oh = (h + hp[0] + hp[1] - k) // stride + 1
@@ -298,22 +322,22 @@ class Checks:
         key = (tag, kind, h, w, cin, cout, k, stride, hp, wp, addp)
         if key in self.configs:
             return
-        x = self._lanes((h, w, cin))
+        x = self._lanes((h, w, cin), lanes)
         qp = dict(mult=mult, zp_in=zp_in, zp_out=zp_out)
         pw = k == 1 and stride == 1 and hp == (0, 0) and wp == (0, 0)
         extra = 0
         if kind == "qdwconv":
             name, wt = "qdwconv", self._rand((k, k, cin))
             macs = oh * ow * cin * k * k
-            out = self._lanes((oh, ow, cin))
+            out = self._lanes((oh, ow, cin), lanes)
             got = self.ops.qdwconv(x, wt, stride=stride, hpad=hp, wpad=wp,
                                    out=out, **qp)
             want = self.ref.qdwconv_ref(x, wt, stride=stride, hpad=hp,
                                         wpad=wp, **qp)
         elif addp is not None:
-            r = self._lanes((oh, ow, cout))
+            r = self._lanes((oh, ow, cout), lanes)
             extra = r[0].numel()
-            out = self._lanes((oh, ow, cout))
+            out = self._lanes((oh, ow, cout), lanes)
             ap = add_params(addp, zp_out)
             if pw:
                 name, wt = "qconv1x1_add", self._rand((cin, cout))
@@ -333,13 +357,13 @@ class Checks:
         elif pw:
             name, wt = "qconv1x1", self._rand((cin, cout))
             macs = h * w * cin * cout
-            out = self._lanes((oh, ow, cout))
+            out = self._lanes((oh, ow, cout), lanes)
             got = self.ops.qconv1x1(x, wt, out=out, **qp)
             want = self.ref.qconv1x1_ref(x, wt, **qp)
         else:
             name, wt = "qconv", self._rand((k, k, cin, cout))
             macs = oh * ow * cout * k * k * cin
-            out = self._lanes((oh, ow, cout))
+            out = self._lanes((oh, ow, cout), lanes)
             got = self.ops.qconv(x, wt, stride=stride, hpad=hp, wpad=wp,
                                  out=out, **qp)
             want = self.ref.qconv_ref(x, wt, stride=stride, hpad=hp,
@@ -416,6 +440,14 @@ class Checks:
                     for addp in ADD_QP:
                         self.case(f"hostile{i}", kind, h, w, cin, cout, k,
                                   s, hp, wp, mult, zi, zo, addp=addp)
+        for (h, w, cin, cout) in HOSTILE_SPLITK:
+            for zi, zo in SPLITK_ZP:
+                mult = 0.003 / cin ** 0.5
+                self.case("splitk", "qconv", h, w, cin, cout, 1, 1, None,
+                          None, mult, zi, zo, lanes=3)
+                for addp in ADD_QP:
+                    self.case("splitk", "qconv", h, w, cin, cout, 1, 1,
+                              None, None, mult, zi, zo, addp=addp, lanes=3)
         for (h, w, cin, cout, bias, relu) in HOSTILE_F32:
             self.case_f32("hostile", h, w, cin, cout, bias, relu)
 
@@ -506,6 +538,78 @@ class Checks:
                     bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     shape=shape)
+
+    def k1_shapes(self, card, d, splits=()):
+        """K1 at every distinct pointwise shape of deployment ``d``'s
+        schedule, one lane: kernel_ms against ``torch._int_mm`` (the bare
+        int8 product), each also as device time per call from the profiler
+        (the calls are launch-bound), and the bound, one line per shape.
+        ``splits``: K1's device time with Cin forced into that many chunks
+        (through the planner hook ``ops._plan``), bit-exact each."""
+        torch = self.torch
+        sms = torch.cuda.get_device_properties(self.device) \
+            .multi_processor_count
+        plan = getattr(self.ops, "plan_split_k", None)
+        g, seen = d.exec_graph, set()
+        for op in d.schedule:
+            a = op.attrs
+            if not (op.kind == "qconv" and a["weight_q"].shape[0] == 1
+                    and a["stride"] == 1
+                    and a.get("pex_pads") in (None, (0, 0))
+                    and a.get("pex_wpads") in (None, (0, 0))):
+                continue
+            h, w, cin = g.tensors[op.inputs[0]].shape
+            cout = a["weight_q"].shape[3]
+            if (h, w, cin, cout) in seen:
+                continue
+            seen.add((h, w, cin, cout))
+            qp = dict(mult=a["mult"], zp_in=a["zp_in"], zp_out=a["zp_out"])
+            x = self._rand((1, h, w, cin))
+            wt = self._rand((cin, cout))
+            out = torch.empty((1, h, w, cout), dtype=torch.int8,
+                              device=self.device)
+            want = self.ref.qconv1x1_ref(x, wt, **qp)
+
+            def run():
+                return self.ops.qconv1x1(x, wt, out=out, **qp)
+            a2, b2 = x.reshape(h * w, cin), wt.t().contiguous().t()
+
+            def lib():
+                return torch._int_mm(a2, b2)
+            kernel_ms, library_ms = time_ms(torch, run), time_ms(torch, lib)
+            dev_ms, lib_dev_ms = (device_time(torch, f, reps=20)[0]
+                                  for f in (run, lib))
+            forced = {}
+            for n in splits:
+                planner = self.ops._plan
+                self.ops._plan = forced_plan(n, self.ops.MAX_SPLIT)
+                try:
+                    assert torch.equal(run(), want), (h, w, cin, cout, n)
+                    forced[n] = device_time(torch, run, reps=20)[0]
+                finally:
+                    self.ops._plan = planner
+            assert torch.equal(run(), want), (h, w, cin, cout)
+            nbytes = h * w * cin + cin * cout + h * w * cout
+            bound = max(nbytes / H100_BYTES_PER_S,
+                        2 * h * w * cin * cout / H100_INT8_OPS_PER_S) * 1e3
+            log(f"kernels qconv1x1 shape {h}x{w}x{cin}->{cout}: kernel_ms "
+                f"{kernel_ms:.5f}, library_ms {library_ms:.5f} "
+                f"(torch._int_mm); device_ms {dev_ms:.5f}, library "
+                f"{lib_dev_ms:.5f} (profiler); bound_ms {bound:.7f}; "
+                f"split/chunk "
+                f"{plan(1, h * w, cin, cout, sms) if plan else 'n/a'}"
+                + "".join(f"; forced split {n}: device_ms {t:.5f}"
+                          for n, t in forced.items()) + f" [{card}]")
+
+
+def forced_plan(n, cap):
+    """A stand-in for K1's planner hook ``ops._plan`` that cuts Cin into
+    ``n`` chunks of whole 64-channel K-steps (fewer where Cin has fewer)."""
+    def plan(lanes, m, cin, cout, dev):
+        steps = max(1, -(-cin // 64))
+        per = -(-steps // max(1, min(cap, steps, n)))
+        return -(-steps // per), per * 64
+    return plan
 
 
 class Paths:
@@ -784,21 +888,23 @@ class AttentionChecks:
             self.k8(B, ks[1], H, ks[2], D, dtype, tuple(lengths.tolist()))
         return len(self.seen) - n
 
-    def largest(self, name):
+    def largest(self, name, first=None):
         """The main-path configuration of the most work: K7 by query x key
-        pairs, K8 by valid cache rows."""
+        pairs (among the first ``first`` recorded, if given), K8 by valid
+        cache rows."""
         if name == "flash_attention":
-            return max(self.main_k7, key=lambda c: c[0][0] * c[0][2]
-                       * c[0][1] * c[1][1])
+            return max(self.main_k7[:first], key=lambda c: c[0][0]
+                       * c[0][2] * c[0][1] * c[1][1])
         return max(self.main_k8, key=lambda c: c[0][1] * int(c[3].sum()))
 
-    def timing(self, name, card):
+    def timing(self, name, card, config=None, label="largest main-path"):
         """kernel_ms, plain_ms, library_ms and the bound at the largest
-        main-path configuration of K7 or K8."""
+        main-path configuration of K7 or K8 (or at ``config``, one of
+        ``main_k7``)."""
         torch = self.torch
         import torch.nn.functional as F
         if name == "flash_attention":
-            (B, Sq, H, D), ks, dtype, causal = self.largest(name)
+            (B, Sq, H, D), ks, dtype, causal = config or self.largest(name)
             Skv, K = ks[1], ks[2]
             q = self._randn((B, Sq, H, D), dtype)
             k = self._randn((B, Skv, K, D), dtype)
@@ -862,7 +968,8 @@ class AttentionChecks:
         log(f"kernels {name}: {self.checked[name]} configs, "
             f"{self.mismatches[name]} mismatches, max_abs_err "
             f"{self.max_err[name]:.3e}, max_rel_err {self.max_rel[name]:.3e} "
-            f"(of max|want|); at {shape}: kernel_ms {kernel_ms:.5f}, "
+            f"(of max|want|); at the {label} {shape}: kernel_ms "
+            f"{kernel_ms:.5f}, "
             f"plain_ms {plain_ms:.5f}, library_ms {library_ms:.5f} "
             f"({lib_name}), bound_ms {max(t_bytes, t_ops):.7f} "
             f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) [{card}]")
@@ -1084,6 +1191,9 @@ def main() -> int:
     log(f"phase build: nvcc sm_90a, one process per source in parallel: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
         + f" -> {build.BUILD_DIR} ({time.perf_counter() - t0:.2f} s)")
+    for name in ("qconv1x1", "qconv1x1_add", "flash_attention"):
+        log(f"ptxas {name}: " + "; ".join(build.PTXAS.get(name, ["not "
+                                                                 "built here"])))
 
     # --------------------------------------------------- schedule + plan
     def planned(label, graph, golden, **kw):
@@ -1125,6 +1235,7 @@ def main() -> int:
     assert all(v == 0 for v in checks.mismatches.values()), checks.mismatches
     assert all(v > 0 for v in checks.checked.values()), checks.checked
     timings = {name: checks.timing(name, card) for name in cnn_wrappers}
+    checks.k1_shapes(card, int8[0][1])
 
     # ------------------------------------------------------- main paths
     paths = Paths(torch, np, wrappers, card)
@@ -1155,8 +1266,10 @@ def main() -> int:
         f"{attn.mismatches} ({time.perf_counter() - t0:.2f} s)")
     assert all(v == 0 for v in attn.mismatches.values()), attn.mismatches
     llm = Llm(torch, np, device, paths, attn, card)
+    n_k7 = {}
     for mix in LLM_MIXES:
         llm.serve(*mix)
+        n_k7[mix[0]] = len(attn.main_k7)
     llm.continuation()
     llm.card_vs_cpu()
     t0 = time.perf_counter()
@@ -1168,6 +1281,8 @@ def main() -> int:
     assert all(v == 0 for v in attn.mismatches.values()), attn.mismatches
     checks.max_err.update(attn.max_err)
     timings.update({name: attn.timing(name, card) for name in ATTENTION})
+    attn.timing("flash_attention", card, label="short mix's largest prefill",
+                config=attn.largest("flash_attention", n_k7["short"]))
     launches = paths.launches
     assert all(v > 0 for v in launches.values()), launches
 

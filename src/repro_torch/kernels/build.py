@@ -9,7 +9,8 @@ their source, the headers beside it and the flags: a stale library is
 never loaded, and an unchanged one is not rebuilt.  ``build()`` starts one
 ``nvcc`` per missing library, all at once, and waits for them;
 ``build_all()`` does that for every kernel of every package.  Nothing here
-runs at import.
+runs at import.  ``-Xptxas -v`` is on: ``PTXAS`` keeps, per library built
+by this process, each kernel's registers, stack and spill bytes.
 
 A kernel package declares its kernels as a ``KernelSet``: its ``csrc``
 directory and the C signature of each ``<name>_launch`` function.
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +30,10 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# library name -> "<kernel>: N registers, S B stack, T/L B spill stores/
+# loads" for each kernel ptxas compiled in this process
+PTXAS: Dict[str, List[str]] = {}
 
 _lock = threading.Lock()
 _libs: List[ctypes.CDLL] = []      # loaded libraries, kept for the process
@@ -54,6 +59,41 @@ def library_path(csrc: Path, name: str) -> Path:
             h.update(src.name.encode())
             h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _demangle(names: List[str]) -> List[str]:
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), text=True,
+                             capture_output=True, timeout=30).stdout
+        plain = out.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        plain = []
+    if len(plain) != len(names):
+        return names
+    plain = [p.replace("(anonymous namespace)::", "") for p in plain]
+    return [p.split("(")[0].removeprefix("void ") for p in plain]
+
+
+def ptxas_summary(log: str) -> List[str]:
+    """Registers, stack and spill bytes per kernel from ``ptxas -v``."""
+    rows, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = (f"{m.group(1)} B stack, {m.group(2)}/{m.group(3)} B "
+                     f"spill stores/loads")
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, f"{m.group(1)} registers, {frame}"))
+            name, frame = None, ""
+    names = _demangle([n for n, _ in rows])
+    return [f"{n}: {info}" for n, (_, info) in zip(names, rows)]
 
 
 def build(targets: Sequence[Tuple[Path, str]]) -> Dict[str, float]:
@@ -86,6 +126,7 @@ def build(targets: Sequence[Tuple[Path, str]]) -> Dict[str, float]:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, target)
+                PTXAS[name] = ptxas_summary(log)
         if errors:
             raise RuntimeError("\n".join(errors))
         return seconds
@@ -122,7 +163,7 @@ class KernelSet:
 
     def launch(self, name: str, *args) -> None:
         """Call ``<name>_launch(*args)``; raise on a nonzero CUDA error."""
-        rc = self.load(name)(*args)
+        rc = (self._fns.get(name) or self.load(name))(*args)
         if rc != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
@@ -138,5 +179,5 @@ def build_all() -> Dict[str, float]:
                   for n in ks.names])
 
 
-__all__ = ["BUILD_DIR", "KernelSet", "build", "build_all", "library_path",
-           "nvcc"]
+__all__ = ["BUILD_DIR", "KernelSet", "PTXAS", "build", "build_all",
+           "library_path", "nvcc", "ptxas_summary"]

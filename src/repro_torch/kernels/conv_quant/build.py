@@ -12,16 +12,18 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # the fused add's (ma, mb, zp_a, zp_b, zp_add) after the conv's arguments
 _ADD = [_I, _I, _I, _I, _I]
 _QCONV1X1 = [_P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _I, _I]
+# K1/K4's split-K plan: split count and chunk (ops.plan_split_k)
+_SPLIT_K = [_I, _I]
 _QCONV = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _L,
           _F, _I, _I]
 
 CONV_QUANT = KernelSet(Path(__file__).resolve().parent / "csrc", {
-    "qconv1x1": _QCONV1X1 + [_I, _P],
+    "qconv1x1": _QCONV1X1 + _SPLIT_K + [_I, _P],
     "qdwconv": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _L,
                 _F, _I, _I, _I, _P],
     "qconv": _QCONV + [_I, _P],
     # K4/K5: residual pointer and its batch stride, then the add params
-    "qconv1x1_add": _QCONV1X1 + [_P, _L] + _ADD + [_I, _P],
+    "qconv1x1_add": _QCONV1X1 + [_P, _L] + _ADD + _SPLIT_K + [_I, _P],
     "qconv_add": _QCONV + [_P, _L] + _ADD + [_I, _P],
 })
 

@@ -10,7 +10,8 @@
 //
 // Interface: K1's, plus r (the residual, [H*W, Cout] per lane, lanes r_bs
 // bytes apart) and the add's (ma, mb, zp_a, zp_b, zp_add), with ma and mb
-// already quantized to 16 fractional bits on the host.
+// already quantized to 16 fractional bits on the host, then K1's split-K
+// plan (split, chunk).
 #include "qadd.cuh"
 #include "qconv1x1.cuh"
 
@@ -20,9 +21,10 @@ extern "C" int qconv1x1_add_launch(const void* x, const void* w, void* out,
                                    float mult, int zp_in, int zp_out,
                                    const void* r, long long r_bs, int ma,
                                    int mb, int zp_a, int zp_b, int zp_add,
-                                   int device, void* stream) {
+                                   int split, int chunk, int device,
+                                   void* stream) {
   const RequantAdd ep{mult, zp_out, (const int8_t*)r, r_bs,
                       ma, mb, zp_a, zp_b, zp_add};
   return qconv1x1_run(x, w, out, B, M, Cin, Cout, x_bs, o_bs, zp_in, ep,
-                      device, stream);
+                      split, chunk, device, stream);
 }

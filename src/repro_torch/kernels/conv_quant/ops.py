@@ -16,10 +16,15 @@ so no copy is made).  ``out`` (optional) is the destination view.
 
 Each kernel wrapper counts its launches in ``<wrapper>.launches``, a plain
 integer that only a kernel launch increments.
+
+K1 and K4 split Cin over a cluster of blocks where the output tiles alone
+would leave SMs idle (``plan_split_k``); the blocks add their int32
+partials through distributed shared memory, so nothing is allocated for
+it.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -44,17 +49,26 @@ def _require_int8(name: str, t: torch.Tensor) -> None:
 
 def _lanes(name: str, t: torch.Tensor) -> Tuple[int, int]:
     """(lanes, batch stride in elements — bytes for int8) of an NHWC
-    tensor whose every lane is contiguous; raises on any other layout."""
-    if t.dim() not in (3, 4):
+    tensor whose every lane is contiguous; raises on any other layout.
+    (On the launch path of every conv: shape and strides are read once.)"""
+    shape, stride = t.shape, t.stride()
+    nd = len(shape)
+    if nd != 3 and nd != 4:
         raise ValueError(f"{name} must be [H,W,C] or [B,H,W,C], got "
-                         f"shape {tuple(t.shape)}")
-    h, w, c = t.shape[-3:]
-    if t.stride()[-3:] != (w * c, c, 1):
+                         f"shape {tuple(shape)}")
+    c = shape[-1]
+    if stride[-1] != 1 or stride[-2] != c or stride[-3] != shape[-2] * c:
         raise ValueError(f"{name}: each lane must be contiguous NHWC, got "
-                         f"strides {t.stride()}")
-    if t.dim() == 3:
+                         f"strides {stride}")
+    if nd == 3:
         return 1, 0
-    return t.shape[0], t.stride(0)
+    return shape[0], stride[0]
+
+
+def _same_device(a: torch.Tensor, b: torch.Tensor) -> bool:
+    # without building two torch.device objects per call
+    return (a.get_device() == b.get_device() and a.is_cuda == b.is_cuda
+            and a.is_meta == b.is_meta)
 
 
 def _destination(out: Optional[torch.Tensor], shape, like: torch.Tensor
@@ -62,7 +76,7 @@ def _destination(out: Optional[torch.Tensor], shape, like: torch.Tensor
     if out is None:
         return torch.empty(shape, dtype=torch.int8, device=like.device)
     _require_int8("out", out)
-    if tuple(out.shape) != tuple(shape) or out.device != like.device:
+    if out.shape != tuple(shape) or not _same_device(out, like):
         raise ValueError(f"out is {tuple(out.shape)} on {out.device}, "
                          f"expected {tuple(shape)} on {like.device}")
     return out
@@ -75,17 +89,70 @@ def _plain(y: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+# the current stream's handle; torch's raw getter (what its own generated
+# kernels launch with) skips building a torch.cuda.Stream per call
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _current_stream(dev: int) -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(dev)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
-            *args) -> None:
+            *args, split_k: Optional[Tuple[int, int, int, int]] = None
+            ) -> None:
+    """Launch kernel ``name`` on the current stream; ``split_k = (lanes,
+    m, cin, cout)`` appends K1/K4's split-K plan (split, chunk)."""
     if not (x.is_cuda and w.is_cuda and out.is_cuda):
         raise ValueError(f"{name}: x, w and out must all be CUDA tensors")
     if not w.is_contiguous():
         raise ValueError(f"{name}: weights must be contiguous")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    CONV_QUANT.launch(name, ctypes.c_void_p(x.data_ptr()),
-                      ctypes.c_void_p(w.data_ptr()),
-                      ctypes.c_void_p(out.data_ptr()), *args,
-                      x.device.index or 0, ctypes.c_void_p(stream))
+    dev = x.get_device()
+    stream = _current_stream(dev)
+    if split_k is not None:
+        args += _plan(*split_k, dev)
+    CONV_QUANT.launch(name, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                      *args, dev, stream)
+
+
+# K1/K4's tile (csrc/qconv1x1.cuh: BM = BN = BK = 64), the most chunks one
+# output tile's Cin is cut into (a portable cluster: 8 blocks), the
+# shortest Cin loop (in 64-channel K-steps) that is cut at all and the
+# fewest K-steps a chunk keeps.  On an H100 a split cost ~0.9-1.4 us of
+# device time and paid from 4 K-steps on (tools/kernel_times.py --splits;
+# PERF.md).
+K1_TILE = 64
+MAX_SPLIT = 8
+MIN_SPLIT_STEPS = 4
+MIN_CHUNK_STEPS = 1
+
+
+def plan_split_k(lanes: int, m: int, cin: int, cout: int,
+                 sms: int) -> Tuple[int, int]:
+    """(split, chunk) for K1/K4: Cin in ``split`` chunks of ``chunk``
+    channels (a multiple of the 64-channel K-step), chunk ``s`` covering
+    ``[s * chunk, min(cin, (s + 1) * chunk))``, no chunk empty.  Cin is
+    cut only when the lanes x ceil(m/64) x ceil(cout/64) output tiles are
+    fewer than ``sms`` and it spans at least MIN_SPLIT_STEPS K-steps; then
+    into enough chunks that tiles x split reaches ``sms`` blocks, at most
+    MAX_SPLIT, each of at least MIN_CHUNK_STEPS K-steps."""
+    tiles = lanes * -(-m // K1_TILE) * -(-cout // K1_TILE)
+    steps = max(1, -(-cin // K1_TILE))
+    if tiles >= sms or steps < MIN_SPLIT_STEPS:
+        return 1, steps * K1_TILE
+    want = min(MAX_SPLIT, steps // MIN_CHUNK_STEPS, -(-sms // tiles))
+    per = max(MIN_CHUNK_STEPS, -(-steps // want))
+    return -(-steps // per), per * K1_TILE
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(lanes: int, m: int, cin: int, cout: int, dev: int
+          ) -> Tuple[int, int]:
+    """``plan_split_k`` for CUDA device ``dev``'s SM count."""
+    return plan_split_k(lanes, m, cin, cout, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
 
 
 def _residual(r: torch.Tensor, shape, like: torch.Tensor, add_params):
@@ -93,14 +160,13 @@ def _residual(r: torch.Tensor, shape, like: torch.Tensor, add_params):
     ``shape``; returns (r's pointer, its batch stride in bytes, ma, mb,
     zp_a, zp_b, zp_out) for the kernel."""
     _require_int8("r", r)
-    if tuple(r.shape) != tuple(shape) or r.device != like.device:
+    if r.shape != tuple(shape) or not _same_device(r, like):
         raise ValueError(f"r is {tuple(r.shape)} on {r.device}, expected "
                          f"{tuple(shape)} on {like.device}")
     _, r_bs = _lanes("r", r)
     mult_a, mult_b, zp_a, zp_b, zp_add = add_params
     ma, mb = ref.qadd_multipliers(mult_a, mult_b)
-    return (ctypes.c_void_p(r.data_ptr()), r_bs, ma, mb, int(zp_a),
-            int(zp_b), int(zp_add))
+    return (r.data_ptr(), r_bs, ma, mb, int(zp_a), int(zp_b), int(zp_add))
 
 
 def _out_hw(h: int, w: int, k: int, stride: int, hpad, wpad):
@@ -117,19 +183,20 @@ def qconv1x1(x: torch.Tensor, w: torch.Tensor, *, mult: float, zp_in: int,
     _require_int8("x", x)
     _require_int8("w", w)
     lanes, x_bs = _lanes("x", x)
-    h, wd, cin = x.shape[-3:]
-    if w.dim() != 2 or w.shape[0] != cin:
-        raise ValueError(f"w must be [Cin={cin}, Cout], got "
-                         f"{tuple(w.shape)}")
-    shape = (*x.shape[:-1], w.shape[1])
-    if x.device.type == "cpu":
+    xs, ws = x.shape, w.shape
+    m, cin = xs[-3] * xs[-2], xs[-1]
+    if len(ws) != 2 or ws[0] != cin:
+        raise ValueError(f"w must be [Cin={cin}, Cout], got {tuple(ws)}")
+    shape = (*xs[:-1], ws[1])
+    if x.is_cpu:
         return _plain(ref.qconv1x1_ref(x, w, mult=mult, zp_in=zp_in,
                                        zp_out=zp_out), out)
     out = _destination(out, shape, x)
     _, o_bs = _lanes("out", out)
     if out.numel():
-        _launch("qconv1x1", x, w, out, lanes, h * wd, cin, w.shape[1],
-                x_bs, o_bs, float(np.float32(mult)), zp_in, zp_out)
+        # ctypes rounds mult to float32 as np.float32 does (to nearest)
+        _launch("qconv1x1", x, w, out, lanes, m, cin, ws[1], x_bs, o_bs,
+                float(mult), zp_in, zp_out, split_k=(lanes, m, cin, ws[1]))
         qconv1x1.launches += 1
     return out
 
@@ -201,21 +268,22 @@ def qconv1x1_add(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
     _require_int8("x", x)
     _require_int8("w", w)
     lanes, x_bs = _lanes("x", x)
-    h, wd, cin = x.shape[-3:]
-    if w.dim() != 2 or w.shape[0] != cin:
-        raise ValueError(f"w must be [Cin={cin}, Cout], got "
-                         f"{tuple(w.shape)}")
-    shape = (*x.shape[:-1], w.shape[1])
+    xs, ws = x.shape, w.shape
+    m, cin = xs[-3] * xs[-2], xs[-1]
+    if len(ws) != 2 or ws[0] != cin:
+        raise ValueError(f"w must be [Cin={cin}, Cout], got {tuple(ws)}")
+    shape = (*xs[:-1], ws[1])
     res = _residual(r, shape, x, add_params)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return _plain(ref.qconv1x1_add_ref(
             x, w, r, mult=mult, zp_in=zp_in, zp_out=zp_out,
             add_params=add_params), out)
     out = _destination(out, shape, x)
     _, o_bs = _lanes("out", out)
     if out.numel():
-        _launch("qconv1x1_add", x, w, out, lanes, h * wd, cin, w.shape[1],
-                x_bs, o_bs, float(np.float32(mult)), zp_in, zp_out, *res)
+        _launch("qconv1x1_add", x, w, out, lanes, m, cin, ws[1], x_bs, o_bs,
+                float(mult), zp_in, zp_out, *res,
+                split_k=(lanes, m, cin, ws[1]))
         qconv1x1_add.launches += 1
     return out
 
@@ -331,4 +399,4 @@ def qdwconv_fused(x: torch.Tensor, w: torch.Tensor, *, stride: int,
 
 __all__ = ["qconv1x1", "qconv", "qdwconv", "qconv1x1_add", "qconv_add",
            "qconv_fused", "qdwconv_fused", "qconv_add_fused",
-           "KERNEL_WRAPPERS"]
+           "KERNEL_WRAPPERS", "plan_split_k"]

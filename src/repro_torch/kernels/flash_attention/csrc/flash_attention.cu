@@ -2,7 +2,7 @@
 //
 // Replaces repro/kernels/flash_attention/kernel.py:flash_attention_pallas
 // (body _flash_kernel): q [B,Sq,H,D], k/v [B,Skv,K,D] with H % K == 0 and
-// kv head = h / (H/K) (GQA); scores (q * scale) . k in float32; with
+// kv head = h / (H/K) (GQA); scores scale * (q . k) in float32; with
 // `causal`, key j is masked for query row i when j > i + (Skv - Sq), to
 // -1e30; running max m, denominator l and accumulator acc in float32;
 // out = acc / max(l, 1e-30) in q's type (float32 or bf16).
@@ -10,48 +10,81 @@
 // What bounds it on the H100: at the prefill of Llama-3.2-3B (B 4, S 1024,
 // 24 heads of 128, causal) a call does ~25.8 GFLOP of products on ~67 MB,
 // so the roofline bound is the tensor cores' (~26 us at 989 TFLOP/s bf16).
-// What the design does about it: not yet that.  This first kernel is
-// plain float32 FMA on the CUDA cores (67 TFLOP/s peak), so it lands
-// several times above the bound; mma/wgmma on bf16 tiles with TMA loads
-// is later work.  What it does do: it keeps the S x S scores out of device
-// memory (one pass over K/V per query tile, online softmax in registers),
-// it reads q/k/v in place through their strides (no transposed copy, as
-// the TPU wrapper makes), and with `causal` it skips key tiles that lie
-// wholly above the diagonal (those keys get p = 0 in every row of the
-// tile that has a valid key, so the result is the same).
 //
-// Structure: one block of 256 threads per (tile of BQ = 64 query rows,
-// batch x query head).  The TPU grid's sequential kv axis is a loop inside
-// the block over tiles of BK = 32 keys staged in shared memory as float32.
-// Thread (ty, tx), ty, tx in 0..15, owns rows 4ty..4ty+3 of the tile: the
-// scores of keys 2tx, 2tx+1 and the output columns DJ*tx..DJ*tx+DJ-1
-// (DJ = 4 for D <= 64, 8 for D <= 128).  Row max and row sum are reduced
-// over the 16 lanes of a half-warp that share ty.  Ragged edges (Sq, Skv
-// not multiples of the tiles) are masked by bounds tests: a key past Skv
-// gets p = 0, a query row past Sq is computed on zeros and not stored.
+// What the design does about it.  Two bodies, chosen by the input type:
+//
+// * bfloat16 (the model's type): tensor cores.  mma.sync.m16n8k16 (bf16 in,
+//   f32 accumulate) for both products, operands read from shared memory
+//   with ldmatrix (.trans for V).  This is the mma.sync stage that the
+//   redesign allows first, not wgmma: a warpgroup product needs both
+//   operands in shared memory in a core-matrix layout (or A in registers in
+//   the accumulator's layout), descriptors and a producer/consumer split;
+//   mma.sync reuses the score accumulators as the A operand of P.V in
+//   registers, and it could be checked without a compiler at hand.  wgmma
+//   with TMA staging is the next step (ROADMAP Queue 2).
+//   - S = q . k on the raw bf16 q and k (the products are exact in f32);
+//     the f32 scores are multiplied by scale * log2(e) afterwards (p =
+//     exp2(x - m)), never q * scale rounded to bf16.
+//   - P.V keeps P's low bits: P = hi + mid + lo, three bf16 parts (hi =
+//     bf16(P), mid = bf16(P - hi), lo = bf16(P - hi - mid)), all three
+//     products summed in f32: 2x the tensor-core work of FlashAttention-2,
+//     far under the CUDA-core body.  With P rounded once to bf16, as
+//     FlashAttention-2 does, ~12 % of the outputs leave the check's bound
+//     (one bf16 ulp of the plain version + 1e-6 * max); with hi + mid, P
+//     keeps ~2^-18 relative and outputs near zero of a long non-causal
+//     row can still leave it (1 of 768 000 in the CPU emulation of
+//     tests/test_torch_flash_attention.py); with three parts P's error is
+//     under float32's own rounding.  For the same reason each tile's P.V
+//     is summed from zero on the tensor cores (small partial sums) and
+//     then added to the rescaled accumulator in float32.  The row sum l
+//     is taken from the f32 P.
+//   - One block of 8 warps per (128 query rows, batch x head), each warp
+//     16 rows; the online softmax (m, l, alpha) stays in f32 registers.
+//     The warp's q fragments are read from shared memory again for every
+//     key tile: held in registers beside the output accumulators they
+//     made the D = 128 instantiation spill.
+//     Key/value tiles of 64 rows are staged with 16-byte cp.async copies
+//     in a ring of two stages: tile j+1 loads while tile j multiplies.
+//     q/k/v are read in place through their strides (the model passes
+//     slices of one projection); when a pointer or stride is not 16-byte
+//     aligned, or D % 8 != 0, the same ring is filled by plain loads.
+//   - D is padded with zeros in shared memory up to DP = 64 or 128 (exact:
+//     zero columns add nothing to q . k, and output columns >= D are not
+//     stored), so any D <= 128 is taken.  Rows past Sq / Skv are zero-
+//     filled; keys past Skv get p = 0.
+//   - Causal: key tiles wholly above the block's diagonal are not loaded,
+//     a warp skips the products of a tile wholly above its own 16 rows,
+//     and the mask is applied only on tiles that straddle the diagonal or
+//     the end of the keys.  Blocks are launched heaviest query tile first
+//     (the query tile is blockIdx.y reversed, the slowest grid axis), so
+//     the short tiles fill the tail.
+//   Registers and spills: `-Xptxas -v`, printed by chip_smoke.py's build
+//   phase and recorded in PERF.md.
+//
+// * float32 (reached only by tests and the hostile checks): the first,
+//   CUDA-core body of the port, unchanged.  One block of 256 threads per
+//   (64 query rows, batch x head), 32-key tiles staged in shared memory as
+//   float32, (q * scale) . k with fmaf, online softmax in registers.  It
+//   holds the 2e-5 * max bound; a 3xTF32 tensor-core body is later work.
 //
 // Rows without any valid key (only with `causal` and Sq > Skv) are outside
 // the contract: the reference's plain version gives NaN there.
+#include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
+constexpr float MASKED = -1e30f;     // the TPU kernel's NEG_INF
+
+// ------------------------------------------------- float32: CUDA cores
+namespace f32 {
+
 constexpr int BQ = 64, BK = 32, THREADS = 256;
 constexpr int KST = BK + 2;          // K^T row stride: float2-aligned, few
                                      // bank conflicts on the staging stores
 constexpr int PST = BQ + 4;          // P^T row stride: float4-aligned
-constexpr float MASKED = -1e30f;     // the TPU kernel's NEG_INF
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int DJ>
 constexpr size_t smem_floats() {
@@ -66,15 +99,18 @@ __device__ __forceinline__ int qs_index(int d, int r) {
   return d * BQ + ((((r >> 2) ^ (d & 15)) << 2) | (r & 3));
 }
 
-template <typename T, int DJ>
+// Thread (ty, tx), ty, tx in 0..15, owns rows 4ty..4ty+3 of the tile: the
+// scores of keys 2tx, 2tx+1 and the output columns DJ*tx..DJ*tx+DJ-1 (DJ =
+// 4 for D <= 64, 8 for D <= 128).  Row max and row sum are reduced over
+// the 16 lanes of a half-warp that share ty.
+template <int DJ>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
-                       int groups, int Sq, int Skv, int D, long long q_bs,
-                       long long q_ss, long long q_hs, long long k_bs,
-                       long long k_ss, long long k_hs, long long v_bs,
-                       long long v_ss, long long v_hs, float scale,
-                       int causal) {
+kernel(const float* __restrict__ q, const float* __restrict__ k,
+       const float* __restrict__ v, float* __restrict__ out, int H,
+       int groups, int Sq, int Skv, int D, long long q_bs, long long q_ss,
+       long long q_hs, long long k_bs, long long k_ss, long long k_hs,
+       long long v_bs, long long v_ss, long long v_hs, float scale,
+       int causal) {
   constexpr int DM = 16 * DJ;        // head dims this instantiation holds
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -87,15 +123,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int kvh = h / groups;
   const int q_offset = Skv - Sq;     // queries are the last Sq positions
-  const T* qb = q + b * q_bs + h * q_hs;
-  const T* kb = k + b * k_bs + kvh * k_hs;
-  const T* vb = v + b * v_bs + kvh * v_hs;
+  const float* qb = q + b * q_bs + h * q_hs;
+  const float* kb = k + b * k_bs + kvh * k_hs;
+  const float* vb = v + b * v_bs + kvh * v_hs;
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D, d = e % D;
     Qs[qs_index(d, r)] =
-        q0 + r < Sq ? __fmul_rn(to_f32(qb[(long long)(q0 + r) * q_ss + d]),
-                                scale)
+        q0 + r < Sq ? __fmul_rn(qb[(long long)(q0 + r) * q_ss + d], scale)
                     : 0.0f;
   }
 
@@ -118,8 +153,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < BK * D; e += THREADS) {
       const int c = e / D, d = e % D;
       const bool in = kv0 + c < Skv;
-      Ks[d * KST + c] = in ? to_f32(kb[(long long)(kv0 + c) * k_ss + d]) : 0.0f;
-      Vs[c * DM + d] = in ? to_f32(vb[(long long)(kv0 + c) * v_ss + d]) : 0.0f;
+      Ks[d * KST + c] = in ? kb[(long long)(kv0 + c) * k_ss + d] : 0.0f;
+      Vs[c * DM + d] = in ? vb[(long long)(kv0 + c) * v_ss + d] : 0.0f;
     }
     __syncthreads();
 
@@ -198,32 +233,383 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + 4 * ty + i;
     if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* ob = out + (((long long)b * Sq + r) * H + h) * D;
+    float* ob = out + (((long long)b * Sq + r) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int d = DJ * tx + j;
-      if (d < D) store(ob + d, acc[i][j] / den);
+      if (d < D) ob[d] = acc[i][j] / den;
     }
   }
 }
 
-template <typename T, int DJ>
+template <int DJ>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int K, int Sq, int Skv, int D, long long q_bs,
-           long long q_ss, long long q_hs, long long k_bs, long long k_ss,
-           long long k_hs, long long v_bs, long long v_ss, long long v_hs,
+           int H, int K, int Sq, int Skv, int D, const long long* st,
            float scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_floats<DJ>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DJ>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel<DJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_attention_kernel<T, DJ><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, H / K, Sq, Skv, D,
-      q_bs, q_ss, q_hs, k_bs, k_ss, k_hs, v_bs, v_ss, v_hs, scale, causal);
+  kernel<DJ><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, H,
+      H / K, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], scale, causal);
   return (int)cudaGetLastError();
 }
+
+}  // namespace f32
+
+// -------------------------------------------- bfloat16: tensor cores
+namespace bf16 {
+
+using T = __nv_bfloat16;
+constexpr int BQ = 128, BKV = 64, WARPS = 8, THREADS = 32 * WARPS;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory: Q [BQ][LD], then K and V rings [2][BKV][LD] each.  A row
+// holds DP bf16 and 16 bytes of padding, so the 8 rows an ldmatrix reads
+// start in 8 different 16-byte bank groups.
+template <int DP>
+struct Layout {
+  static constexpr int LD = DP + 8;
+  static constexpr int KV = BKV * LD;
+  static constexpr size_t bytes = (size_t)(BQ * LD + 4 * KV) * sizeof(T);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with `valid` false the destination is zero-
+// filled and nothing is read.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c += a . b for one 16x8x16 tile: a is 16x16 row-major (4 registers of
+// bf16 pairs), b 16x8 "col" (2 registers), c 16x8 float32.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (p0, p1) as three bf16 pairs hi + mid + lo: hi = bf16(p), mid = bf16(p -
+// hi), lo = bf16(p - hi - mid).  Each difference is exact in float32, so
+// the three hold p to ~2^-27 relative (hi + mid alone: ~2^-18).
+__device__ __forceinline__ void split3(float p0, float p1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = p0 - hf.x, r1 = p1 - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  hi = as_u32(h);
+  mid = as_u32(m);
+  lo = as_u32(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
+}
+
+// Rows [row0, row0 + rows) of a strided [*, D] bf16 array into dst[r][0..D)
+// (row stride LD); rows at or past `valid` are zero.  `vec`: 16-byte
+// cp.async copies (asynchronous: the caller commits and waits); otherwise
+// plain element loads.
+template <int LD>
+__device__ __forceinline__ void load_rows(T* dst, const T* src,
+                                          long long stride, int row0,
+                                          int rows, int valid, int D,
+                                          bool vec) {
+  if (vec) {
+    const int chunks = D / 8;
+    for (int e = threadIdx.x; e < rows * chunks; e += THREADS) {
+      const int r = e / chunks, c = e - r * chunks;
+      const bool in = row0 + r < valid;
+      const T* s = in ? src + (long long)(row0 + r) * stride + 8 * c : src;
+      cp_async16(smem_addr(dst + r * LD + 8 * c), s, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * D; e += THREADS) {
+      const int r = e / D, c = e - r * D;
+      dst[r * LD + c] = row0 + r < valid
+                            ? src[(long long)(row0 + r) * stride + c]
+                            : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+// Fragment coordinates (PTX ISA, mma.m16n8k16): lane = 4g + t holds rows g
+// and g + 8 of the accumulators, columns 2t and 2t + 1 of each 8-wide tile.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+kernel(const T* __restrict__ q, const T* __restrict__ k,
+       const T* __restrict__ v, T* __restrict__ out, int H, int groups,
+       int Sq, int Skv, int D, long long q_bs, long long q_ss, long long q_hs,
+       long long k_bs, long long k_ss, long long k_hs, long long v_bs,
+       long long v_ss, long long v_hs, float scale, int causal, int vec) {
+  using L = Layout<DP>;
+  constexpr int LD = L::LD, KSTEPS = DP / 16, NS = BKV / 8, NO = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + BQ * LD;
+  T* Vs = Ks + 2 * L::KV;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest tile first
+  const int b = blockIdx.x / H, h = blockIdx.x % H, kvh = h / groups;
+  const int off = Skv - Sq;          // queries are the last Sq positions
+  const int w0 = q0 + 16 * warp;     // the warp's first query row
+  // scores are kept in log2 units: x = scale * log2(e) * (q . k), so that
+  // p = exp2(x - m) (-1e30 still masks a key)
+  const float scale_log2 = scale * LOG2E;
+  const T* qb = q + b * q_bs + h * q_hs;
+  const T* kb = k + b * k_bs + kvh * k_hs;
+  const T* vb = v + b * v_bs + kvh * v_hs;
+
+  // Columns D..DP-1 of every buffer are zero for the whole run: the loads
+  // below never write them.
+  if (D < DP) {
+    const int pad = DP - D;
+    for (int e = tid; e < (BQ + 4 * BKV) * pad; e += THREADS)
+      Qs[(e / pad) * LD + D + e % pad] = __float2bfloat16_rn(0.0f);
+  }
+
+  // keys past the block's last query row are masked in every row
+  const int kv_end = causal ? min(Skv, off + min(q0 + BQ, Sq)) : Skv;
+  const int n_tiles = kv_end > 0 ? (kv_end + BKV - 1) / BKV : 0;
+
+  load_rows<LD>(Qs, qb, q_ss, q0, BQ, Sq, D, vec);
+  if (n_tiles > 0) {
+    load_rows<LD>(Ks, kb, k_ss, 0, BKV, Skv, D, vec);
+    load_rows<LD>(Vs, vb, v_ss, 0, BKV, Skv, D, vec);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the warp's 16 query rows, read again from shared memory for every
+  // tile as A fragments (kept in registers they would spill)
+  const uint32_t q_frag = smem_addr(Qs + (16 * warp + (lane & 7) +
+                                          ((lane >> 3) & 1) * 8) * LD +
+                                    (lane >> 4) * 8);
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {MASKED, MASKED}, l[2] = {0.0f, 0.0f};   // rows g, g + 8
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int kv0 = j * BKV;
+    if (j + 1 < n_tiles) {           // the next tile loads during this one
+      const int nxt = (j + 1) & 1;
+      load_rows<LD>(Ks + nxt * L::KV, kb, k_ss, kv0 + BKV, BKV, Skv, D, vec);
+      load_rows<LD>(Vs + nxt * L::KV, vb, v_ss, kv0 + BKV, BKV, Skv, D, vec);
+      cp_async_commit();
+    }
+    const T* Kt = Ks + (j & 1) * L::KV;
+    const T* Vt = Vs + (j & 1) * L::KV;
+    // a warp whose rows are all past Sq, or all above this tile's first
+    // key, has nothing to add (p = 0 on every key of the tile)
+    const bool active = w0 < Sq && !(causal && kv0 > off + w0 + 15);
+    if (active) {
+      float s[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t qa[4];
+        ldsm_x4(qa, q_frag + 32 * kk);              // 16 bf16 = 32 bytes
+#pragma unroll
+        for (int n = 0; n < NS; n += 2) {
+          uint32_t bk[4];
+          ldsm_x4(bk, smem_addr(Kt + (8 * n + (lane & 7) + (lane >> 4) * 8) *
+                                         LD +
+                                16 * kk + ((lane >> 3) & 1) * 8));
+          mma(s[n], qa, bk[0], bk[1]);
+          mma(s[n + 1], qa, bk[2], bk[3]);
+        }
+      }
+
+      // scale, mask (only on tiles across the diagonal or the key end),
+      // running max over the 4 lanes that share a row
+      const bool edge = kv0 + BKV > Skv ||
+                        (causal && kv0 + BKV - 1 > off + w0);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if (edge) {
+            const int col = kv0 + 8 * n + 2 * t + (e & 1);
+            const int row = w0 + g + (e >> 1) * 8;
+            if (col >= Skv)
+              x = -INFINITY;         // not a key: p = 0
+            else if (causal && col > row + off)
+              x = MASKED;
+          }
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        alpha[i] = exp2f(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+      // P in float32, this lane's part of the row sums, and P as three
+      // bf16 parts; the score accumulators of key tiles 2c and 2c + 1 are
+      // the A fragment of keys 16c..16c+15
+      uint32_t pf[BKV / 16][3][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[n][e] - m[e >> 1]);
+          s[n][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < BKV / 16; ++c)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split3(s[2 * c + (r >> 1)][2 * (r & 1)],
+                 s[2 * c + (r >> 1)][2 * (r & 1) + 1], pf[c][0][r],
+                 pf[c][1][r], pf[c][2][r]);
+
+      // o = alpha * o + P . V, four 8-column tiles at a time: each sums
+      // the tile's 64 keys from zero on the tensor cores (small partial
+      // sums, four independent accumulation chains) and is then added to
+      // the rescaled accumulator in float32
+#pragma unroll
+      for (int n = 0; n < NO; n += 4) {
+        float f[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) f[i][0] = f[i][1] = f[i][2] = f[i][3] = 0.0f;
+#pragma unroll
+        for (int c = 0; c < BKV / 16; ++c) {
+          uint32_t bv[2][4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            ldsm_x4_trans(bv[h], smem_addr(Vt + (16 * c + (lane & 7) +
+                                                 ((lane >> 3) & 1) * 8) * LD +
+                                           8 * (n + 2 * h) + (lane >> 4) * 8));
+#pragma unroll
+          for (int part = 2; part >= 0; --part)     // smallest first
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              mma(f[i], pf[c][part], bv[i >> 1][2 * (i & 1)],
+                  bv[i >> 1][2 * (i & 1) + 1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[n + i][0] = o[n + i][0] * alpha[0] + f[i][0];
+          o[n + i][1] = o[n + i][1] * alpha[0] + f[i][1];
+          o[n + i][2] = o[n + i][2] * alpha[1] + f[i][2];
+          o[n + i][3] = o[n + i][3] * alpha[1] + f[i][3];
+        }
+      }
+    }
+    cp_async_wait_all();   // tile j + 1 has landed ...
+    __syncthreads();       // ... and every warp is done with tile j's stage
+  }
+
+  // out = o / max(l, 1e-30), staged through the warp's own Q rows (no
+  // other warp reads them) so that rows leave in 16-byte stores
+  float den[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    den[i] = fmaxf(l[i], 1e-30f);
+  }
+  T* Ow = Qs + 16 * warp * LD;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(Ow + g * LD + 8 * n + 2 * t) =
+        __floats2bfloat162_rn(o[n][0] / den[0], o[n][1] / den[0]);
+    *reinterpret_cast<__nv_bfloat162*>(Ow + (g + 8) * LD + 8 * n + 2 * t) =
+        __floats2bfloat162_rn(o[n][2] / den[1], o[n][3] / den[1]);
+  }
+  __syncwarp();
+  const long long row_stride = (long long)H * D;
+  T* ob = out + ((long long)b * Sq * H + h) * D;
+  if (vec) {
+    const int chunks = D / 8;
+    for (int e = lane; e < 16 * chunks; e += 32) {
+      const int r = e / chunks, c = e - r * chunks;
+      if (w0 + r < Sq)
+        *reinterpret_cast<uint4*>(ob + (w0 + r) * row_stride + 8 * c) =
+            *reinterpret_cast<const uint4*>(Ow + r * LD + 8 * c);
+    }
+  } else {
+    for (int e = lane; e < 16 * D; e += 32) {
+      const int r = e / D, c = e - r * D;
+      if (w0 + r < Sq) ob[(w0 + r) * row_stride + c] = Ow[r * LD + c];
+    }
+  }
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int H, int K, int Sq, int Skv, int D, const long long* st,
+           float scale, int causal, cudaStream_t stream) {
+  const size_t smem = Layout<DP>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte copies need every row start 16-byte aligned
+  const void* ptrs[4] = {q, k, v, out};
+  bool vec = D % 8 == 0;
+  for (int i = 0; i < 4; ++i)
+    vec = vec && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
+  for (int i = 0; i < 9; ++i) vec = vec && st[i] % 8 == 0;
+  dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+  kernel<DP><<<grid, THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, H / K, Sq, Skv, D,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
+      causal, (int)vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bf16
 
 }  // namespace
 
@@ -241,22 +627,17 @@ extern "C" int flash_attention_launch(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    return D <= 64 ? launch<float, 4>(q, k, v, out, B, H, K, Sq, Skv, D, q_bs,
-                                      q_ss, q_hs, k_bs, k_ss, k_hs, v_bs, v_ss,
-                                      v_hs, scale, causal, s)
-                   : launch<float, 8>(q, k, v, out, B, H, K, Sq, Skv, D, q_bs,
-                                      q_ss, q_hs, k_bs, k_ss, k_hs, v_bs, v_ss,
-                                      v_hs, scale, causal, s);
-  }
-  if (dtype == 1) {
-    return D <= 64
-               ? launch<__nv_bfloat16, 4>(q, k, v, out, B, H, K, Sq, Skv, D,
-                                          q_bs, q_ss, q_hs, k_bs, k_ss, k_hs,
-                                          v_bs, v_ss, v_hs, scale, causal, s)
-               : launch<__nv_bfloat16, 8>(q, k, v, out, B, H, K, Sq, Skv, D,
-                                          q_bs, q_ss, q_hs, k_bs, k_ss, k_hs,
-                                          v_bs, v_ss, v_hs, scale, causal, s);
-  }
+  const long long st[9] = {q_bs, q_ss, q_hs, k_bs, k_ss, k_hs,
+                           v_bs, v_ss, v_hs};
+  if (dtype == 0)
+    return D <= 64 ? f32::launch<4>(q, k, v, out, B, H, K, Sq, Skv, D, st,
+                                    scale, causal, s)
+                   : f32::launch<8>(q, k, v, out, B, H, K, Sq, Skv, D, st,
+                                    scale, causal, s);
+  if (dtype == 1)
+    return D <= 64 ? bf16::launch<64>(q, k, v, out, B, H, K, Sq, Skv, D, st,
+                                      scale, causal, s)
+                   : bf16::launch<128>(q, k, v, out, B, H, K, Sq, Skv, D, st,
+                                       scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

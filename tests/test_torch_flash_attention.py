@@ -153,3 +153,117 @@ def test_wrapper_checks_shapes():
     with pytest.raises(ValueError, match="do not fit"):
         ops.flash_attention(x, torch.zeros((1, 4, 2, 8)),
                             torch.zeros((1, 5, 2, 8)))
+
+
+# -------------------------------------- K7's tensor-core arithmetic (bf16)
+LOG2E = 1.4426950408889634
+BKV = 64            # the kernel's key tile (csrc/flash_attention.cu)
+
+
+def tensor_core_emulation(q, k, v, *, causal, terms=3):
+    """What K7's bf16 body computes, in plain float32 torch: S = q·k from
+    the bf16 values (each product exact in float32), times scale·log2(e)
+    afterwards; the online softmax in log2 units (p = exp2(x − m)) over
+    tiles of BKV keys with -1e30 on causally masked keys; each tile's P·V summed from zero, with P written
+    as ``terms`` bf16 parts (hi = bf16(P), mid = bf16(P - hi), lo =
+    bf16(P - hi - mid); ``terms=1`` is FlashAttention-2's single bf16 P),
+    then added to the rescaled accumulator; l summed from the float32 P;
+    out = acc / max(l, 1e-30) rounded once to bf16."""
+    B, Sq, H, D = q.shape
+    _, Skv, K, _ = k.shape
+    scale = D ** -0.5
+    qf = q.float().reshape(B, Sq, K, H // K, D)
+    kf, vf = k.float(), v.float()
+    off = Skv - Sq
+    m = torch.full((B, K, H // K, Sq), -1e30)
+    l = torch.zeros((B, K, H // K, Sq))
+    acc = torch.zeros((B, K, H // K, Sq, D))
+    rows = torch.arange(Sq)[:, None] + off
+    kv_end = min(Skv, off + Sq) if causal else Skv
+    with ref.full_f32_matmul():
+        for kv0 in range(0, kv_end, BKV):
+            kt, vt = kf[:, kv0:kv0 + BKV], vf[:, kv0:kv0 + BKV]
+            s = torch.einsum("bikgd,bjkd->bkgij", qf, kt) * (scale * LOG2E)
+            if causal:
+                cols = torch.arange(kv0, kv0 + kt.shape[1])[None]
+                s = s.masked_fill(cols > rows, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            pv, rest = 0.0, p
+            for _ in range(terms):
+                part = rest.bfloat16().float()
+                pv = pv + torch.einsum("bkgij,bjkd->bkgid", part, vt)
+                rest = rest - part
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).bfloat16()
+
+
+def bf16_bound_breaks(got, want):
+    """Elements outside chip_smoke.py's bf16 bound: one bf16 ulp of want
+    plus 1e-6 · max|want|."""
+    w = want.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+    bound = ulp + 1e-6 * float(want.float().abs().max())
+    return int(((got.float() - want.float()).abs() > bound).sum())
+
+
+def _bf16_inputs(B, Sq, Skv, H, K, D, packed, seed):
+    rng = np.random.default_rng(seed)
+    if packed:      # q/k/v as slices of one projection, as the model does
+        qkv = torch.as_tensor(rng.standard_normal(
+            (B, Sq, H + 2 * K, D)).astype(np.float32)).bfloat16()
+        return qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+    return [torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+            .bfloat16() for s in ((B, Sq, H, D), (B, Skv, K, D),
+                                  (B, Skv, K, D))]
+
+
+# chip_smoke.py's hostile K7 shapes (B, Sq, Skv, H, K, D, causal, packed),
+# the new tilings' edges among them (D 40, S 200, Sq 70 / Skv 333), and
+# S 1 024 / D 128 / GQA 3
+K7_EMULATION_SHAPES = [
+    (1, 1, 1, 2, 2, 64, True, False), (2, 17, 17, 6, 2, 128, True, False),
+    (1, 1000, 1000, 4, 1, 64, True, False),
+    (2, 64, 256, 8, 2, 128, True, False),
+    (1, 100, 300, 3, 3, 128, False, False),
+    (2, 5, 37, 12, 4, 96, True, False),
+    (1, 1000, 1000, 6, 2, 128, False, True),
+    (2, 129, 129, 24, 8, 128, True, True),
+    (2, 77, 77, 4, 2, 40, True, False), (1, 200, 200, 6, 2, 128, True, False),
+    (1, 70, 333, 6, 3, 128, True, False),
+    (1, 1024, 1024, 6, 2, 128, True, False),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D,causal,packed", K7_EMULATION_SHAPES)
+def test_k7_tensor_core_arithmetic_keeps_the_bf16_bound(B, Sq, Skv, H, K, D,
+                                                        causal, packed):
+    q, k, v = _bf16_inputs(B, Sq, Skv, H, K, D, packed, seed=Sq + D + H)
+    got = tensor_core_emulation(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert bf16_bound_breaks(got, want) == 0
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,D,causal,packed,seed", [
+    (1, 1024, 1024, 4, 4, 128, True, False, 14),
+    (1, 1000, 1000, 6, 2, 128, False, True, 1134),
+])
+def test_fewer_parts_of_p_leave_the_bound(B, Sq, Skv, H, K, D, causal, packed,
+                                          seed):
+    """Why K7 splits P into three bf16 parts: P rounded once to bf16
+    (FlashAttention-2) puts over 1 % of the outputs outside the bound;
+    two parts leave P ~2^-18 off, which near-zero outputs of a long
+    non-causal row can feel; three parts keep every output inside.
+    PERF.md records the printed counts."""
+    q, k, v = _bf16_inputs(B, Sq, Skv, H, K, D, packed, seed=seed)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    breaks = [bf16_bound_breaks(tensor_core_emulation(
+        q, k, v, causal=causal, terms=n), want) for n in (1, 2, 3)]
+    print(f"outside the bf16 bound of {want.numel()} outputs with 1 / 2 / 3 "
+          f"bf16 parts of P: {breaks}")
+    assert breaks[0] > want.numel() // 100 and breaks[2] == 0

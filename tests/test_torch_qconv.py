@@ -173,3 +173,88 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ops.qconv(x.to("meta"), torch.as_tensor(qrand(rng, (3, 3, 4, 2))),
                   stride=1, hpad=(1, 1), wpad=(1, 1), **_QP)
     assert ops.qconv.launches == before
+
+
+# ------------------------------------------------ K1's split-K arithmetic
+H100_SMS = 132
+
+
+def splitk_emulation(x, w, *, mult, zp_in, zp_out, sms=H100_SMS):
+    """K1's int32 arithmetic on the card (``csrc/qconv1x1.cuh``), in plain
+    torch: for each chunk of Cin that ``ops.plan_split_k`` gives,
+    ``Σ x·w - zp_in · Σ w`` in int32; the partials added in chunk order;
+    then the requantize epilogue."""
+    h, wd, cin = x.shape[-3:]
+    cout = w.shape[1]
+    xl = x.reshape(-1, h * wd, cin).to(torch.int32)
+    split, chunk = ops.plan_split_k(xl.shape[0], h * wd, cin, cout, sms)
+    acc = torch.zeros((xl.shape[0], h * wd, cout), dtype=torch.int32)
+    for s in range(split):
+        wk = w[s * chunk:(s + 1) * chunk].to(torch.int32)
+        part = torch.matmul(xl[..., s * chunk:(s + 1) * chunk], wk)
+        acc = acc + (part - zp_in * wk.sum(0))
+    y = ref.requantize(acc, mult, zp_out, lo=zp_out)
+    return y.reshape(*x.shape[:-1], cout)
+
+
+def strided_lanes(rng, lanes, shape):
+    """``lanes`` int8 [H, W, C] blocks lying a byte stride apart that is no
+    multiple of 4, as arena views lie."""
+    n = int(np.prod(shape))
+    buf = torch.as_tensor(qrand(rng, (lanes, n + 37)))
+    return buf[:, 5:5 + n].view(lanes, *shape)
+
+
+# (H, W, Cin, Cout, lanes): Cin 1 and 1 030 (17 K-steps, ragged), M 1, M 36
+# with Cout 1 024 (the largest main-path shape), Cout 5 and 65
+SPLITK_SHAPES = [(1, 1, 1, 5, 1), (7, 9, 1, 65, 3), (1, 1, 1030, 65, 1),
+                 (6, 6, 1024, 1024, 1), (6, 6, 1030, 5, 3),
+                 (3, 5, 1030, 65, 3)]
+
+
+@pytest.mark.parametrize("zp_in", [-128, 0, 127])
+@pytest.mark.parametrize("H,W,Cin,Cout,lanes", SPLITK_SHAPES)
+def test_k1_split_k_arithmetic_is_bit_exact(H, W, Cin, Cout, lanes, zp_in):
+    """The decomposition Σ(x − zp)·w = Σx·w − zp·Σw over the planner's
+    chunks gives the plain version's int8 outputs bit for bit, with the
+    plan of a 132-SM card and of one SM (split 1)."""
+    rng = np.random.default_rng(Cin * 7 + Cout + lanes + zp_in + 128)
+    x = strided_lanes(rng, lanes, (H, W, Cin))
+    w = torch.as_tensor(qrand(rng, (Cin, Cout)))
+    qp = dict(mult=0.003 / np.sqrt(Cin), zp_in=zp_in, zp_out=-3)
+    want = ref.qconv1x1_ref(x, w, **qp)
+    assert torch.equal(ops.qconv1x1(x, w, **qp), want)
+    for sms in (H100_SMS, 1):
+        assert torch.equal(splitk_emulation(x, w, sms=sms, **qp), want)
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("sms", [1, 8, 132])
+def test_split_k_plan_covers_cin_once(lanes, sms):
+    """Every chunk is a whole number of 64-channel K-steps except the last,
+    the chunks cover [0, Cin) exactly once with none empty, the split is
+    in [1, MAX_SPLIT]; output tiles that fill the card and Cin loops under
+    MIN_SPLIT_STEPS K-steps are not split; otherwise every chunk but the
+    last keeps MIN_CHUNK_STEPS K-steps and the split is at least half of
+    what reaches ``sms`` blocks (capped by MAX_SPLIT and by the K-steps)."""
+    for m in (1, 36, 144, 2304, 9216):
+        for cin in (1, 3, 63, 64, 65, 1024, 1030, 4096):
+            for cout in (1, 5, 65, 1024):
+                split, chunk = ops.plan_split_k(lanes, m, cin, cout, sms)
+                assert 1 <= split <= ops.MAX_SPLIT
+                assert chunk > 0 and chunk % 64 == 0
+                cover = np.zeros(cin, dtype=int)
+                for s in range(split):
+                    lo, hi = s * chunk, min(cin, (s + 1) * chunk)
+                    assert lo < hi, (m, cin, cout, split, chunk)
+                    cover[lo:hi] += 1
+                assert (cover == 1).all()
+                tiles = lanes * -(-m // 64) * -(-cout // 64)
+                steps = -(-cin // 64)
+                if tiles >= sms or steps < ops.MIN_SPLIT_STEPS:
+                    assert split == 1
+                    continue
+                assert chunk >= 64 * ops.MIN_CHUNK_STEPS
+                want = min(ops.MAX_SPLIT, steps // ops.MIN_CHUNK_STEPS,
+                           -(-sms // tiles))
+                assert 2 <= split <= want <= 2 * split

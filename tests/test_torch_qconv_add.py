@@ -19,6 +19,8 @@ from repro.kernels.conv_quant.kernel import qconv1x1_add_pallas
 import repro_torch.kernels as kernels
 from repro_torch.kernels.conv_quant import ops, ref
 
+from test_torch_qconv import SPLITK_SHAPES, splitk_emulation, strided_lanes
+
 # One intra-op thread: the suite runs in several worker processes at
 # once, and idle OpenMP threads spinning in each would starve the rest.
 torch.set_num_threads(1)
@@ -132,3 +134,23 @@ def test_wrappers_check_inputs():
                                 add_params=(100.0, 100.0, 0, 0, 0), **_QP)
     assert set(ops.KERNEL_WRAPPERS) == {"qconv1x1", "qdwconv", "qconv",
                                         "qconv1x1_add", "qconv_add"}
+
+
+@pytest.mark.parametrize("zp_in", [-128, 0, 127])
+@pytest.mark.parametrize("H,W,Cin,Cout,lanes", SPLITK_SHAPES)
+def test_k4_split_k_arithmetic_is_bit_exact(H, W, Cin, Cout, lanes, zp_in):
+    """K4 shares K1's split-K body: the chunked int32 product minus
+    zp_in · Σw, then the requantize and fixed-point add epilogue, equals
+    ``qconv1x1_add_ref`` bit for bit (132-SM and 1-SM plans)."""
+    rng = np.random.default_rng(Cin * 5 + Cout + lanes + zp_in + 128)
+    x = strided_lanes(rng, lanes, (H, W, Cin))
+    w = torch.as_tensor(qrand(rng, (Cin, Cout)))
+    r = strided_lanes(rng, lanes, (H, W, Cout))
+    qp = dict(mult=0.003 / np.sqrt(Cin), zp_in=zp_in, zp_out=-3)
+    addp = ADD_PARAMS[("plain", "saturating", "negative")[(zp_in + 128) % 3]]
+    want = ref.qconv1x1_add_ref(x, w, r, add_params=addp, **qp)
+    assert torch.equal(ops.qconv1x1_add(x, w, r, add_params=addp, **qp),
+                       want)
+    for sms in (132, 1):
+        got = ref.qadd(splitk_emulation(x, w, sms=sms, **qp), r, *addp)
+        assert torch.equal(got, want)

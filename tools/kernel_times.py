@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Check and time K1, K4 and K7 of one checkout's PyTorch/CUDA port.
+
+    python3 tools/kernel_times.py [--src DIR] [--splits 1,2,4,8]
+
+``--src`` is the ``src`` directory whose ``repro_torch`` is measured
+(default: this checkout's), so that an older commit's kernels, unpacked
+with ``git archive``, are measured by the same code in the same call as
+the newer ones (run them in turns: old, new, new, old).  With
+``chip_smoke.py``'s checks and timers it builds that package's kernels,
+plans the reorder-only int8 MobileNet-1.0@192 and then:
+
+* holds K1–K5 against their plain versions (bit-exact) at every int8
+  conv of that schedule, each also as the fused conv -> add;
+* times K1 at every distinct pointwise shape of the schedule against
+  ``torch._int_mm``, event and device times (``Checks.k1_shapes``;
+  ``--splits`` adds K1's device time with Cin forced into that many
+  chunks, the measurement behind ``ops.plan_split_k``'s thresholds), and
+  K1 and K4 at their largest shape (``Checks.timing``);
+* holds K7 against its plain version and times it against
+  ``F.scaled_dot_product_attention`` at the long mix's prefill (B 4, S
+  1 024, 24/8 heads of 128, bf16, causal) and at the short mix's largest
+  (the reference launcher's prompts in batches of 4).
+
+It prints ``chip_smoke.py``'s lines, ``ptxas -v``'s registers and spills
+first and the card's name and power limit last; a failed check raises.
+It exits 2 without CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--splits", default="",
+                    help="comma-separated split counts to force on K1")
+    args = ap.parse_args()
+    src = Path(args.src).resolve()
+    sys.path.insert(0, str(src))
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    import repro_torch
+    import repro_torch.deploy as deploy
+    from repro_torch.configs import get_config
+    from repro_torch.graphs import mobilenet_v1_graph
+    from repro_torch.kernels import build
+    from repro_torch.kernels.conv_quant import ops
+    from repro_torch.launch import serve as launch_serve
+    assert Path(repro_torch.__file__).resolve().is_relative_to(src)
+    dev = torch.device(chip_smoke.DEVICE)
+    card = chip_smoke.nvidia_smi()
+    chip_smoke.log(f"kernel_times: {src} [{card}]")
+
+    build.build_all()
+    for name in ("qconv1x1", "qconv1x1_add", "flash_attention"):
+        chip_smoke.log(f"ptxas {name}: " + "; ".join(
+            getattr(build, "PTXAS", {}).get(name, ["not reported"])))
+    d = deploy.build(mobilenet_v1_graph(*chip_smoke.MODEL), device=dev,
+                     quantize=True, arena_budget=None)
+    checks = chip_smoke.Checks(torch, np, dev, ops.KERNEL_WRAPPERS)
+    checks.from_deployment(d)
+    assert all(v == 0 for v in checks.mismatches.values()), checks.mismatches
+    checks.k1_shapes(card, d, [int(n) for n in args.splits.split(",") if n])
+    for name in ("qconv1x1", "qconv1x1_add"):
+        checks.timing(name, card)
+
+    cfg = get_config(chip_smoke.LLM_ARCH)
+    short = max(len(r.prompt) for r in launch_serve.make_requests(cfg, 8, 12))
+    attn = chip_smoke.AttentionChecks(torch, np, dev)
+    H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    for label, S in (("long mix's prefill", 1024),
+                     ("short mix's largest prefill", short)):
+        attn.k7(4, S, S, H, K, D, torch.bfloat16, True)
+        attn.timing("flash_attention", card, label=label, config=(
+            (4, S, H, D), (4, S, K, D), torch.bfloat16, True))
+    assert attn.mismatches["flash_attention"] == 0, attn.mismatches
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
