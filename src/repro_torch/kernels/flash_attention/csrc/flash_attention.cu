@@ -13,47 +13,46 @@
 //
 // What the design does about it.  Two bodies, chosen by the input type:
 //
-// * bfloat16 (the model's type): tensor cores.  mma.sync.m16n8k16 (bf16 in,
-//   f32 accumulate) for both products, operands read from shared memory
-//   with ldmatrix (.trans for V).  This is the mma.sync stage that the
-//   redesign allows first, not wgmma: a warpgroup product needs both
-//   operands in shared memory in a core-matrix layout (or A in registers in
-//   the accumulator's layout), descriptors and a producer/consumer split;
-//   mma.sync reuses the score accumulators as the A operand of P.V in
-//   registers, and it could be checked without a compiler at hand.  wgmma
-//   with TMA staging is the next step (ROADMAP Queue 2).
+// * bfloat16 (the model's type): warpgroup tensor cores, wgmma (bf16 in,
+//   f32 accumulate), asynchronous, run by a warpgroup of 128 threads.
+//   - One block of 2 warpgroups per (128 query rows, batch x head), each
+//     warpgroup 64 rows (each of its warps 16).  Q and the K/V tiles sit
+//     in shared memory in the 128-byte-swizzled layout wgmma reads through
+//     descriptors.  S = Q K^T is m64n64k16 with both operands from shared
+//     memory (K-major); P V is m64n64k16 with P from registers (the score
+//     accumulators re-packed as A fragments) and V read MN-major from the
+//     same tile bytes, 64 head dims at a time.  K and V are read once per
+//     warpgroup, not once per warp as with mma.sync and ldmatrix (an
+//     earlier version of this body, slower; PERF.md has both times).
 //   - S = q . k on the raw bf16 q and k (the products are exact in f32);
 //     the f32 scores are multiplied by scale * log2(e) afterwards (p =
 //     exp2(x - m)), never q * scale rounded to bf16.
 //   - P.V keeps P's low bits: P = hi + mid + lo, three bf16 parts (hi =
 //     bf16(P), mid = bf16(P - hi), lo = bf16(P - hi - mid)), all three
-//     products summed in f32: 2x the tensor-core work of FlashAttention-2,
-//     far under the CUDA-core body.  With P rounded once to bf16, as
-//     FlashAttention-2 does, ~12 % of the outputs leave the check's bound
-//     (one bf16 ulp of the plain version + 1e-6 * max); with hi + mid, P
-//     keeps ~2^-18 relative and outputs near zero of a long non-causal
-//     row can still leave it (1 of 768 000 in the CPU emulation of
-//     tests/test_torch_flash_attention.py); with three parts P's error is
-//     under float32's own rounding.  For the same reason each tile's P.V
-//     is summed from zero on the tensor cores (small partial sums) and
-//     then added to the rescaled accumulator in float32.  The row sum l
-//     is taken from the f32 P.
-//   - One block of 8 warps per (128 query rows, batch x head), each warp
-//     16 rows; the online softmax (m, l, alpha) stays in f32 registers.
-//     The warp's q fragments are read from shared memory again for every
-//     key tile: held in registers beside the output accumulators they
-//     made the D = 128 instantiation spill.
-//     Key/value tiles of 64 rows are staged with 16-byte cp.async copies
-//     in a ring of two stages: tile j+1 loads while tile j multiplies.
-//     q/k/v are read in place through their strides (the model passes
-//     slices of one projection); when a pointer or stride is not 16-byte
-//     aligned, or D % 8 != 0, the same ring is filled by plain loads.
+//     products summed in f32: 2x the tensor-core work of FlashAttention-2.
+//     With P rounded once to bf16, as FlashAttention-2 does, ~12 % of the
+//     outputs leave the check's bound (one bf16 ulp of the plain version +
+//     1e-6 * max); with hi + mid, P keeps ~2^-18 relative and outputs near
+//     zero of a long non-causal row can still leave it (1 of 768 000 in
+//     the CPU emulation of tests/test_torch_flash_attention.py); with three
+//     parts P's error is under float32's own rounding.  For the same
+//     reason each tile's P.V is summed from zero on the tensor cores (small
+//     partial sums) and then added to the rescaled accumulator in f32.
+//     The online softmax (m, l, alpha) stays in f32 registers; the row sum
+//     l is taken from the f32 P.
+//   - Key/value tiles of 64 rows are staged with 16-byte cp.async copies
+//     in a ring of two stages: tile j+1 loads while tile j multiplies (a
+//     third stage, to run the next tile's Q K^T during this tile's
+//     softmax, was slower).  q/k/v are read in place through their strides
+//     (the model passes slices of one projection); when a pointer or
+//     stride is not 16-byte aligned, or D % 8 != 0, plain loads fill the
+//     same tiles.
 //   - D is padded with zeros in shared memory up to DP = 64 or 128 (exact:
 //     zero columns add nothing to q . k, and output columns >= D are not
 //     stored), so any D <= 128 is taken.  Rows past Sq / Skv are zero-
 //     filled; keys past Skv get p = 0.
 //   - Causal: key tiles wholly above the block's diagonal are not loaded,
-//     a warp skips the products of a tile wholly above its own 16 rows,
+//     a warpgroup skips the products of a tile wholly above its 64 rows,
 //     and the mask is applied only on tiles that straddle the diagonal or
 //     the end of the keys.  Blocks are launched heaviest query tile first
 //     (the query tile is blockIdx.y reversed, the slowest grid axis), so
@@ -260,21 +259,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace f32
 
-// -------------------------------------------- bfloat16: tensor cores
+// -------------------------------------- bfloat16: tensor cores (wgmma)
 namespace bf16 {
 
 using T = __nv_bfloat16;
-constexpr int BQ = 128, BKV = 64, WARPS = 8, THREADS = 32 * WARPS;
+constexpr int BQ = 128, BKV = 64, THREADS = 256;   // 2 warpgroups x 64 rows
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared memory: Q [BQ][LD], then K and V rings [2][BKV][LD] each.  A row
-// holds DP bf16 and 16 bytes of padding, so the 8 rows an ldmatrix reads
-// start in 8 different 16-byte bank groups.
+// Tiles in shared memory in the 128-byte-swizzled layout wgmma reads: the
+// head dims are cut into column blocks of 64 (128 bytes a row); block b of
+// a tile of R rows holds rows 0..R-1 at 128 bytes each, the 16-byte chunk
+// c of row r stored at chunk c ^ (r % 8).  Q and K are read K-major (d
+// contiguous); the same bytes of V are read MN-major.  Q [BQ], then the K
+// and V rings [2][BKV], each tile 1024-byte aligned.
 template <int DP>
 struct Layout {
-  static constexpr int LD = DP + 8;
-  static constexpr int KV = BKV * LD;
-  static constexpr size_t bytes = (size_t)(BQ * LD + 4 * KV) * sizeof(T);
+  static constexpr int Q = BQ * DP * 2, KV = BKV * DP * 2;   // bytes
+  static constexpr size_t bytes = (size_t)Q + 4 * KV + 1024;  // + alignment
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -296,32 +297,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c += a . b for one 16x8x16 tile: a is 16x16 row-major (4 registers of
-// bf16 pairs), b 16x8 "col" (2 registers), c 16x8 float32.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -341,12 +316,93 @@ __device__ __forceinline__ void split3(float p0, float p1, uint32_t& hi,
   lo = as_u32(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
 }
 
-// Rows [row0, row0 + rows) of a strided [*, D] bf16 array into dst[r][0..D)
-// (row stride LD); rows at or past `valid` are zero.  `vec`: 16-byte
+__device__ __forceinline__ uint32_t swz(int row, int col, int rows) {
+  return (col >> 6) * rows * 128 + row * 128 +
+         ((((col >> 3) & 7) ^ (row & 7)) << 4) + ((col & 7) << 1);
+}
+
+// A wgmma shared-memory descriptor: 128-byte swizzle, byte offsets.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator registers across the
+// asynchronous products
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// what threads wrote to shared memory becomes visible to wgmma
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (+)= a . b for m64n64k16: A (64 x 16) and B (16 x 64) from shared
+// memory, both K-major with the 128-byte swizzle; scale_d 0 starts d from
+// zero.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The same with A from registers (warp w of the warpgroup holds rows
+// 16w..16w+15 as the m16n8k16 A fragment: the layout of its accumulator
+// rows) and B read MN-major (transposed) from shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// Rows [row0, row0 + rows) of a strided [*, D] bf16 array into a swizzled
+// tile of `rows` rows; rows at or past `valid` are zero.  `vec`: 16-byte
 // cp.async copies (asynchronous: the caller commits and waits); otherwise
-// plain element loads.
-template <int LD>
-__device__ __forceinline__ void load_rows(T* dst, const T* src,
+// plain element stores.
+__device__ __forceinline__ void load_rows(unsigned char* dst, const T* src,
                                           long long stride, int row0,
                                           int rows, int valid, int D,
                                           bool vec) {
@@ -356,20 +412,26 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src,
       const int r = e / chunks, c = e - r * chunks;
       const bool in = row0 + r < valid;
       const T* s = in ? src + (long long)(row0 + r) * stride + 8 * c : src;
-      cp_async16(smem_addr(dst + r * LD + 8 * c), s, in);
+      cp_async16(smem_addr(dst + swz(r, 8 * c, rows)), s, in);
     }
   } else {
     for (int e = threadIdx.x; e < rows * D; e += THREADS) {
       const int r = e / D, c = e - r * D;
-      dst[r * LD + c] = row0 + r < valid
-                            ? src[(long long)(row0 + r) * stride + c]
-                            : __float2bfloat16_rn(0.0f);
+      *reinterpret_cast<T*>(dst + swz(r, c, rows)) =
+          row0 + r < valid ? src[(long long)(row0 + r) * stride + c]
+                           : __float2bfloat16_rn(0.0f);
     }
   }
 }
 
-// Fragment coordinates (PTX ISA, mma.m16n8k16): lane = 4g + t holds rows g
-// and g + 8 of the accumulators, columns 2t and 2t + 1 of each 8-wide tile.
+__device__ __forceinline__ void zero_pad(unsigned char* tile, int rows,
+                                         int D, int DP) {
+  const int pad = DP - D;
+  for (int e = threadIdx.x; e < rows * pad; e += THREADS)
+    *reinterpret_cast<T*>(tile + swz(e / pad, D + e % pad, rows)) =
+        __float2bfloat16_rn(0.0f);
+}
+
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 1)
 kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -378,52 +440,42 @@ kernel(const T* __restrict__ q, const T* __restrict__ k,
        long long k_bs, long long k_ss, long long k_hs, long long v_bs,
        long long v_ss, long long v_hs, float scale, int causal, int vec) {
   using L = Layout<DP>;
-  constexpr int LD = L::LD, KSTEPS = DP / 16, NS = BKV / 8, NO = DP / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + BQ * LD;
-  T* Vs = Ks + 2 * L::KV;
+  constexpr int KSTEPS = DP / 16, NS = BKV / 8, NO = DP / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* Ks = Qs + L::Q;
+  unsigned char* Vs = Ks + 2 * L::KV;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int g = lane / 4, t = lane % 4, grp = warp / 4;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest tile first
   const int b = blockIdx.x / H, h = blockIdx.x % H, kvh = h / groups;
-  const int off = Skv - Sq;          // queries are the last Sq positions
+  const int off = Skv - Sq;
+  const int g0 = q0 + 64 * grp;      // the warpgroup's first query row
   const int w0 = q0 + 16 * warp;     // the warp's first query row
-  // scores are kept in log2 units: x = scale * log2(e) * (q . k), so that
-  // p = exp2(x - m) (-1e30 still masks a key)
   const float scale_log2 = scale * LOG2E;
   const T* qb = q + b * q_bs + h * q_hs;
   const T* kb = k + b * k_bs + kvh * k_hs;
   const T* vb = v + b * v_bs + kvh * v_hs;
 
-  // Columns D..DP-1 of every buffer are zero for the whole run: the loads
-  // below never write them.
   if (D < DP) {
-    const int pad = DP - D;
-    for (int e = tid; e < (BQ + 4 * BKV) * pad; e += THREADS)
-      Qs[(e / pad) * LD + D + e % pad] = __float2bfloat16_rn(0.0f);
+    zero_pad(Qs, BQ, D, DP);
+    for (int i = 0; i < 4; ++i) zero_pad(Ks + i * L::KV, BKV, D, DP);
   }
-
-  // keys past the block's last query row are masked in every row
   const int kv_end = causal ? min(Skv, off + min(q0 + BQ, Sq)) : Skv;
   const int n_tiles = kv_end > 0 ? (kv_end + BKV - 1) / BKV : 0;
-
-  load_rows<LD>(Qs, qb, q_ss, q0, BQ, Sq, D, vec);
+  load_rows(Qs, qb, q_ss, q0, BQ, Sq, D, vec);
   if (n_tiles > 0) {
-    load_rows<LD>(Ks, kb, k_ss, 0, BKV, Skv, D, vec);
-    load_rows<LD>(Vs, vb, v_ss, 0, BKV, Skv, D, vec);
+    load_rows(Ks, kb, k_ss, 0, BKV, Skv, D, vec);
+    load_rows(Vs, vb, v_ss, 0, BKV, Skv, D, vec);
   }
   cp_async_commit();
   cp_async_wait_all();
+  fence_async_smem();
   __syncthreads();
 
-  // the warp's 16 query rows, read again from shared memory for every
-  // tile as A fragments (kept in registers they would spill)
-  const uint32_t q_frag = smem_addr(Qs + (16 * warp + (lane & 7) +
-                                          ((lane >> 3) & 1) * 8) * LD +
-                                    (lane >> 4) * 8);
-
+  const uint32_t q_addr = smem_addr(Qs) + 64 * grp * 128;
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
@@ -431,38 +483,33 @@ kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j = 0; j < n_tiles; ++j) {
     const int kv0 = j * BKV;
-    if (j + 1 < n_tiles) {           // the next tile loads during this one
+    if (j + 1 < n_tiles) {
       const int nxt = (j + 1) & 1;
-      load_rows<LD>(Ks + nxt * L::KV, kb, k_ss, kv0 + BKV, BKV, Skv, D, vec);
-      load_rows<LD>(Vs + nxt * L::KV, vb, v_ss, kv0 + BKV, BKV, Skv, D, vec);
+      load_rows(Ks + nxt * L::KV, kb, k_ss, kv0 + BKV, BKV, Skv, D, vec);
+      load_rows(Vs + nxt * L::KV, vb, v_ss, kv0 + BKV, BKV, Skv, D, vec);
       cp_async_commit();
     }
-    const T* Kt = Ks + (j & 1) * L::KV;
-    const T* Vt = Vs + (j & 1) * L::KV;
-    // a warp whose rows are all past Sq, or all above this tile's first
-    // key, has nothing to add (p = 0 on every key of the tile)
-    const bool active = w0 < Sq && !(causal && kv0 > off + w0 + 15);
+    const uint32_t k_addr = smem_addr(Ks + (j & 1) * L::KV);
+    const uint32_t v_addr = smem_addr(Vs + (j & 1) * L::KV);
+    // the warpgroup's 64 rows all past Sq, or all above the tile's first
+    // key: nothing to add (uniform over the warpgroup, as wgmma needs)
+    const bool active = g0 < Sq && !(causal && kv0 > off + g0 + 63);
     if (active) {
-      float s[NS][4];
-#pragma unroll
-      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+      // S = Q K^T: 64 x 64 per warpgroup, K-steps of 16 head dims.  Step
+      // kk starts 32 bytes into 64-dim column block kk / 4 (the hardware
+      // applies the swizzle to the full address); SBO 1024 = 8 rows, LBO
+      // unused for K-major with this swizzle
+      float s[32];
+      wg_fence();
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t qa[4];
-        ldsm_x4(qa, q_frag + 32 * kk);              // 16 bf16 = 32 bytes
-#pragma unroll
-        for (int n = 0; n < NS; n += 2) {
-          uint32_t bk[4];
-          ldsm_x4(bk, smem_addr(Kt + (8 * n + (lane & 7) + (lane >> 4) * 8) *
-                                         LD +
-                                16 * kk + ((lane >> 3) & 1) * 8));
-          mma(s[n], qa, bk[0], bk[1]);
-          mma(s[n + 1], qa, bk[2], bk[3]);
-        }
+        const uint32_t cb = (kk >> 2), kb16 = (kk & 3) * 32;
+        wgmma_ss(s, desc(q_addr + cb * BQ * 128 + kb16, 16, 1024),
+                 desc(k_addr + cb * BKV * 128 + kb16, 16, 1024), kk > 0);
       }
+      wg_commit_wait();
+      fence_regs(s);
 
-      // scale, mask (only on tiles across the diagonal or the key end),
-      // running max over the 4 lanes that share a row
       const bool edge = kv0 + BKV > Skv ||
                         (causal && kv0 + BKV - 1 > off + w0);
       float mx[2] = {-INFINITY, -INFINITY};
@@ -470,16 +517,16 @@ kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int n = 0; n < NS; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float x = s[n][e] * scale_log2;
+          float x = s[4 * n + e] * scale_log2;
           if (edge) {
             const int col = kv0 + 8 * n + 2 * t + (e & 1);
             const int row = w0 + g + (e >> 1) * 8;
             if (col >= Skv)
-              x = -INFINITY;         // not a key: p = 0
+              x = -INFINITY;
             else if (causal && col > row + off)
               x = MASKED;
           }
-          s[n][e] = x;
+          s[4 * n + e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
       }
@@ -493,16 +540,13 @@ kernel(const T* __restrict__ q, const T* __restrict__ k,
         m[i] = m_new;
         l[i] *= alpha[i];
       }
-      // P in float32, this lane's part of the row sums, and P as three
-      // bf16 parts; the score accumulators of key tiles 2c and 2c + 1 are
-      // the A fragment of keys 16c..16c+15
       uint32_t pf[BKV / 16][3][4];
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[n][e] - m[e >> 1]);
-          s[n][e] = p;
+          const float p = exp2f(s[4 * n + e] - m[e >> 1]);
+          s[4 * n + e] = p;
           l[e >> 1] += p;
         }
       }
@@ -510,49 +554,43 @@ kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < BKV / 16; ++c)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          split3(s[2 * c + (r >> 1)][2 * (r & 1)],
-                 s[2 * c + (r >> 1)][2 * (r & 1) + 1], pf[c][0][r],
-                 pf[c][1][r], pf[c][2][r]);
+          split3(s[4 * (2 * c + (r >> 1)) + 2 * (r & 1)],
+                       s[4 * (2 * c + (r >> 1)) + 2 * (r & 1) + 1],
+                       pf[c][0][r], pf[c][1][r], pf[c][2][r]);
 
-      // o = alpha * o + P . V, four 8-column tiles at a time: each sums
-      // the tile's 64 keys from zero on the tensor cores (small partial
-      // sums, four independent accumulation chains) and is then added to
-      // the rescaled accumulator in float32
+      // o = alpha * o + P . V, 64 head dims at a time: the tile's 64 keys
+      // summed from zero on the tensor cores, then added in float32
 #pragma unroll
-      for (int n = 0; n < NO; n += 4) {
-        float f[4][4];
+      for (int half = 0; half < DP / 64; ++half) {
+        float f[32];
+        wg_fence();
 #pragma unroll
-        for (int i = 0; i < 4; ++i) f[i][0] = f[i][1] = f[i][2] = f[i][3] = 0.0f;
-#pragma unroll
-        for (int c = 0; c < BKV / 16; ++c) {
-          uint32_t bv[2][4];
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            ldsm_x4_trans(bv[h], smem_addr(Vt + (16 * c + (lane & 7) +
-                                                 ((lane >> 3) & 1) * 8) * LD +
-                                           8 * (n + 2 * h) + (lane >> 4) * 8));
+        for (int c = 0; c < BKV / 16; ++c)
 #pragma unroll
           for (int part = 2; part >= 0; --part)     // smallest first
+            wgmma_rs(f, pf[c][part],       // keys 16c..: SBO 1024 = 8 keys
+                     desc(v_addr + half * BKV * 128 + 16 * c * 128,
+                          BKV * 128, 1024),
+                     c > 0 || part < 2);
+        wg_commit_wait();
+        fence_regs(f);
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              mma(f[i], pf[c][part], bv[i >> 1][2 * (i & 1)],
-                  bv[i >> 1][2 * (i & 1) + 1]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[n + i][0] = o[n + i][0] * alpha[0] + f[i][0];
-          o[n + i][1] = o[n + i][1] * alpha[0] + f[i][1];
-          o[n + i][2] = o[n + i][2] * alpha[1] + f[i][2];
-          o[n + i][3] = o[n + i][3] * alpha[1] + f[i][3];
+        for (int n = 0; n < 8; ++n) {
+          float* on = o[8 * half + n];
+          on[0] = on[0] * alpha[0] + f[4 * n];
+          on[1] = on[1] * alpha[0] + f[4 * n + 1];
+          on[2] = on[2] * alpha[1] + f[4 * n + 2];
+          on[3] = on[3] * alpha[1] + f[4 * n + 3];
         }
       }
     }
     cp_async_wait_all();   // tile j + 1 has landed ...
-    __syncthreads();       // ... and every warp is done with tile j's stage
+    fence_async_smem();
+    __syncthreads();             // ... and every warp is done with tile j
   }
 
-  // out = o / max(l, 1e-30), staged through the warp's own Q rows (no
-  // other warp reads them) so that rows leave in 16-byte stores
+  // out = o / max(l, 1e-30), staged in the (now free) K/V rings, plain
+  // rows of DP + 8, so that rows leave in 16-byte stores
   float den[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -560,7 +598,8 @@ kernel(const T* __restrict__ q, const T* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     den[i] = fmaxf(l[i], 1e-30f);
   }
-  T* Ow = Qs + 16 * warp * LD;
+  constexpr int LD = DP + 8;
+  T* Ow = reinterpret_cast<T*>(Ks) + warp * 16 * LD;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     *reinterpret_cast<__nv_bfloat162*>(Ow + g * LD + 8 * n + 2 * t) =
@@ -595,7 +634,6 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   cudaError_t err = cudaFuncSetAttribute(
       kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  // 16-byte copies need every row start 16-byte aligned
   const void* ptrs[4] = {q, k, v, out};
   bool vec = D % 8 == 0;
   for (int i = 0; i < 4; ++i)
