@@ -8,13 +8,14 @@ with ``nvcc`` (one process per source, all at once) — the int8 convs
 K1–K3, the fused conv→add kernels K4/K5, the float32 pointwise conv K6,
 flash attention K7 and decode attention K8 — and holds each against its
 plain PyTorch version on the card, at every distinct launch configuration
-of the paths below plus hostile shapes (K1/K4's split-K edges among them),
-and times it there (K1 at every distinct shape of the reorder-only int8
-schedule, K7 at the largest prefill of each LLM mix).  Integer kernels
-must be bit-exact; K6 must stay within the worst-case float32
+of the paths below plus hostile shapes (the split-K edges of K1/K4, K6
+and K8 among them), and times it there (K1 and K6 at every distinct
+pointwise shape of the reorder-only int8 and float32 schedules, K7 at the
+largest prefill of each LLM mix, K8 at the largest decode step).  Integer
+kernels must be bit-exact; K6 must stay within the worst-case float32
 dot-product error bound (see ``F32_BOUND``); K7/K8 within ``F32_ATTN`` of
 max|want| in float32 and one bf16 ulp in bf16.  The build phase prints
-``ptxas -v``'s registers and spills of K1, K4 and K7.
+``ptxas -v``'s registers and spills of K1, K4, K6, K7 and K8.
 
 Then it drives the port's paths, random weights from fixed seeds, each
 with every kernel's launch count set to 0 just before it and read just
@@ -27,6 +28,7 @@ after (the launches of the kernel checks above do not count):
 * the same network in float32 at none / 2 MB / 1 MB (3 538 944 /
   1 290 240 / 995 328 B): K6 launched once per k=1, stride-1 conv of the
   schedule (13 / 79 / 200), outputs within ``F32_TOL`` of the CPU path;
+  each path's line gives its kernels' profiler shares of the busy time;
 * the SwiftNet cell of the paper's Table 1, float32 (1 253 376 B, 17 K6
   launches) and int8 (313 344 B, K1–K3), reorder only;
 * Table 1 itself: ``MicroInterpreter`` on the card runs the int8 SwiftNet
@@ -43,9 +45,10 @@ after (the launches of the kernel checks above do not count):
   tokens, 12 new tokens, ``max_batch`` 4, ``cache_len`` 96) and long
   prompts (4 × 1024 tokens, 16 new, ``cache_len`` 2048) — K7 28× per
   prefill, K8 28× per decode step — with prefill/decode times, tokens/s,
-  the device's busy time and the KV-arena bytes; decoding token t after a
-  prefill of t−1 against prefilling t tokens (``CONT_TOL``); a 2-layer
-  variant on the card against the port's CPU path (``CPU_TOL``).
+  the device's busy time, K8's share of it and the KV-arena bytes;
+  decoding token t after a prefill of t−1 against prefilling t tokens
+  (``CONT_TOL``); a 2-layer variant on the card against the port's CPU
+  path (``CPU_TOL``).
 
 It imports only ``repro_torch``, torch and numpy.  Any failed check
 raises (exit code 1); without CUDA, or without the repository around it,
@@ -107,6 +110,9 @@ SOURCES["conv1x1"] = "src/repro_torch/kernels/conv_pointwise/csrc/conv1x1.cu"
 for _n in ("flash_attention", "decode_attention"):
     SOURCES[_n] = f"src/repro_torch/kernels/{_n}/csrc/{_n}.cu"
 ATTENTION = ("flash_attention", "decode_attention")
+# the kernels whose `ptxas -v` registers and spills the build phase prints
+PTXAS_KERNELS = ("qconv1x1", "qconv1x1_add", "conv1x1", "flash_attention",
+                 "decode_attention")
 H100_BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 # ---- the LLM serving phases: Llama-3.2-3B at full width and depth, bf16,
 # random weights drawn on the card by the launcher (torch.Generator seed 0)
@@ -153,12 +159,22 @@ HOSTILE_K7 = [(1, 1, 1, 2, 2, 64, True, False),
               (1, 70, 333, 6, 3, 128, True, False)]
 # hostile K8 shapes (B, S, H, K, D, lengths, strided): caches of 96 and
 # 2048 rows, lengths 1, S and between, GQA 1, 3 and 4; `strided` caches are
-# views of a longer cache
+# views of a longer cache, MISALIGNED ones start one element into it (no
+# 16-byte load: the scalar path).  The split-K edges: length 1 with the
+# largest split (B 1, 8 kv heads: 8 blocks a row), lengths below the split,
+# D 40 and 96
+MISALIGNED = "misaligned"
 HOSTILE_K8 = [(1, 96, 8, 8, 128, (1,), False),
               (4, 2048, 24, 8, 128, (1, 1039, 2048, 700), False),
               (3, 96, 12, 3, 64, (5, 96, 50), True),
               (2, 17, 16, 4, 128, (17, 3), False),
-              (2, 2048, 8, 8, 64, (2048, 1), True)]
+              (2, 2048, 8, 8, 64, (2048, 1), True),
+              (1, 2048, 8, 8, 128, (1,), False),
+              (2, 2048, 8, 2, 128, (3, 7), False),
+              (2, 2048, 12, 4, 40, (1039, 5), False),
+              (2, 1024, 6, 2, 96, (1024, 600), True),
+              (4, 2048, 24, 8, 128, (1039, 2, 2048, 9), MISALIGNED),
+              (2, 512, 6, 2, 40, (300, 1), MISALIGNED)]
 # test_torch_qconv.py's hostile shapes: odd H/W, 1-lane channels, stride
 # 2, asymmetric pads (H, W, Cin, Cout, k, stride, hpad, wpad; Cout=0 for
 # depthwise)
@@ -182,12 +198,21 @@ SPLITK_ZP = ((-128, -3), (127, 4))                # (zp_in, zp_out)
 # conv's zp_out.  Plain; saturating both rails; a negative multiplier.
 ADD_QP = ((0.71, 0.39, None, 2, -7), (23.5, 17.25, 60, 0, 100),
           (0.5, -0.75, 9, -3, 1))
-# K6 hostile shapes (H, W, Cin, Cout, bias, relu): M = 1, Cin = 1, Cout = 1
-# and 2, odd M, Cin across several tiles
-HOSTILE_F32 = [(1, 1, 1, 1, False, True), (1, 1, 16, 2, True, True),
-               (7, 9, 1, 5, True, False), (13, 11, 3, 2, False, True),
-               (5, 7, 33, 1, True, True), (3, 5, 1030, 65, False, False),
-               (1, 1, 1024, 1024, True, True), (9, 9, 12, 22, False, True)]
+# K6 hostile shapes (H, W, Cin, Cout, bias, relu, lanes): M = 1, Cin = 1,
+# Cout = 1 and 2, odd M, Cin across several tiles; the split-K edges: Cin
+# 1 030 (ragged chunks), M 1 and M 36 with Cout 1 024, Cout 5 and 65, three
+# lanes at the unaligned pitch
+HOSTILE_F32 = [(1, 1, 1, 1, False, True, 2), (1, 1, 16, 2, True, True, 2),
+               (7, 9, 1, 5, True, False, 2), (13, 11, 3, 2, False, True, 2),
+               (5, 7, 33, 1, True, True, 2), (3, 5, 1030, 65, False, False, 2),
+               (1, 1, 1024, 1024, True, True, 2),
+               (9, 9, 12, 22, False, True, 2),
+               (6, 6, 1024, 1024, True, True, 3),
+               (6, 6, 1030, 1024, False, True, 3),
+               (1, 1, 1030, 5, True, False, 3),
+               (6, 6, 1030, 65, True, True, 3),
+               (7, 9, 1, 65, False, True, 3),
+               (12, 12, 512, 512, True, True, 3)]
 
 
 def log(msg: str) -> None:
@@ -226,7 +251,9 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
 
 def device_time(torch, fn, reps: int = 3):
     """Device busy time per call of ``fn`` (ms), summed over the CUDA
-    activities ``torch.profiler`` records, with the top names by time."""
+    activities ``torch.profiler`` records, with the top names by time and
+    the time of every name (a kernel of the port by its ``<name>_kernel``
+    function)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -243,7 +270,22 @@ def device_time(torch, fn, reps: int = 3):
             by_name[name] = by_name.get(name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3 / reps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    return sum(by_name.values()), top
+    return sum(by_name.values()), top, by_name
+
+
+def dev(ms):
+    """A profiler device time for a log line; a profile that recorded no
+    device activity (the profiler drops a window now and then) is "not
+    measured", never 0."""
+    return f"{ms:.5f}" if ms > 0 else "not measured"
+
+
+def shares(by_name, busy, kernels):
+    """``kernel ms (share of busy)`` of each named kernel of the port."""
+    return ", ".join(
+        f"{n} {by_name.get(n + '_kernel', 0.0):.3f} ms "
+        f"({by_name.get(n + '_kernel', 0.0) / max(busy, 1e-9):.3f} of busy)"
+        for n in kernels)
 
 
 def add_params(addp, zp_out):
@@ -378,16 +420,17 @@ class Checks:
         self.configs[key] = (name, macs, nbytes,
                              (h, w, cin, cout, k, stride, hp, wp, qp, addp))
 
-    def case_f32(self, tag, h, w, cin, cout, bias=False, relu=True):
+    def case_f32(self, tag, h, w, cin, cout, bias=False, relu=True,
+                 lanes=2):
         """K6 against its plain version, within the float32 bound."""
-        key = (tag, "conv1x1", h, w, cin, cout, bias, relu)
+        key = (tag, "conv1x1", h, w, cin, cout, bias, relu, lanes)
         if key in self.configs:
             return
         torch = self.torch
-        x = self._lanes_f32((h, w, cin))
+        x = self._lanes_f32((h, w, cin), lanes)
         wt = self._randn((cin, cout), 0.1)
         b = self._randn((cout,)) if bias else None
-        out = self._lanes_f32((h, w, cout))
+        out = self._lanes_f32((h, w, cout), lanes)
         got = self.pw_ops.conv1x1(x, wt, b, relu=relu, out=out)
         want = self.pw_ref.conv1x1_ref(x, wt, b, relu=relu)
         torch.cuda.synchronize()
@@ -448,8 +491,8 @@ class Checks:
                 for addp in ADD_QP:
                     self.case("splitk", "qconv", h, w, cin, cout, 1, 1,
                               None, None, mult, zi, zo, addp=addp, lanes=3)
-        for (h, w, cin, cout, bias, relu) in HOSTILE_F32:
-            self.case_f32("hostile", h, w, cin, cout, bias, relu)
+        for (h, w, cin, cout, bias, relu, lanes) in HOSTILE_F32:
+            self.case_f32("hostile", h, w, cin, cout, bias, relu, lanes)
 
     def largest(self, name):
         keys = [k for k, v in self.configs.items()
@@ -488,10 +531,6 @@ class Checks:
                                   device=self.device)
                 run = lambda: self.ops.qconv1x1(x, wt, out=out, **qp)  # noqa
                 plain = lambda: self.ref.qconv1x1_ref(x, wt, **qp)  # noqa
-                a2 = x.reshape(h * w, cin)
-                b2 = wt.t().contiguous().t()        # column-major operand
-                lib = lambda: torch._int_mm(a2, b2)  # noqa: E731
-                lib_name = " (torch._int_mm, bare int8 product)"
             elif name == "qconv1x1_add":
                 wt = self._rand((cin, cout))
                 run = lambda: self.ops.qconv1x1_add(  # noqa: E731
@@ -514,6 +553,11 @@ class Checks:
                 run = lambda: self.ops.qdwconv(x, wt, **pads, **qp)  # noqa
                 plain = lambda: self.ref.qdwconv_ref(  # noqa: E731
                     x, wt, **pads, **qp)
+            if name in ("qconv1x1", "qconv1x1_add"):   # K4: its product
+                a2 = x.reshape(h * w, cin)
+                b2 = wt.t().contiguous().t()        # column-major operand
+                lib = lambda: torch._int_mm(a2, b2)  # noqa: E731
+                lib_name = " (torch._int_mm, bare int8 product)"
             peak = H100_INT8_OPS_PER_S
             shape = f"{h}x{w}x{cin}" + ("" if name == "qdwconv" else
                                         f"->{cout}") + \
@@ -594,12 +638,93 @@ class Checks:
                         2 * h * w * cin * cout / H100_INT8_OPS_PER_S) * 1e3
             log(f"kernels qconv1x1 shape {h}x{w}x{cin}->{cout}: kernel_ms "
                 f"{kernel_ms:.5f}, library_ms {library_ms:.5f} "
-                f"(torch._int_mm); device_ms {dev_ms:.5f}, library "
-                f"{lib_dev_ms:.5f} (profiler); bound_ms {bound:.7f}; "
+                f"(torch._int_mm); device_ms {dev(dev_ms)}, library "
+                f"{dev(lib_dev_ms)} (profiler); bound_ms {bound:.7f}; "
                 f"split/chunk "
                 f"{plan(1, h * w, cin, cout, sms) if plan else 'n/a'}"
-                + "".join(f"; forced split {n}: device_ms {t:.5f}"
+                + "".join(f"; forced split {n}: device_ms {dev(t)}"
                           for n, t in forced.items()) + f" [{card}]")
+
+
+    def k6_shapes(self, card, d, splits=(), lanes=1):
+        """K6 at every distinct pointwise shape of the float32 deployment
+        ``d``'s schedule, ``lanes`` lanes with a bias: kernel_ms against
+        ``torch.matmul`` (TF32 off, the bare product), each also as device
+        time per call from the profiler, and the bound, one line per shape.
+        ``splits``: K6's device time with each tile shape and Cin forced
+        into that many chunks (through the planner hook ``pw_ops._plan``,
+        where the checkout has one), each held to the float32 bound."""
+        torch, pw = self.torch, self.pw_ops
+        sms = torch.cuda.get_device_properties(self.device) \
+            .multi_processor_count
+        plan = getattr(pw, "plan_split_k", None)
+        hook = getattr(pw, "_plan", None)
+        g, seen = d.exec_graph, set()
+        for op in d.schedule:
+            if not is_pointwise(op):
+                continue
+            h, w, cin = g.tensors[op.inputs[0]].shape
+            cout = g.tensors[op.output].shape[-1]
+            if (h, w, cin, cout) in seen:
+                continue
+            seen.add((h, w, cin, cout))
+            x = self._randn((lanes, h, w, cin))
+            wt = self._randn((cin, cout), 0.1)
+            b = self._randn((cout,))
+            out = torch.empty((lanes, h, w, cout), device=self.device)
+            want = self.pw_ref.conv1x1_ref(x, wt, b).double()
+            tol = F32_BOUND * (cin + 2) * (
+                x.abs().double() @ wt.abs().double() + b.abs().double())
+
+            def run():
+                return pw.conv1x1(x, wt, b, out=out)
+
+            def check(tag):
+                ok = bool(((run().double() - want).abs() <= tol).all())
+                assert ok, ("conv1x1", h, w, cin, cout, tag)
+            a2 = x.reshape(lanes * h * w, cin)
+
+            def lib():
+                return torch.matmul(a2, wt)
+            check("planned")
+            kernel_ms = time_ms(torch, run)
+            dev_ms = device_time(torch, run, reps=20)[0]
+            with self.pw_ref.full_f32_matmul():
+                library_ms = time_ms(torch, lib)
+                lib_dev_ms = device_time(torch, lib, reps=20)[0]
+            forced = {}
+            for bm in (getattr(pw, "TILE_ROWS", ()) if hook else ()):
+                for n in splits:
+                    pw._plan = forced_k6_plan(bm, n, pw.K_STEP, pw.MAX_SPLIT)
+                    try:
+                        check((bm, n))
+                        forced[bm, n] = device_time(torch, run, reps=20)[0]
+                    finally:
+                        pw._plan = hook
+            m = lanes * h * w
+            nbytes = 4 * (m * cin + cin * cout + cout + m * cout)
+            bound = max(nbytes / H100_BYTES_PER_S,
+                        2 * m * cin * cout / H100_F32_OPS_PER_S) * 1e3
+            log(f"kernels conv1x1 shape {lanes}x{h}x{w}x{cin}->{cout}: "
+                f"kernel_ms "
+                f"{kernel_ms:.5f}, library_ms {library_ms:.5f} "
+                f"(torch.matmul, TF32 off); device_ms {dev(dev_ms)}, library "
+                f"{dev(lib_dev_ms)} (profiler); bound_ms {bound:.7f}; "
+                f"tile/split/chunk "
+                f"{plan(lanes, h * w, cin, cout, sms) if plan else 'n/a'}"
+                + "".join(f"; forced tile {bm} split {n}: device_ms {dev(t)}"
+                          for (bm, n), t in forced.items()) + f" [{card}]")
+
+
+def forced_k6_plan(bm, n, step, cap):
+    """A stand-in for K6's planner hook ``pw_ops._plan``: tiles of ``bm``
+    rows, Cin cut into ``n`` chunks of whole K-steps (fewer where Cin has
+    fewer)."""
+    def plan(lanes, m, cin, cout, dev):
+        steps = max(1, -(-cin // step))
+        per = -(-steps // max(1, min(cap, steps, n)))
+        return bm, -(-steps // per), per * step
+    return plan
 
 
 def forced_plan(n, cap):
@@ -666,7 +791,7 @@ class Paths:
             t1 = time.perf_counter()
             d.run(x)
             runs.append((time.perf_counter() - t1) * 1e3)
-        busy, top = device_time(torch, lambda: d.run(x))
+        busy, top, by_name = device_time(torch, lambda: d.run(x))
         p50 = statistics.median(runs)
         reqs = [self.random_input(g, seed=s) for s in range(8)]
         eng = d.engine(micro_batch=4)
@@ -688,7 +813,9 @@ class Paths:
             f"device busy {busy:.3f} ms/run (profiler), idle share "
             f"{1 - busy / p50:.3f} of p50; top "
             + ", ".join(f"{n} {t:.3f} ms" for n, t in top)
-            + f" [{self.card}] ({time.perf_counter() - t0:.2f} s)")
+            + f"; kernel shares (profiler) "
+            f"{shares(by_name, busy, sorted(per_inf))}"
+            f" [{self.card}] ({time.perf_counter() - t0:.2f} s)")
         return per_inf
 
     def table1(self, d, device):
@@ -861,9 +988,14 @@ class AttentionChecks:
         self.seen.add(key)
         torch = self.torch
         q = self._randn((B, H, D), dtype)
-        extra = 7 if strided else 0     # caches as views of longer ones
-        kc = self._randn((B, S + extra, K, D), dtype)[:, :S]
-        vc = self._randn((B, S + extra, K, D), dtype)[:, :S]
+        if strided == MISALIGNED:   # one element into a flat buffer
+            n = B * S * K * D
+            kc = self._randn((n + 1,), dtype)[1:].view(B, S, K, D)
+            vc = self._randn((n + 1,), dtype)[1:].view(B, S, K, D)
+        else:
+            extra = 7 if strided else 0     # views of longer caches
+            kc = self._randn((B, S + extra, K, D), dtype)[:, :S]
+            vc = self._randn((B, S + extra, K, D), dtype)[:, :S]
         L = torch.tensor(lengths, dtype=torch.int32, device=self.device)
         got = self.dec_ops.decode_attention(q, kc, vc, L)
         want = self.dec_ref.decode_attention_ref(q, kc, vc, L)
@@ -900,7 +1032,8 @@ class AttentionChecks:
     def timing(self, name, card, config=None, label="largest main-path"):
         """kernel_ms, plain_ms, library_ms and the bound at the largest
         main-path configuration of K7 or K8 (or at ``config``, one of
-        ``main_k7``)."""
+        ``main_k7`` or ``main_k8``), with the kernel's and the library's
+        device time per call from the profiler."""
         torch = self.torch
         import torch.nn.functional as F
         if name == "flash_attention":
@@ -928,7 +1061,7 @@ class AttentionChecks:
                      f"causal={causal}")
             lib_name = "F.scaled_dot_product_attention(is_causal, enable_gqa)"
         else:
-            (B, H, D), ks, dtype, lengths = self.largest(name)
+            (B, H, D), ks, dtype, lengths = config or self.largest(name)
             S, K = ks[1], ks[2]
             q = self._randn((B, H, D), dtype)
             # each decode layer reads another layer's cache, which is not in
@@ -963,6 +1096,8 @@ class AttentionChecks:
         kernel_ms = time_ms(torch, run)
         plain_ms = time_ms(torch, plain, iters=10, warmup=2)
         library_ms = time_ms(torch, lib)
+        dev_ms, lib_dev_ms = (device_time(torch, f, reps=12)[0]
+                              for f in (run, lib))
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = flops / peak * 1e3
         log(f"kernels {name}: {self.checked[name]} configs, "
@@ -971,12 +1106,53 @@ class AttentionChecks:
             f"(of max|want|); at the {label} {shape}: kernel_ms "
             f"{kernel_ms:.5f}, "
             f"plain_ms {plain_ms:.5f}, library_ms {library_ms:.5f} "
-            f"({lib_name}), bound_ms {max(t_bytes, t_ops):.7f} "
+            f"({lib_name}); device_ms {dev(dev_ms)}, library "
+            f"{dev(lib_dev_ms)} "
+            f"(profiler); bound_ms {max(t_bytes, t_ops):.7f} "
             f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) [{card}]")
         return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                     bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     shape=shape)
+
+
+    def k8_splits(self, card, config, splits):
+        """K8 at ``config`` (one of ``main_k8``) with each cluster size of
+        ``splits`` forced through the planner hook ``dec_ops._plan``:
+        held against the plain version, then event and device time over
+        K8_CACHES caches in turn (cold in L2)."""
+        torch, dec = self.torch, self.dec_ops
+        hook = getattr(dec, "_plan", None)
+        if hook is None:
+            return
+        (B, H, D), ks, dtype, lengths = config
+        S, K = ks[1], ks[2]
+        q = self._randn((B, H, D), dtype)
+        caches = [(self._randn((B, S, K, D), dtype),
+                   self._randn((B, S, K, D), dtype))
+                  for _ in range(K8_CACHES)]
+        cyc = itertools.cycle(caches)
+        L = lengths.to(self.device)
+        want = self.dec_ref.decode_attention_ref(q, *caches[0], L)
+        times = []
+        for n in splits:
+            dec._plan = lambda *a, n=n: n     # noqa: E731
+            try:
+                self._compare("decode_attention",
+                              dec.decode_attention(q, *caches[0], L), want)
+
+                def run():
+                    return dec.decode_attention(q, *next(cyc), L)
+                times.append((n, time_ms(torch, run),
+                              device_time(torch, run, reps=12)[0]))
+            finally:
+                dec._plan = hook
+        log(f"kernels decode_attention forced splits at B{B} S{S} H{H}/K{K} "
+            f"D{D} {dtype} lengths {sorted(set(lengths.tolist()))} (L2 "
+            f"cold): " + "; ".join(f"split {n}: kernel_ms {e:.5f}, "
+                                   f"device_ms {dev(t)}" for n, e, t in times)
+            + f"; planned {dec._plan(B, K, S, self.device.index or 0)}, "
+            f"mismatches {self.mismatches['decode_attention']} [{card}]")
 
 
 class Llm:
@@ -1057,7 +1233,8 @@ class Llm:
                          for b in batches)
         dec_s = sum(d for _, d in per_batch) / 1e3
         wall_ms = st.wall_s * 1e3
-        busy, top = device_time(torch, lambda: eng.serve(reqs), reps=1)
+        busy, top, by_name = device_time(torch, lambda: eng.serve(reqs),
+                                         reps=1)
         log(f"phase llm-{label}: {n} requests (prompts "
             f"{sorted({len(r.prompt) for r in reqs})} tokens), {max_new} new "
             f"tokens each, max_batch {max_batch}, cache_len {cache_len}: "
@@ -1069,7 +1246,9 @@ class Llm:
             f"device busy {busy:.3f} ms (profiler), idle share "
             f"{1 - busy / wall_ms:.3f}; top "
             + ", ".join(f"{nm} {t:.3f} ms" for nm, t in top)
-            + f"; block_bytes {eng.block_bytes} B, kv_arena_peak_bytes "
+            + f"; K8 share (profiler) "
+            f"{shares(by_name, busy, ['decode_attention'])}; block_bytes "
+            f"{eng.block_bytes} B, kv_arena_peak_bytes "
             f"{st.kv_arena_peak_bytes} B, kv_static_bytes "
             f"{st.kv_static_bytes} B, peak_concurrent {st.peak_concurrent}; "
             f"first tokens {results[0].tokens[:6]} [{self.card}] "
@@ -1191,9 +1370,9 @@ def main() -> int:
     log(f"phase build: nvcc sm_90a, one process per source in parallel: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
         + f" -> {build.BUILD_DIR} ({time.perf_counter() - t0:.2f} s)")
-    for name in ("qconv1x1", "qconv1x1_add", "flash_attention"):
-        log(f"ptxas {name}: " + "; ".join(build.PTXAS.get(name, ["not "
-                                                                 "built here"])))
+    for name in PTXAS_KERNELS:
+        log(f"ptxas {name}: "
+            + "; ".join(build.PTXAS.get(name, ["not built here"])))
 
     # --------------------------------------------------- schedule + plan
     def planned(label, graph, golden, **kw):
@@ -1236,6 +1415,7 @@ def main() -> int:
     assert all(v > 0 for v in checks.checked.values()), checks.checked
     timings = {name: checks.timing(name, card) for name in cnn_wrappers}
     checks.k1_shapes(card, int8[0][1])
+    checks.k6_shapes(card, f32[0][1])
 
     # ------------------------------------------------------- main paths
     paths = Paths(torch, np, wrappers, card)

@@ -101,3 +101,113 @@ def test_wrapper_checks_shapes():
         ops.conv1x1(x, torch.zeros((8, 2)), torch.zeros((3,)))
     assert ops.conv1x1_fused is ops.conv1x1
     assert ops.KERNEL_WRAPPERS == {"conv1x1": ops.conv1x1}
+
+
+# ------------------------------------------------ K6's split-K arithmetic
+H100_SMS = 132
+# chip_smoke.py's per-element bound on K6: |got - want| <= F32_BOUND *
+# (Cin + 2) * (sum_k |x_k w_k| + |b|), twice the worst-case error of a
+# float32 dot product of Cin terms plus the bias add, in any order
+F32_BOUND = 2 * 2.0 ** -24
+
+
+def splitk_emulation(x, w, b, relu, sms):
+    """K6's float32 arithmetic on the card (``csrc/conv1x1.cu``), in plain
+    torch: for each chunk of Cin that ``ops.plan_split_k`` gives, the
+    partial product in float32; the partials added in chunk order; then
+    the bias and the ReLU."""
+    h, wd, cin = x.shape[-3:]
+    cout = w.shape[1]
+    xl = x.reshape(-1, h * wd, cin)
+    _, split, chunk = ops.plan_split_k(xl.shape[0], h * wd, cin, cout, sms)
+    acc = torch.zeros((xl.shape[0], h * wd, cout), dtype=torch.float32)
+    for s in range(split):
+        acc = acc + torch.matmul(xl[..., s * chunk:(s + 1) * chunk],
+                                 w[s * chunk:(s + 1) * chunk])
+    if b is not None:
+        acc = acc + b
+    if relu:
+        acc = torch.clamp_min(acc, 0.0)
+    return acc.reshape(*x.shape[:-1], cout), split
+
+
+# (H, W, Cin, Cout, lanes): Cin 1, 3 and 1 030 (65 K-steps: a ragged last
+# chunk), M 1 and M 36 with Cout 1 024, Cout 5 and 65, lanes at a pitch that
+# is no multiple of 16 bytes
+SPLITK_SHAPES = [(1, 1, 1, 5, 1), (7, 9, 3, 65, 3), (1, 1, 1030, 65, 1),
+                 (6, 6, 1024, 1024, 1), (6, 6, 1030, 5, 3),
+                 (3, 5, 1030, 65, 3), (12, 12, 512, 512, 1)]
+
+
+@pytest.mark.parametrize("bias,relu", [(True, True), (False, False)])
+@pytest.mark.parametrize("H,W,Cin,Cout,lanes", SPLITK_SHAPES)
+def test_k6_split_k_sum_is_within_the_f32_bound(H, W, Cin, Cout, lanes,
+                                                bias, relu):
+    """Partials over the planner's chunks, added in chunk order, stay
+    within chip_smoke.py's float32 bound of the plain version, with the
+    plan of a 132-SM card and of one SM (split 1); at M 36 and Cin >= 1 024
+    the 132-SM plan does split."""
+    rng = np.random.default_rng(Cin * 7 + Cout + lanes)
+    n = H * W * Cin
+    buf = torch.as_tensor(rng.standard_normal((lanes, n + 3))
+                          .astype(np.float32))
+    x = buf[:, 1:1 + n].view(lanes, H, W, Cin)
+    w = torch.as_tensor((rng.standard_normal((Cin, Cout)) * 0.1)
+                        .astype(np.float32))
+    b = torch.as_tensor(rng.standard_normal((Cout,)).astype(np.float32)) \
+        if bias else None
+    want = ref.conv1x1_ref(x, w, b, relu=relu).double()
+    mag = x.abs().double() @ w.abs().double()
+    if b is not None:
+        mag = mag + b.abs().double()
+    bound = F32_BOUND * (Cin + 2) * mag
+    for sms in (H100_SMS, 1):
+        got, split = splitk_emulation(x, w, b, relu, sms)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert bool(((got.double() - want).abs() <= bound).all()), sms
+        if sms == 1:
+            assert split == 1
+    if H * W == 36 and Cin >= 1024:
+        assert splitk_emulation(x, w, b, relu, H100_SMS)[1] > 1
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("sms", [1, 8, 132])
+def test_k6_plan_covers_cin_once(lanes, sms):
+    """The tile is one of TILE_ROWS; every chunk is a whole number of
+    K-steps, the chunks cover [0, Cin) exactly once with none empty, the
+    split is in [1, MAX_SPLIT].  The 64-row tile is taken, unsplit, when
+    its tiles alone reach BIG_TILE_BLOCKS per SM; the 16-row tile is not
+    split where its tiles reach SPLIT_BELOW_BLOCKS per SM or Cin spans
+    under MIN_SPLIT_STEPS K-steps; a split keeps MIN_CHUNK_STEPS K-steps
+    in every chunk but the last and stays within a factor 2 of what reaches
+    SPLIT_TARGET_BLOCKS per SM (capped by MAX_SPLIT and the K-steps)."""
+    step = ops.K_STEP
+    for m in (1, 36, 144, 576, 2304, 9216):
+        for cin in (1, 3, 15, 16, 17, 63, 64, 65, 512, 1024, 1030, 4096):
+            for cout in (1, 5, 65, 1024):
+                bm, split, chunk = ops.plan_split_k(lanes, m, cin, cout, sms)
+                assert bm in ops.TILE_ROWS
+                assert 1 <= split <= ops.MAX_SPLIT
+                assert chunk > 0 and chunk % step == 0
+                cover = np.zeros(cin, dtype=int)
+                for s in range(split):
+                    lo, hi = s * chunk, min(cin, (s + 1) * chunk)
+                    assert lo < hi, (m, cin, cout, split, chunk)
+                    cover[lo:hi] += 1
+                assert (cover == 1).all()
+                cols = -(-cout // ops.TILE_COLS)
+                if lanes * -(-m // 64) * cols >= ops.BIG_TILE_BLOCKS * sms:
+                    assert (bm, split) == (64, 1)
+                    continue
+                assert bm == 16
+                steps = -(-cin // step)
+                blocks = lanes * -(-m // bm) * cols
+                if steps < ops.MIN_SPLIT_STEPS or \
+                        blocks >= ops.SPLIT_BELOW_BLOCKS * sms:
+                    assert split == 1
+                    continue
+                assert chunk >= step * ops.MIN_CHUNK_STEPS
+                want = min(ops.MAX_SPLIT, steps // ops.MIN_CHUNK_STEPS,
+                           -(-ops.SPLIT_TARGET_BLOCKS * sms // blocks))
+                assert split <= want <= 2 * split

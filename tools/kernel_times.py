@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Check and time K1, K4 and K7 of one checkout's PyTorch/CUDA port.
+"""Check and time K1, K4, K6, K7 and K8 of one checkout's PyTorch/CUDA port.
 
-    python3 tools/kernel_times.py [--src DIR] [--splits 1,2,4,8]
+    python3 tools/kernel_times.py [--src DIR] [--splits 1,2,4,8] [--lanes N]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is measured
 (default: this checkout's), so that an older commit's kernels, unpacked
@@ -17,10 +17,23 @@ plans the reorder-only int8 MobileNet-1.0@192 and then:
   ``--splits`` adds K1's device time with Cin forced into that many
   chunks, the measurement behind ``ops.plan_split_k``'s thresholds), and
   K1 and K4 at their largest shape (``Checks.timing``);
+* plans the reorder-only float32 MobileNet-1.0@192, holds K6 against its
+  plain version (float32 bound) at its pointwise convs and times K6 at
+  every distinct pointwise shape against ``torch.matmul`` (TF32 off),
+  event and device times (``Checks.k6_shapes``; ``--splits`` adds K6's
+  device time with each tile shape and Cin forced into that many chunks,
+  the measurement behind ``conv_pointwise/ops.plan_split_k``; ``--lanes``
+  times those shapes over that many lanes, as ``serve`` batches them), and
+  at its largest shape (``Checks.timing``);
 * holds K7 against its plain version and times it against
   ``F.scaled_dot_product_attention`` at the long mix's prefill (B 4, S
   1 024, 24/8 heads of 128, bf16, causal) and at the short mix's largest
-  (the reference launcher's prompts in batches of 4).
+  (the reference launcher's prompts in batches of 4);
+* holds K8 against its plain version and times it against SDPA with a
+  boolean mask at the long mix's last decode step (B 4, 2 048-row caches,
+  1 039 valid rows, bf16, caches cold in L2; ``--splits`` adds K8 with
+  that many blocks per (batch row, kv head), the measurement behind
+  ``decode_attention/ops.plan_split``).
 
 It prints ``chip_smoke.py``'s lines, ``ptxas -v``'s registers and spills
 first and the card's name and power limit last; a failed check raises.
@@ -41,7 +54,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--splits", default="",
-                    help="comma-separated split counts to force on K1")
+                    help="comma-separated split counts to force on K1, K6 "
+                         "and K8")
+    ap.add_argument("--lanes", type=int, default=1,
+                    help="lanes of K6's per-shape calls")
     args = ap.parse_args()
     src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
@@ -55,6 +71,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.graphs import mobilenet_v1_graph
     from repro_torch.kernels import build
+    from repro_torch.kernels.conv_pointwise import ops as pw_ops
     from repro_torch.kernels.conv_quant import ops
     from repro_torch.launch import serve as launch_serve
     assert Path(repro_torch.__file__).resolve().is_relative_to(src)
@@ -63,16 +80,22 @@ def main() -> int:
     chip_smoke.log(f"kernel_times: {src} [{card}]")
 
     build.build_all()
-    for name in ("qconv1x1", "qconv1x1_add", "flash_attention"):
+    splits = [int(n) for n in args.splits.split(",") if n]
+    for name in chip_smoke.PTXAS_KERNELS:
         chip_smoke.log(f"ptxas {name}: " + "; ".join(
             getattr(build, "PTXAS", {}).get(name, ["not reported"])))
     d = deploy.build(mobilenet_v1_graph(*chip_smoke.MODEL), device=dev,
                      quantize=True, arena_budget=None)
-    checks = chip_smoke.Checks(torch, np, dev, ops.KERNEL_WRAPPERS)
+    d32 = deploy.build(mobilenet_v1_graph(*chip_smoke.MODEL), device=dev,
+                       arena_budget=None)
+    checks = chip_smoke.Checks(torch, np, dev, {**ops.KERNEL_WRAPPERS,
+                                                **pw_ops.KERNEL_WRAPPERS})
     checks.from_deployment(d)
+    checks.from_deployment(d32)
     assert all(v == 0 for v in checks.mismatches.values()), checks.mismatches
-    checks.k1_shapes(card, d, [int(n) for n in args.splits.split(",") if n])
-    for name in ("qconv1x1", "qconv1x1_add"):
+    checks.k1_shapes(card, d, splits)
+    checks.k6_shapes(card, d32, splits, args.lanes)
+    for name in ("qconv1x1", "qconv1x1_add", "conv1x1"):
         checks.timing(name, card)
 
     cfg = get_config(chip_smoke.LLM_ARCH)
@@ -84,7 +107,13 @@ def main() -> int:
         attn.k7(4, S, S, H, K, D, torch.bfloat16, True)
         attn.timing("flash_attention", card, label=label, config=(
             (4, S, H, D), (4, S, K, D), torch.bfloat16, True))
-    assert attn.mismatches["flash_attention"] == 0, attn.mismatches
+    lengths = torch.full((4,), 1039, dtype=torch.int32)
+    long_step = ((4, H, D), (4, 2048, K, D), torch.bfloat16, lengths)
+    attn.k8(4, 2048, H, K, D, torch.bfloat16, tuple(lengths.tolist()))
+    attn.timing("decode_attention", card, config=long_step,
+                label="long mix's last decode step")
+    attn.k8_splits(card, long_step, splits)
+    assert all(v == 0 for v in attn.mismatches.values()), attn.mismatches
     print(card, flush=True)
     return 0
 
