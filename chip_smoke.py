@@ -9,13 +9,16 @@ K1–K3, the fused conv→add kernels K4/K5, the float32 pointwise conv K6,
 flash attention K7 and decode attention K8 — and holds each against its
 plain PyTorch version on the card, at every distinct launch configuration
 of the paths below plus hostile shapes (the split-K edges of K1/K4, K6
-and K8 among them), and times it there (K1 and K6 at every distinct
-pointwise shape of the reorder-only int8 and float32 schedules, K7 at the
-largest prefill of each LLM mix, K8 at the largest decode step).  Integer
-kernels must be bit-exact; K6 must stay within the worst-case float32
-dot-product error bound (see ``F32_BOUND``); K7/K8 within ``F32_ATTN`` of
-max|want| in float32 and one bf16 ulp in bf16.  The build phase prints
-``ptxas -v``'s registers and spills of K1, K4, K6, K7 and K8.
+and K8 among them; K2/K3/K5 reading cascade ring windows in place, at
+the 224 KB schedule's windows and at hostile ones), and times it there
+(K1 and K6 at every distinct pointwise shape of the reorder-only int8 and
+float32 schedules, K2/K3/K5 at every depthwise and k×k shape of the int8
+MobileNet and SwiftNet schedules, K7 at the largest prefill of each LLM
+mix, K8 at the largest decode step).  Integer kernels must be bit-exact;
+K6 must stay within the worst-case float32 dot-product error bound (see
+``F32_BOUND``); K7/K8 within ``F32_ATTN`` of max|want| in float32 and one
+bf16 ulp in bf16.  The build phase prints ``ptxas -v``'s registers and
+spills of all eight kernels.
 
 Then it drives the port's paths, random weights from fixed seeds, each
 with every kernel's launch count set to 0 just before it and read just
@@ -24,7 +27,9 @@ after (the launches of the kernel checks above do not count):
 * MobileNet-v1 α=1.0 @ 192×192 int8 through ``repro_torch.deploy.build``
   and ``Deployment.run``/``serve`` at three arena budgets: none (reorder
   only, 884 736 B), 512 KB (Pex, 322 560 B), 224 KB (2-D tiled cascade,
-  221 696 B) — K1–K3, bit-exact against the port's plain CPU path;
+  221 696 B) — K1–K3, bit-exact against the port's plain CPU path; each
+  path's line gives device-to-device copies per run and the ring windows
+  gathered (none at 224 KB: K2 reads all 312 where they lie);
 * the same network in float32 at none / 2 MB / 1 MB (3 538 944 /
   1 290 240 / 995 328 B): K6 launched once per k=1, stride-1 conv of the
   schedule (13 / 79 / 200), outputs within ``F32_TOL`` of the CPU path;
@@ -78,6 +83,7 @@ BUDGETS = ((None, 884736), (512 * KB, 322560), (224 * KB, 221696))
 F32_BUDGETS = ((None, 3538944, 13), (2048 * KB, 1290240, 79),
                (1024 * KB, 995328, 200))
 SWIFT_F32, SWIFT_F32_K6, SWIFT_INT8 = 1253376, 17, 313344
+ZERO_COPY_224 = 312     # ring windows the 224 KB int8 schedule never writes
 TABLE1_CAPACITY = 512 * KB - 200 * KB   # NUCLEO-F767ZI SRAM less framework
 # (peak_sram, bytes_moved, defrag_passes, steps) of the reference
 TABLE1 = {"reordered": (313344, 1550978, 36, 36),
@@ -111,7 +117,8 @@ for _n in ("flash_attention", "decode_attention"):
     SOURCES[_n] = f"src/repro_torch/kernels/{_n}/csrc/{_n}.cu"
 ATTENTION = ("flash_attention", "decode_attention")
 # the kernels whose `ptxas -v` registers and spills the build phase prints
-PTXAS_KERNELS = ("qconv1x1", "qconv1x1_add", "conv1x1", "flash_attention",
+PTXAS_KERNELS = ("qconv1x1", "qdwconv", "qconv", "qconv1x1_add",
+                 "qconv_add", "conv1x1", "flash_attention",
                  "decode_attention")
 H100_BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 # ---- the LLM serving phases: Llama-3.2-3B at full width and depth, bf16,
@@ -188,6 +195,28 @@ HOSTILE = [
     (10, 9, 6, 0, 3, 1, (1, 1), (2, 0)),
 ]
 HOSTILE_QP = ((0.0123, 3, -5), (0.5, -2, 4))     # (mult, zp_in, zp_out)
+# K2/K3/K5 on their new bodies (H, W, Cin, Cout, k, stride, hpad, wpad,
+# ring); Cout 0 = depthwise; ring = (ring rows, src) reads the H-row
+# input as a window of a ring (src a row of the stream, so src % ring
+# rows is where it starts), None a plain input.  K2: windows that wrap or
+# start at the ring's last row, C 4 / 12 / 33, odd W at stride 2, k = 5,
+# C 16 / 64 (16-byte copies where aligned); K3/K5: Cin 40 and 64 (K > 32),
+# Cout 5 / 72 (no multiple of 8, two N tiles), asymmetric pads, ring
+# windows
+HOSTILE_RING = [
+    (4, 61, 32, 0, 3, 1, (0, 0), (1, 1), (7, 5)),
+    (3, 26, 128, 0, 3, 1, (0, 1), (1, 1), (6, 11)),
+    (5, 9, 4, 0, 3, 1, (1, 1), (1, 1), (6, 5)),
+    (7, 9, 12, 0, 3, 2, (1, 1), (0, 2), None),
+    (6, 7, 33, 0, 5, 1, (2, 2), (2, 2), (9, 4)),
+    (9, 13, 16, 0, 3, 2, (0, 1), (1, 1), None),
+    (6, 11, 64, 0, 5, 2, (2, 1), (2, 2), (8, 6)),
+    (9, 125, 3, 32, 3, 2, (0, 0), (0, 1), (11, 10)),
+    (7, 10, 40, 5, 3, 1, (1, 0), (2, 1), None),
+    (6, 9, 64, 72, 3, 2, (0, 1), (1, 0), (8, 15)),
+    (5, 12, 40, 72, 5, 1, (2, 2), (1, 3), (5, 3)),
+    (8, 8, 1, 5, 3, 1, (0, 2), (2, 0), None),
+]
 # K1/K4's split-K edges, three lanes a byte stride apart (H, W, Cin, Cout):
 # Cin 1 and 1 030 (ragged chunks), M 1, M 36 with Cout 1 024, Cout 5 and
 # 65; zero points at both ends of int8, mult scaled to Cin
@@ -249,11 +278,18 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time(torch, fn, reps: int = 3):
+# a device-to-device copy: a copy kernel or a DtoD memcpy (the executor's
+# ring gathers, pushes and concats; not the inputs' upload or the outputs'
+# download)
+COPY = "copy DtoD"
+
+
+def device_time(torch, fn, reps: int = 3, counts=None):
     """Device busy time per call of ``fn`` (ms), summed over the CUDA
     activities ``torch.profiler`` records, with the top names by time and
     the time of every name (a kernel of the port by its ``<name>_kernel``
-    function)."""
+    function, device-to-device copies as ``COPY``).  ``counts``, a dict,
+    receives the activities of each name per call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -267,8 +303,12 @@ def device_time(torch, fn, reps: int = 3):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             m = re.search(r"\w+_kernel|Memcpy \w+|Memset", e.name)
             name = m.group(0) if m else e.name[:40]
+            if "copy_kernel" in e.name or name == "Memcpy DtoD":
+                name = COPY
             by_name[name] = by_name.get(name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3 / reps
+            if counts is not None:
+                counts[name] = counts.get(name, 0) + 1 / reps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return sum(by_name.values()), top, by_name
 
@@ -286,6 +326,57 @@ def shares(by_name, busy, kernels):
         f"{n} {by_name.get(n + '_kernel', 0.0):.3f} ms "
         f"({by_name.get(n + '_kernel', 0.0) / max(busy, 1e-9):.3f} of busy)"
         for n in kernels)
+
+
+def path_profile(torch, label, d, seed, wrappers, card):
+    """One int8 deployment's run without the checks of
+    ``Paths.deployment``: launches per inference, run p50 of 10, device
+    busy time, the kernels' and device-to-device copies' shares of it,
+    ring windows gathered."""
+    from repro_torch.graphs import random_input
+    x = random_input(d.graph, seed=seed)
+    for f in wrappers.values():
+        f.launches = 0
+    d.run(x)
+    torch.cuda.synchronize()
+    per_inf = {n: f.launches for n, f in wrappers.items() if f.launches}
+    runs = []
+    for _ in range(10):
+        t1 = time.perf_counter()
+        d.run(x)
+        runs.append((time.perf_counter() - t1) * 1e3)
+    counts = {}
+    busy, _, by_name = device_time(torch, lambda: d.run(x), counts=counts)
+    gathers = ring_gathers(d, lambda: d.run(x))
+    p50 = statistics.median(runs)
+    log(f"path {label}: arena {d.arena_bytes} B, {len(d.schedule)} ops, "
+        f"launches/inference {per_inf}; run p50 {p50:.3f} ms; device busy "
+        f"{busy:.3f} ms/run (profiler), idle share {1 - busy / p50:.3f}; "
+        f"kernel shares {shares(by_name, busy, sorted(per_inf))}; copies "
+        f"{counts.get(COPY, 0):.0f}/run, {by_name.get(COPY, 0.0):.3f} ms "
+        f"({by_name.get(COPY, 0.0) / max(busy, 1e-9):.3f} of busy); ring "
+        f"windows gathered/run {gathers} [{card}]")
+
+
+def ring_gathers(d, run):
+    """Ring windows ``run`` gathers into a new tensor (K1 or qmaxpool
+    consumers; "n/a" for a checkout whose executor gathers every window
+    before its consumer)."""
+    from repro_torch.kernels.conv_quant import ops
+    win = getattr(ops, "RingWindow", None)
+    if win is None:
+        return "n/a"
+    seen, gather = [], win.gather
+
+    def counted(self, out=None):
+        seen.append(self.n)
+        return gather(self, out)
+    win.gather = counted
+    try:
+        run()
+    finally:
+        win.gather = gather
+    return len(seen)
 
 
 def add_params(addp, zp_out):
@@ -318,6 +409,9 @@ class Checks:
         self.max_err = {k: 0 for k in wrappers}
         self.checked = {k: 0 for k in wrappers}
         self.max_rel = 0.0   # K6: max |got - want| / max |want|, per call
+        self.ring_checked = 0    # configurations read as ring windows
+        # whether this checkout's K2/K3/K5 take ring windows in place
+        self.rings = hasattr(ops, "RingWindow")
 
     def _pads(self, n, k, stride, pad):
         if pad is not None:
@@ -325,13 +419,17 @@ class Checks:
         _, beg, end = self.same_pads(n, k, stride)
         return beg, end
 
-    def _lanes(self, shape, lanes=2):
+    def _lanes(self, shape, lanes=2, aligned=False):
+        """``lanes`` int8 blocks of ``shape`` a byte pitch apart: at an odd
+        offset and pitch (no copy wider than a byte can read them), or
+        ``aligned`` to 16 bytes, as the arena's int8 views lie."""
         n = int(self.np.prod(shape))
-        pitch = n + 37
+        off, pitch = (16, -(-(n + 37) // 16) * 16) if aligned else \
+            (5, n + 37)
         buf = self.torch.as_tensor(
             self.rng.integers(0, 256, (lanes, pitch), dtype=self.np.uint8),
             device=self.device)
-        return buf[:, 5:5 + n].view(self.torch.int8).view(lanes, *shape)
+        return buf[:, off:off + n].view(self.torch.int8).view(lanes, *shape)
 
     def _lanes_f32(self, shape, lanes=2):
         n = int(self.np.prod(shape))
@@ -352,30 +450,41 @@ class Checks:
                                     device=self.device)
 
     def case(self, tag, kind, h, w, cin, cout, k, stride, hpad, wpad,
-             mult, zp_in, zp_out, addp=None, lanes=2):
+             mult, zp_in, zp_out, addp=None, lanes=2, ring=None,
+             aligned=False):
         """Route one int8 configuration as ``qconv_fused``/
         ``qdwconv_fused``/``qconv_add_fused`` (``addp`` given) do and
         compare the kernel with the plain version (once per ``tag`` and
-        shape), over ``lanes`` lanes a byte stride apart."""
+        shape), over ``lanes`` lanes a byte stride apart (``aligned``: 16
+        bytes).  ``ring = (ring_rows, src)``: K2/K3/K5 read the H-row input
+        as the window (src, H) of a ring of ``ring_rows`` rows, held
+        against the ring-view plain versions."""
         hp = self._pads(h, k, stride, hpad)
         wp = self._pads(w, k, stride, wpad)
         oh = (h + hp[0] + hp[1] - k) // stride + 1
         ow = (w + wp[0] + wp[1] - k) // stride + 1
-        key = (tag, kind, h, w, cin, cout, k, stride, hp, wp, addp)
+        key = (tag, kind, h, w, cin, cout, k, stride, hp, wp, addp, ring,
+               aligned)
         if key in self.configs:
             return
-        x = self._lanes((h, w, cin), lanes)
+        rows, src = ring or (h, 0)
+        x = self._lanes((rows, w, cin), lanes, aligned)
+        # ring windows through the wrappers' src/n and the *_ring_ref plain
+        # versions; a plain input through the calls every checkout has
+        rk = dict(src=src, n=h) if ring else {}
+        rs = "_ring" if ring else ""
         qp = dict(mult=mult, zp_in=zp_in, zp_out=zp_out)
         pw = k == 1 and stride == 1 and hp == (0, 0) and wp == (0, 0)
+        assert not (pw and ring), "K1 takes no ring window"
         extra = 0
         if kind == "qdwconv":
             name, wt = "qdwconv", self._rand((k, k, cin))
             macs = oh * ow * cin * k * k
-            out = self._lanes((oh, ow, cin), lanes)
+            out = self._lanes((oh, ow, cin), lanes, aligned)
             got = self.ops.qdwconv(x, wt, stride=stride, hpad=hp, wpad=wp,
-                                   out=out, **qp)
-            want = self.ref.qdwconv_ref(x, wt, stride=stride, hpad=hp,
-                                        wpad=wp, **qp)
+                                   out=out, **rk, **qp)
+            want = getattr(self.ref, "qdwconv" + rs + "_ref")(
+                x, wt, stride=stride, hpad=hp, wpad=wp, **rk, **qp)
         elif addp is not None:
             r = self._lanes((oh, ow, cout), lanes)
             extra = r[0].numel()
@@ -391,10 +500,10 @@ class Checks:
                 name, wt = "qconv_add", self._rand((k, k, cin, cout))
                 got = self.ops.qconv_add(x, wt, r, stride=stride, hpad=hp,
                                          wpad=wp, add_params=ap, out=out,
-                                         **qp)
-                want = self.ref.qconv_add_ref(x, wt, r, stride=stride,
-                                              hpad=hp, wpad=wp,
-                                              add_params=ap, **qp)
+                                         **rk, **qp)
+                want = getattr(self.ref, "qconv_add" + rs + "_ref")(
+                    x, wt, r, stride=stride, hpad=hp, wpad=wp,
+                    add_params=ap, **rk, **qp)
             macs = oh * ow * cout * k * k * cin
         elif pw:
             name, wt = "qconv1x1", self._rand((cin, cout))
@@ -407,18 +516,20 @@ class Checks:
             macs = oh * ow * cout * k * k * cin
             out = self._lanes((oh, ow, cout), lanes)
             got = self.ops.qconv(x, wt, stride=stride, hpad=hp, wpad=wp,
-                                 out=out, **qp)
-            want = self.ref.qconv_ref(x, wt, stride=stride, hpad=hp,
-                                      wpad=wp, **qp)
+                                 out=out, **rk, **qp)
+            want = getattr(self.ref, "qconv" + rs + "_ref")(
+                x, wt, stride=stride, hpad=hp, wpad=wp, **rk, **qp)
         self.torch.cuda.synchronize()
         assert got is out
         diff = (got.to(self.torch.int32) - want.to(self.torch.int32)).abs()
         self.max_err[name] = max(self.max_err[name], int(diff.max()))
         self.mismatches[name] += int((diff != 0).sum())
         self.checked[name] += 1
-        nbytes = x[0].numel() + wt.numel() + out[0].numel() + extra
+        nbytes = h * w * cin + wt.numel() + out[0].numel() + extra
         self.configs[key] = (name, macs, nbytes,
                              (h, w, cin, cout, k, stride, hp, wp, qp, addp))
+        if ring:
+            self.ring_checked += 1
 
     def case_f32(self, tag, h, w, cin, cout, bias=False, relu=True,
                  lanes=2):
@@ -470,8 +581,25 @@ class Checks:
                     a["stride"], a.get("pex_pads"), a.get("pex_wpads"),
                     a["mult"], a["zp_in"], a["zp_out"])
             self.case("main", *args)
+            if op.kind == "qdwconv":     # as the arena's views: 16-byte path
+                self.case("main", *args, aligned=True)
             if op.kind == "qconv":
                 self.case("main", *args, addp=ADD_QP[0])
+            ring = self.ring_of(d, op)
+            if ring is not None:
+                self.case("main", *args, ring=ring, aligned=True)
+
+    def ring_of(self, d, op):
+        """(ring rows, src) of the ring window ``op`` reads in place on the
+        card (a zero-copy ring read of K2 or K3), else None."""
+        a = op.attrs
+        if (not self.rings or op.inputs[0] not in d.executor._zc
+                or (a["weight_q"].shape[0] == 1 and a["stride"] == 1
+                    and tuple(a.get("pex_pads") or (0, 0)) == (0, 0)
+                    and tuple(a.get("pex_wpads") or (0, 0)) == (0, 0))):
+            return None     # a plain input, or K1 (which gathers)
+        a = d.exec_graph.producer(op.inputs[0]).attrs
+        return a["pex_ring_rows"], a["pex_ring_src"] % a["pex_ring_rows"]
 
     def hostile(self):
         for i, (mult, zi, zo) in enumerate(HOSTILE_QP):
@@ -493,6 +621,16 @@ class Checks:
                               None, None, mult, zi, zo, addp=addp, lanes=3)
         for (h, w, cin, cout, bias, relu, lanes) in HOSTILE_F32:
             self.case_f32("hostile", h, w, cin, cout, bias, relu, lanes)
+        for i, (mult, zi, zo) in enumerate(HOSTILE_QP):
+            for (h, w, cin, cout, k, s, hp, wp, ring) in HOSTILE_RING:
+                kind = "qdwconv" if cout == 0 else "qconv"
+                ring = ring if self.rings else None
+                for aligned in (False, True):
+                    self.case(f"ring{i}", kind, h, w, cin, cout, k, s, hp,
+                              wp, mult, zi, zo, ring=ring, aligned=aligned)
+                if cout:
+                    self.case(f"ring{i}", kind, h, w, cin, cout, k, s, hp,
+                              wp, mult, zi, zo, addp=ADD_QP[i], ring=ring)
 
     def largest(self, name):
         keys = [k for k, v in self.configs.items()
@@ -582,6 +720,107 @@ class Checks:
                     bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     shape=shape)
+
+    def conv_shapes(self, card, deployments, ppts=()):
+        """K2 and K3 at every distinct K2/K3 shape of the int8
+        ``deployments`` (``(label, d)`` pairs), K3's shapes also as K5 with
+        a residual: one lane, plain inputs aligned as the arena's (the
+        shapes the main path launches, ring windows included, read as
+        whole tensors here so that any checkout can be timed), held
+        against the plain version, event and profiler device time, the
+        bound, and the launches of that shape per inference of each
+        deployment; then per deployment the sum of launches x device time
+        of each kernel.  ``ppts``: K2's device time with its tile forced
+        to that many pixels a thread (through the planner hook
+        ``ops._dw_plan``, where the checkout has ``ops.dw_tile``),
+        bit-exact each."""
+        torch = self.torch
+        shapes = {}
+        for label, d in deployments:
+            g = d.exec_graph
+            for op in d.schedule:
+                a = op.attrs
+                if op.kind not in ("qconv", "qdwconv"):
+                    continue
+                wq = a["weight_q"]
+                hp = tuple(a.get("pex_pads") or (0, 0))
+                wp = tuple(a.get("pex_wpads") or (0, 0))
+                if (op.kind == "qconv" and wq.shape[0] == 1
+                        and a["stride"] == 1 and hp == wp == (0, 0)):
+                    continue                     # K1's
+                h, w, cin = g.tensors[op.inputs[0]].shape
+                key = (op.kind, h, w, cin,
+                       wq.shape[3] if op.kind == "qconv" else 0,
+                       wq.shape[0], a["stride"], hp, wp)
+                e = shapes.setdefault(key, {"op": op, "n": {}, "ring": 0})
+                e["n"][label] = e["n"].get(label, 0) + 1
+                e["ring"] += self.ring_of(d, op) is not None
+        per_inf = {label: {} for label, _ in deployments}
+        for key, e in shapes.items():
+            kind, h, w, cin, cout, k, stride, hp, wp = key
+            a = e["op"].attrs
+            qp = dict(stride=stride, hpad=hp, wpad=wp, mult=a["mult"],
+                      zp_in=a["zp_in"], zp_out=a["zp_out"])
+            oh = (h + hp[0] + hp[1] - k) // stride + 1
+            ow = (w + wp[0] + wp[1] - k) // stride + 1
+            x = self._lanes((h, w, cin), 1, aligned=True)
+            wt = torch.as_tensor(a["weight_q"], device=self.device)
+            co = cin if kind == "qdwconv" else cout
+            out = self._lanes((oh, ow, co), 1, aligned=True)
+            runs = []
+            if kind == "qdwconv":
+                wt = wt.reshape(k, k, cin)
+                runs.append(("qdwconv", lambda: self.ops.qdwconv(
+                    x, wt, out=out, **qp), self.ref.qdwconv_ref(x, wt, **qp),
+                    0))
+            else:
+                r = self._lanes((oh, ow, cout), 1, aligned=True)
+                ap = add_params(ADD_QP[0], qp["zp_out"])
+                runs.append(("qconv", lambda: self.ops.qconv(
+                    x, wt, out=out, **qp), self.ref.qconv_ref(x, wt, **qp),
+                    0))
+                runs.append(("qconv_add", lambda: self.ops.qconv_add(
+                    x, wt, r, add_params=ap, out=out, **qp),
+                    self.ref.qconv_add_ref(x, wt, r, add_params=ap, **qp),
+                    oh * ow * cout))
+            parts = []
+            hook = getattr(self.ops, "_dw_plan", None)
+            forced = ppts if kind == "qdwconv" and hasattr(
+                self.ops, "dw_tile") else ()
+            for ppt in forced:
+                self.ops._dw_plan = forced_dw_plan(self.ops, ppt)
+                try:
+                    assert torch.equal(runs[0][1](), runs[0][2]), (key, ppt)
+                    t = device_time(torch, runs[0][1], reps=20)[0]
+                    blocks = self.ops.dw_tile(1, oh, ow, cin, ppt)[1]
+                    parts.append(f"forced {ppt} px/thread ({blocks} "
+                                 f"blocks): device_ms {dev(t)}")
+                finally:
+                    self.ops._dw_plan = hook
+            for name, run, want, extra in runs:
+                assert torch.equal(run(), want), (name, key)
+                ev = time_ms(torch, run)
+                dv = device_time(torch, run, reps=20)[0]
+                nbytes = h * w * cin + wt.numel() + oh * ow * co + extra
+                macs = oh * ow * co * k * k * (1 if kind == "qdwconv"
+                                                else cin)
+                bound = max(nbytes / H100_BYTES_PER_S,
+                            2 * macs / H100_INT8_OPS_PER_S) * 1e3
+                parts.append(f"{name} kernel_ms {ev:.5f}, device_ms "
+                             f"{dev(dv)}, bound_ms {bound:.7f}")
+                for label, n in e["n"].items():
+                    if name != "qconv_add":
+                        acc = per_inf[label]
+                        acc[name] = acc.get(name, 0.0) + n * dv
+            log(f"kernels conv shape {kind} {h}x{w}x{cin}"
+                + (f"->{cout}" if cout else "") + f" k={k} s={stride} pads "
+                f"{hp}/{wp}: launches/inference {e['n']}, ring windows "
+                f"{e['ring']}; " + "; ".join(parts) + f" [{card}]")
+        for label, acc in per_inf.items():
+            log(f"kernels conv shapes {label}: launches x device_ms per "
+                f"inference " + ", ".join(f"{n} {t:.4f} ms"
+                                          for n, t in sorted(acc.items()))
+                + f" [{card}]")
 
     def k1_shapes(self, card, d, splits=()):
         """K1 at every distinct pointwise shape of deployment ``d``'s
@@ -716,6 +955,14 @@ class Checks:
                           for (bm, n), t in forced.items()) + f" [{card}]")
 
 
+def forced_dw_plan(ops, ppt):
+    """A stand-in for K2's planner hook ``ops._dw_plan`` that gives each
+    thread ``ppt`` pixels (``ops.dw_tile``)."""
+    def plan(lanes, oh, ow, c, k, stride, dev):
+        return ops.dw_tile(lanes, oh, ow, c, ppt)[0]
+    return plan
+
+
 def forced_k6_plan(bm, n, step, cap):
     """A stand-in for K6's planner hook ``pw_ops._plan``: tiles of ``bm``
     rows, Cin cut into ``n`` chunks of whole K-steps (fewer where Cin has
@@ -791,7 +1038,10 @@ class Paths:
             t1 = time.perf_counter()
             d.run(x)
             runs.append((time.perf_counter() - t1) * 1e3)
-        busy, top, by_name = device_time(torch, lambda: d.run(x))
+        counts = {}
+        busy, top, by_name = device_time(torch, lambda: d.run(x),
+                                         counts=counts)
+        gathers = ring_gathers(d, lambda: d.run(x))
         p50 = statistics.median(runs)
         reqs = [self.random_input(g, seed=s) for s in range(8)]
         eng = d.engine(micro_batch=4)
@@ -814,7 +1064,11 @@ class Paths:
             f"{1 - busy / p50:.3f} of p50; top "
             + ", ".join(f"{n} {t:.3f} ms" for n, t in top)
             + f"; kernel shares (profiler) "
-            f"{shares(by_name, busy, sorted(per_inf))}"
+            f"{shares(by_name, busy, sorted(per_inf))}; copies "
+            f"{counts.get(COPY, 0):.0f}/run, {by_name.get(COPY, 0.0):.3f} ms "
+            f"({by_name.get(COPY, 0.0) / max(busy, 1e-9):.3f} of busy); "
+            f"zero-copy reads {d.executor.zero_copy_reads}, ring windows "
+            f"gathered/run {gathers}"
             f" [{self.card}] ({time.perf_counter() - t0:.2f} s)")
         return per_inf
 
@@ -1407,15 +1661,20 @@ def main() -> int:
     n_main = len(checks.configs)
     checks.hostile()
     log(f"phase kernels-vs-plain: {n_main} main-path configs + "
-        f"hostile shapes, checked per kernel {checks.checked}, mismatches "
+        f"hostile shapes, checked per kernel {checks.checked} "
+        f"({checks.ring_checked} of K2/K3/K5 read as ring windows in "
+        f"place), mismatches "
         f"{checks.mismatches} (int8: bit-exact; conv1x1: within "
         f"{F32_BOUND:.3e} * (Cin + 2) * sum|x w|) "
         f"({time.perf_counter() - t0:.2f} s)")
     assert all(v == 0 for v in checks.mismatches.values()), checks.mismatches
     assert all(v > 0 for v in checks.checked.values()), checks.checked
+    assert checks.ring_checked > 0
     timings = {name: checks.timing(name, card) for name in cnn_wrappers}
     checks.k1_shapes(card, int8[0][1])
     checks.k6_shapes(card, f32[0][1])
+    checks.conv_shapes(card, [(f"int8 budget={b}", d) for b, d in int8]
+                       + [("swiftnet int8", swift_int8)])
 
     # ------------------------------------------------------- main paths
     paths = Paths(torch, np, wrappers, card)
@@ -1424,6 +1683,10 @@ def main() -> int:
                                    exact=True)
         assert all(per_inf.get(n, 0) > 0
                    for n in ("qconv1x1", "qdwconv", "qconv")), per_inf
+    # every zero-copy window of the 224 KB cascade is read by K2 or K3 in
+    # place: none is gathered
+    assert d.executor.zero_copy_reads == ZERO_COPY_224
+    assert ring_gathers(d, lambda: d.run(paths.random_input(d.graph))) == 0
     for i, (budget, d, n_pw) in enumerate(f32):
         per_inf = paths.deployment(f"f32 budget={budget}", d, 200 + i,
                                    exact=False)

@@ -36,7 +36,8 @@ import torch.nn.functional as F
 from repro_torch.core.graph import Graph, Operator
 from repro_torch.core.partition import PEX_ATTR, SliceSpec, same_pads
 from repro_torch.kernels.conv_pointwise.ops import conv1x1_fused
-from repro_torch.kernels.conv_quant.ops import qconv_fused, qdwconv_fused
+from repro_torch.kernels.conv_quant.ops import (RingWindow, qconv_fused,
+                                                qdwconv_fused)
 from repro_torch.kernels.conv_quant.ref import (INT8_MAX, INT8_MIN, qadd,
                                                 requantize)
 
@@ -531,7 +532,9 @@ def redistribute_receptive_field(graph: Graph, shrink: str, grow: str,
 # Hopper kernels on a CUDA arena and run the plain versions on a CPU one —
 # writing straight into the output's arena view either way.  Every other
 # f32 conv is ``F.conv2d`` with TF32 off, as the reference computes those
-# outside any Pallas kernel.
+# outside any Pallas kernel.  A zero-copy ring read reaches qconv/qdwconv/
+# qmaxpool as a ``RingWindow``: the int8 conv drop-ins hand it to K2/K3 in
+# place on the card, qmaxpool gathers it.
 from repro_torch.mcu.compile import register_lowering  # noqa: E402
 
 
@@ -603,6 +606,8 @@ def _lower_qdwconv(ctx, op: Operator, x, *, out):
 
 @register_lowering("qmaxpool")
 def _lower_qmaxpool(ctx, op: Operator, x, *, out):
+    if isinstance(x, RingWindow):     # a zero-copy ring read: gathered
+        x = x.gather()
     return qmaxpool2d(x, op.attrs["k"], op.attrs["stride"],
                       hpad=op.attrs.get("pex_pads"),
                       wpad=op.attrs.get("pex_wpads"))

@@ -21,11 +21,20 @@ K1 and K4 split Cin over a cluster of blocks where the output tiles alone
 would leave SMs idle (``plan_split_k``); the blocks add their int32
 partials through distributed shared memory, so nothing is allocated for
 it.
+
+K2, K3 and K5 also take a cascade ring window in place (``src``/``n``:
+the input is rows ``(src + j) % ring_rows``, j < n, of the ring ``x``
+[..., ring_rows, W, C]).  The arena executor hands a zero-copy ring read
+to ``qdwconv_fused``/``qconv_fused`` as a ``RingWindow``; on a CUDA tensor
+K2 and K3 read it where it lies, and every other consumer (K1, a CPU
+tensor) gathers it first.  ``plan_dw_tile``, ``load_width`` and
+``plan_qconv`` are K2's and K3's host-side plans.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -100,13 +109,18 @@ def _current_stream(dev: int) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _require_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
+                  out: torch.Tensor) -> None:
+    if not (x.is_cuda and w.is_cuda and out.is_cuda):
+        raise ValueError(f"{name}: x, w and out must all be CUDA tensors")
+
+
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
             *args, split_k: Optional[Tuple[int, int, int, int]] = None
             ) -> None:
     """Launch kernel ``name`` on the current stream; ``split_k = (lanes,
     m, cin, cout)`` appends K1/K4's split-K plan (split, chunk)."""
-    if not (x.is_cuda and w.is_cuda and out.is_cuda):
-        raise ValueError(f"{name}: x, w and out must all be CUDA tensors")
+    _require_cuda(name, x, w, out)
     if not w.is_contiguous():
         raise ValueError(f"{name}: weights must be contiguous")
     dev = x.get_device()
@@ -175,6 +189,162 @@ def _out_hw(h: int, w: int, k: int, stride: int, hpad, wpad):
     return oh, ow
 
 
+def ring_spans(start: int, n: int, rows: int):
+    """(ring row, window row, length) runs of window rows ``start + j``
+    (j < n) mapped to ring rows ``(start + j) % rows``."""
+    j = 0
+    while j < n:
+        pos = (start + j) % rows
+        length = min(rows - pos, n - j)
+        yield pos, j, length
+        j += length
+
+
+@dataclasses.dataclass(frozen=True)
+class RingWindow:
+    """A cascade ring's halo'd window left where it lies: rows ``(src + j)
+    % ring_rows`` (j < n) of ``ring`` [lanes, ring_rows, ...], in window
+    order.  ``shape`` is the window's, as if it had been gathered."""
+    ring: torch.Tensor
+    src: int
+    n: int
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.ring.shape[0], self.n, *self.ring.shape[2:])
+
+    def gather(self, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The window in row order, in ``out`` or a new tensor: one copy
+        per contiguous span of ring rows."""
+        ring = self.ring
+        if out is None:
+            out = torch.empty(self.shape, dtype=ring.dtype,
+                              device=ring.device)
+        for pos, j, length in ring_spans(self.src, self.n, ring.shape[1]):
+            out[:, j:j + length] = ring[:, pos:pos + length]
+        return out
+
+
+def reads_in_place(x: RingWindow) -> bool:
+    """Whether K2/K3 read ``x`` where it lies (on the card) rather than
+    from a gathered copy (the plain versions on the CPU)."""
+    return x.ring.is_cuda
+
+
+def _ring(name: str, rows: int, src: int, n: Optional[int]
+          ) -> Tuple[int, int]:
+    """(the window's rows, its first ring row) of the window (src, n) of a
+    ring of ``rows`` rows: ``src`` is any row of the stream (ring row
+    ``src % rows``), ``n`` None is the whole of ``rows`` from row 0."""
+    if n is None:
+        if src:
+            raise ValueError(f"{name}: src={src} needs the window's n")
+        return rows, 0
+    if src < 0 or n < 1:
+        raise ValueError(f"{name}: ring window src={src}, n={n} is not a "
+                         f"window of a ring")
+    return n, src % rows
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+# K2's block (csrc/qdwconv.cu): DW_THREADS threads, one channel each of
+# up to 4 output pixels along a row; ``cq`` threads across the channels
+# (up to 128 channels), the rest over pixels.  A block is a chain of
+# dependent steps on few warps, so more, shorter blocks pay until the
+# grid has DW_BLOCKS_PER_SM blocks an SM (forced-plan device times on an
+# H100, tools/kernel_times.py --ppt; PERF.md).
+DW_THREADS = 128
+DW_MAX_CHANNELS = 128
+DW_BLOCKS_PER_SM = 2
+DW_MAX_SMEM = 227 * 1024
+
+
+def dw_tile(lanes: int, oh: int, ow: int, c: int, ppt: int
+            ) -> Tuple[Tuple[int, int, int, int], int]:
+    """K2's tile ``(cq, gx, gy, ppt)`` for ``ppt`` pixels a thread, and its
+    grid's blocks: ``cq`` threads cover as many channels as C needs (a
+    power of two, DW_MAX_CHANNELS at most), ``gx`` pixel groups go along
+    the row first and the rest of the threads stack ``gy`` rows."""
+    cq = min(DW_MAX_CHANNELS, _pow2(c))
+    groups = DW_THREADS // cq
+    gx = min(groups, _pow2(-(-ow // ppt)))
+    gy = groups // gx
+    blocks = lanes * -(-oh // gy) * -(-ow // (gx * ppt)) * -(-c // cq)
+    return (cq, gx, gy, ppt), blocks
+
+
+def plan_dw_tile(lanes: int, oh: int, ow: int, c: int,
+                 sms: int) -> Tuple[int, int, int, int]:
+    """K2's block tile ``(cq, gx, gy, ppt)`` (``dw_tile``) with ``ppt`` the
+    largest of 4, 2, 1 whose grid reaches DW_BLOCKS_PER_SM blocks an SM of
+    ``sms``, 1 where none does."""
+    for ppt in (4, 2, 1):
+        tile, blocks = dw_tile(lanes, oh, ow, c, ppt)
+        if blocks >= DW_BLOCKS_PER_SM * sms:
+            break
+    return tile
+
+
+def dw_smem(cq: int, gx: int, gy: int, ppt: int, k: int,
+            stride: int) -> int:
+    """Bytes of K2's shared memory: the input tile with its halo
+    (csrc/qdwconv.cu; the scalar path stages none)."""
+    return ((gy - 1) * stride + k) * ((gx * ppt - 1) * stride + k) * cq
+
+
+def load_width(c: int, *addresses: int) -> int:
+    """Bytes K2 moves per copy from or to an NHWC tensor of ``c`` channels
+    whose pointer and lane stride (bytes) are ``addresses``: 16
+    (``cp.async`` of 16 bytes) where ``c`` and all of them are multiples
+    of 16, 4 where they are multiples of 4, else 1 (the scalar path).  A
+    pixel's channels then lie in whole, aligned copies, rows and lanes
+    included."""
+    for a in addresses:
+        c |= a
+    return 16 if c % 16 == 0 else 4 if c % 4 == 0 else 1
+
+
+# K3/K5's block (csrc/qconv.cuh): QC_BM output pixels x an N tile of
+# 8/16/32/64 channels (the smallest that holds Cout, 64 at most), K in
+# 32-deep steps of int8 mma.sync.  Its shared memory holds the block's
+# input rows for one chunk of Cin, the chunk's weights and their offsets.
+QC_BM = 64
+QC_KSTEP = 32
+QC_SMEM = 96 * 1024
+QC_MAX_SMEM = 227 * 1024
+
+
+def qconv_smem(oh: int, ow: int, k: int, stride: int, ck: int,
+               bn: int) -> int:
+    """Bytes of K3's shared memory for a Cin chunk of ``ck`` channels: the
+    input patch of QC_BM consecutive output pixels at most (rows of
+    ``cols * ck`` bytes rounded up to 16), the transposed weight tile
+    (``bn`` rows of the padded K + 16) and one int offset per padded K."""
+    rows = (min(oh, (QC_BM - 1) // ow + 2) - 1) * stride + k
+    pitch = -(-((ow - 1) * stride + k) * ck // 16) * 16
+    kpad = -(-k * k * ck // QC_KSTEP) * QC_KSTEP
+    return rows * pitch + bn * (kpad + 16) + 4 * kpad
+
+
+def plan_qconv(oh: int, ow: int, cin: int, cout: int, k: int,
+               stride: int) -> Tuple[int, int]:
+    """K3/K5's ``(bn, ck)``: the N tile (8, 16, 32 or 64 columns) and the
+    Cin chunk whose shared memory fits QC_SMEM (Cin whole where it fits,
+    else halved until it does)."""
+    bn = next(b for b in (8, 16, 32, 64) if cout <= b or b == 64)
+    ck = cin
+    while ck > 1 and qconv_smem(oh, ow, k, stride, ck, bn) > QC_SMEM:
+        ck = -(-ck // 2)
+    if qconv_smem(oh, ow, k, stride, ck, bn) > QC_MAX_SMEM:
+        raise ValueError(f"qconv: an output row of {ow} pixels at k={k}, "
+                         f"stride {stride} needs more shared memory than a "
+                         f"block has")
+    return bn, ck
+
+
 # ------------------------------------------------------------------ kernels
 def qconv1x1(x: torch.Tensor, w: torch.Tensor, *, mult: float, zp_in: int,
              zp_out: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -201,61 +371,99 @@ def qconv1x1(x: torch.Tensor, w: torch.Tensor, *, mult: float, zp_in: int,
     return out
 
 
+def _launch_qconv(name: str, x: torch.Tensor, w: torch.Tensor,
+                  out: torch.Tensor, lanes: int, x_bs: int, o_bs: int,
+                  h: int, src: int, cout: int, oh: int, ow: int, k: int,
+                  stride: int, hpad, wpad, mult: float, zp_in: int,
+                  zp_out: int, *res) -> None:
+    """K3 or K5 over ``lanes`` lanes, with their tile plan."""
+    rows, wd, cin = x.shape[-3:]
+    bn, ck = _qconv_plan(oh, ow, cin, cout, k, stride)
+    _launch(name, x, w, out, lanes, h, rows, src, wd, cin, cout, oh, ow, k,
+            stride, hpad[0], wpad[0], x_bs, o_bs, float(np.float32(mult)),
+            zp_in, zp_out, *res, bn, ck)
+
+
+_qconv_plan = functools.lru_cache(maxsize=1024)(plan_qconv)
+
+
 def qconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
           zp_in: int, zp_out: int, hpad: Tuple[int, int],
-          wpad: Tuple[int, int],
-          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+          wpad: Tuple[int, int], out: Optional[torch.Tensor] = None,
+          src: int = 0, n: Optional[int] = None) -> torch.Tensor:
     """K3: x [..., H, W, Cin] int8, w [k, k, Cin, Cout] int8 ->
-    [..., OH, OW, Cout] int8, explicit (before, after) pads, fused ReLU."""
+    [..., OH, OW, Cout] int8, explicit (before, after) pads, fused ReLU.
+    With ``n``, x is a ring and the input its window (src, n)."""
     _require_int8("x", x)
     _require_int8("w", w)
     lanes, x_bs = _lanes("x", x)
-    h, wd, cin = x.shape[-3:]
+    rows, wd, cin = x.shape[-3:]
+    h, src = _ring("qconv", rows, src, n)
     if w.dim() != 4 or w.shape[0] != w.shape[1] or w.shape[2] != cin:
         raise ValueError(f"w must be [k, k, Cin={cin}, Cout], got "
                          f"{tuple(w.shape)}")
     k, cout = w.shape[0], w.shape[3]
     oh, ow = _out_hw(h, wd, k, stride, hpad, wpad)
     if x.device.type == "cpu":
-        return _plain(ref.qconv_ref(x, w, stride=stride, mult=mult,
-                                    zp_in=zp_in, zp_out=zp_out, hpad=hpad,
-                                    wpad=wpad), out)
+        qp = dict(stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
+                  hpad=hpad, wpad=wpad)
+        return _plain(ref.qconv_ref(x, w, **qp) if n is None else
+                      ref.qconv_ring_ref(x, w, src=src, n=h, **qp), out)
     out = _destination(out, (*x.shape[:-3], oh, ow, cout), x)
     _, o_bs = _lanes("out", out)
     if out.numel():
-        _launch("qconv", x, w, out, lanes, h, wd, cin, cout, oh, ow, k,
-                stride, hpad[0], wpad[0], x_bs, o_bs,
-                float(np.float32(mult)), zp_in, zp_out)
+        _launch_qconv("qconv", x, w, out, lanes, x_bs, o_bs, h, src, cout,
+                      oh, ow, k, stride, hpad, wpad, mult, zp_in, zp_out)
         qconv.launches += 1
     return out
 
 
 def qdwconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
             zp_in: int, zp_out: int, hpad: Tuple[int, int],
-            wpad: Tuple[int, int],
-            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+            wpad: Tuple[int, int], out: Optional[torch.Tensor] = None,
+            src: int = 0, n: Optional[int] = None) -> torch.Tensor:
     """K2: x [..., H, W, C] int8, w [k, k, C] int8 -> [..., OH, OW, C] int8
-    (depthwise), explicit (before, after) pads, fused ReLU."""
+    (depthwise), explicit (before, after) pads, fused ReLU.  With ``n``,
+    x is a ring and the input its window (src, n)."""
     _require_int8("x", x)
     _require_int8("w", w)
     lanes, x_bs = _lanes("x", x)
-    h, wd, c = x.shape[-3:]
+    rows, wd, c = x.shape[-3:]
+    h, src = _ring("qdwconv", rows, src, n)
     if w.dim() != 3 or w.shape[0] != w.shape[1] or w.shape[2] != c:
         raise ValueError(f"w must be [k, k, C={c}], got {tuple(w.shape)}")
     k = w.shape[0]
     oh, ow = _out_hw(h, wd, k, stride, hpad, wpad)
     if x.device.type == "cpu":
-        return _plain(ref.qdwconv_ref(x, w, stride=stride, mult=mult,
-                                      zp_in=zp_in, zp_out=zp_out, hpad=hpad,
-                                      wpad=wpad), out)
+        qp = dict(stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
+                  hpad=hpad, wpad=wpad)
+        return _plain(ref.qdwconv_ref(x, w, **qp) if n is None else
+                      ref.qdwconv_ring_ref(x, w, src=src, n=h, **qp), out)
     out = _destination(out, (*x.shape[:-3], oh, ow, c), x)
     _, o_bs = _lanes("out", out)
     if out.numel():
-        _launch("qdwconv", x, w, out, lanes, h, wd, c, oh, ow, k, stride,
-                hpad[0], wpad[0], x_bs, o_bs, float(np.float32(mult)),
-                zp_in, zp_out)
+        _require_cuda("qdwconv", x, w, out)
+        plan = _dw_plan(lanes, oh, ow, c, k, stride, x.get_device())
+        _launch("qdwconv", x, w, out, lanes, h, rows, src, wd, c, oh, ow, k,
+                stride, hpad[0], wpad[0], x_bs, o_bs,
+                float(np.float32(mult)), zp_in, zp_out,
+                load_width(c, x.data_ptr(), x_bs), *plan)
         qdwconv.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _dw_plan(lanes: int, oh: int, ow: int, c: int, k: int, stride: int,
+             dev: int) -> Tuple[int, int, int, int]:
+    """``plan_dw_tile`` for CUDA device ``dev``'s SM count, refused where
+    its tile would not fit a block's shared memory."""
+    plan = plan_dw_tile(lanes, oh, ow, c, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    smem = dw_smem(*plan, k, stride)
+    if smem > DW_MAX_SMEM:
+        raise ValueError(f"qdwconv: k={k} at stride {stride} needs {smem} B "
+                         f"of shared memory a block")
+    return plan
 
 
 def qconv1x1_add(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
@@ -292,13 +500,15 @@ def qconv_add(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
               stride: int, mult: float, zp_in: int, zp_out: int,
               hpad: Tuple[int, int], wpad: Tuple[int, int],
               add_params: Tuple[float, float, int, int, int],
-              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+              out: Optional[torch.Tensor] = None, src: int = 0,
+              n: Optional[int] = None) -> torch.Tensor:
     """K5: K3, then the fixed-point ``qadd`` with the residual ``r`` [...,
     OH, OW, Cout] int8."""
     _require_int8("x", x)
     _require_int8("w", w)
     lanes, x_bs = _lanes("x", x)
-    h, wd, cin = x.shape[-3:]
+    rows, wd, cin = x.shape[-3:]
+    h, src = _ring("qconv_add", rows, src, n)
     if w.dim() != 4 or w.shape[0] != w.shape[1] or w.shape[2] != cin:
         raise ValueError(f"w must be [k, k, Cin={cin}, Cout], got "
                          f"{tuple(w.shape)}")
@@ -307,15 +517,17 @@ def qconv_add(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
     shape = (*x.shape[:-3], oh, ow, cout)
     res = _residual(r, shape, x, add_params)
     if x.device.type == "cpu":
-        return _plain(ref.qconv_add_ref(
-            x, w, r, stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
-            hpad=hpad, wpad=wpad, add_params=add_params), out)
+        qp = dict(stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
+                  hpad=hpad, wpad=wpad, add_params=add_params)
+        return _plain(ref.qconv_add_ref(x, w, r, **qp) if n is None else
+                      ref.qconv_add_ring_ref(x, w, r, src=src, n=h, **qp),
+                      out)
     out = _destination(out, shape, x)
     _, o_bs = _lanes("out", out)
     if out.numel():
-        _launch("qconv_add", x, w, out, lanes, h, wd, cin, cout, oh, ow, k,
-                stride, hpad[0], wpad[0], x_bs, o_bs,
-                float(np.float32(mult)), zp_in, zp_out, *res)
+        _launch_qconv("qconv_add", x, w, out, lanes, x_bs, o_bs, h, src,
+                      cout, oh, ow, k, stride, hpad, wpad, mult, zp_in,
+                      zp_out, *res)
         qconv_add.launches += 1
     return out
 
@@ -329,30 +541,45 @@ KERNEL_WRAPPERS = {"qconv1x1": qconv1x1, "qdwconv": qdwconv, "qconv": qconv,
                    "qconv1x1_add": qconv1x1_add, "qconv_add": qconv_add}
 
 
+def _gathered(x: Union[torch.Tensor, RingWindow]) -> torch.Tensor:
+    return x.gather() if isinstance(x, RingWindow) else x
+
+
+def _in_place(x: Union[torch.Tensor, RingWindow]):
+    """(tensor, ``src``/``n`` keywords) for the K2/K3 wrappers: a ring
+    window the kernel reads where it lies, else a tensor (a window off the
+    card gathered)."""
+    if isinstance(x, RingWindow) and reads_in_place(x):
+        return x.ring, {"src": x.src, "n": x.n}
+    return _gathered(x), {}
+
+
 def _is_1x1(k: int, stride: int, hpad, wpad) -> bool:
     return (k == 1 and stride == 1 and hpad in (None, (0, 0))
             and wpad in (None, (0, 0)))
 
 
 # ------------------------------------------------------ q-op drop-ins
-def qconv_fused(x: torch.Tensor, w: torch.Tensor, *, stride: int,
-                mult: float, zp_in: int, zp_out: int,
+def qconv_fused(x: Union[torch.Tensor, RingWindow], w: torch.Tensor, *,
+                stride: int, mult: float, zp_in: int, zp_out: int,
                 hpad: Optional[Tuple[int, int]] = None,
                 wpad: Optional[Tuple[int, int]] = None,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Drop-in for ``qconv2d`` (w in the graph's (k, k, Cin, Cout) layout,
     SAME pads unless ``hpad``/``wpad`` override them), bit-identical.
-    k=1, stride=1 and no pads go to K1, everything else to K3."""
+    k=1, stride=1 and no pads go to K1, everything else to K3.  ``x`` may
+    be a ``RingWindow``: K3 reads it in place, K1 a gathered copy."""
     hpad = None if hpad is None else tuple(hpad)
     wpad = None if wpad is None else tuple(wpad)
     k = w.shape[0]
     if _is_1x1(k, stride, hpad, wpad):
-        return qconv1x1(x, w.reshape(w.shape[2:]), mult=mult, zp_in=zp_in,
-                        zp_out=zp_out, out=out)
+        return qconv1x1(_gathered(x), w.reshape(w.shape[2:]), mult=mult,
+                        zp_in=zp_in, zp_out=zp_out, out=out)
     hp = _pads(x.shape[-3], k, stride) if hpad is None else hpad
     wp = _pads(x.shape[-2], w.shape[1], stride) if wpad is None else wpad
+    x, ring = _in_place(x)
     return qconv(x, w, stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
-                 hpad=hp, wpad=wp, out=out)
+                 hpad=hp, wpad=wp, out=out, **ring)
 
 
 def qconv_add_fused(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
@@ -381,22 +608,27 @@ def qconv_add_fused(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
                      out=out)
 
 
-def qdwconv_fused(x: torch.Tensor, w: torch.Tensor, *, stride: int,
-                  mult: float, zp_in: int, zp_out: int,
+def qdwconv_fused(x: Union[torch.Tensor, RingWindow], w: torch.Tensor, *,
+                  stride: int, mult: float, zp_in: int, zp_out: int,
                   hpad: Optional[Tuple[int, int]] = None,
                   wpad: Optional[Tuple[int, int]] = None,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Drop-in for ``qdwconv2d`` (w in the graph's (k, k, C, 1) layout),
-    bit-identical; always K2."""
+    bit-identical; always K2, which reads a ``RingWindow`` ``x`` in
+    place."""
     k = w.shape[0]
     hp = _pads(x.shape[-3], k, stride) if hpad is None else tuple(hpad)
     wp = _pads(x.shape[-2], w.shape[1], stride) if wpad is None else \
         tuple(wpad)
+    x, ring = _in_place(x)
     return qdwconv(x, w.reshape(k, w.shape[1], x.shape[-1]), stride=stride,
                    mult=mult, zp_in=zp_in, zp_out=zp_out, hpad=hp, wpad=wp,
-                   out=out)
+                   out=out, **ring)
 
 
 __all__ = ["qconv1x1", "qconv", "qdwconv", "qconv1x1_add", "qconv_add",
            "qconv_fused", "qdwconv_fused", "qconv_add_fused",
-           "KERNEL_WRAPPERS", "plan_split_k"]
+           "KERNEL_WRAPPERS", "plan_split_k", "RingWindow", "ring_spans",
+           "reads_in_place", "plan_dw_tile", "dw_tile", "dw_smem",
+           "load_width",
+           "plan_qconv", "qconv_smem"]

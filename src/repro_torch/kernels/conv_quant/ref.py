@@ -18,6 +18,11 @@ The kernel wrappers in ``ops.py`` call these for tensors on the CPU, and
 the tests compare them with the JAX package.  Nothing on the CUDA path
 calls them.  Tensors are NHWC with an optional leading batch dimension.
 
+K2, K3 and K5 also read a cascade ring window where it lies: the input is
+rows ``(src + j) % ring_rows`` (j < n) of a ring ``[..., ring_rows, W,
+C]``.  ``*_ring_ref`` are their plain versions, with the kernels'
+arguments (ring, src, n, ...; ring_rows is the ring's row count).
+
 The fused conv -> add kernels K4/K5 are K1/K3 followed by ``qadd``, the
 port's fixed-point add (it lives here, and ``graphs/cnn_ops.py`` imports
 it, so that the plain K4/K5 and the graph op are one function).
@@ -86,6 +91,26 @@ def qdwconv_ref(x: torch.Tensor, w: torch.Tensor, *, stride: int,
     return requantize(acc, mult, zp_out, lo=zp_out)
 
 
+def ring_window(ring: torch.Tensor, src: int, n: int) -> torch.Tensor:
+    """Rows ``(src + j) % ring_rows``, j < n, of ``ring`` [..., ring_rows,
+    W, C], in window order (a new tensor)."""
+    rows = ring.shape[-3]
+    idx = (src + torch.arange(n, device=ring.device)) % rows
+    return ring.index_select(ring.dim() - 3, idx)
+
+
+def qconv_ring_ref(ring: torch.Tensor, w: torch.Tensor, *, src: int, n: int,
+                   **kw) -> torch.Tensor:
+    """K3's function on the ring window (src, n) of ``ring``."""
+    return qconv_ref(ring_window(ring, src, n), w, **kw)
+
+
+def qdwconv_ring_ref(ring: torch.Tensor, w: torch.Tensor, *, src: int,
+                     n: int, **kw) -> torch.Tensor:
+    """K2's function on the ring window (src, n) of ``ring``."""
+    return qdwconv_ref(ring_window(ring, src, n), w, **kw)
+
+
 # qadd runs in fixed point: the two rescale multipliers are quantized to
 # QADD_SHIFT fractional bits on the host and the whole op is int32
 # arithmetic + an integer round-half-even — integer ops cannot be contracted
@@ -149,6 +174,13 @@ def qconv_add_ref(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
     return qadd(y, r, *add_params)
 
 
+def qconv_add_ring_ref(ring: torch.Tensor, w: torch.Tensor, r: torch.Tensor,
+                       *, src: int, n: int, **kw) -> torch.Tensor:
+    """K5's function on the ring window (src, n) of ``ring``."""
+    return qconv_add_ref(ring_window(ring, src, n), w, r, **kw)
+
+
 __all__ = ["requantize", "qconv1x1_ref", "qconv_ref", "qdwconv_ref",
            "qadd", "qadd_multipliers", "qconv1x1_add_ref", "qconv_add_ref",
-           "QADD_SHIFT", "INT8_MIN", "INT8_MAX"]
+           "QADD_SHIFT", "INT8_MIN", "INT8_MAX", "ring_window",
+           "qconv_ring_ref", "qdwconv_ring_ref", "qconv_add_ring_ref"]

@@ -29,8 +29,9 @@ buffer, the byte-addressed SRAM arena of TFLite-Micro:
   is copied into that lane's output view.  A kind with neither a rule nor
   an ``fn`` is refused when the program is compiled;
 * ``pex_ring_read`` windows with a single integer-exact consumer are
-  **zero-copy**: the gathered window is handed to the consumer as a tensor
-  and never written to the arena (``_zero_copy_reads``);
+  **zero-copy**: never written to the arena (``_zero_copy_reads``), the
+  window is handed to the consumer as a ``RingWindow`` view of the ring,
+  which K2 and K3 read in place on the card;
 * runs of uniform Pex slices are grouped into rolled loops exactly as the
   reference groups them (``_plan_items``/``_build_loop``), so
   ``rolled_loops``/``rolled_ops`` match it.  In the reference, rolling is
@@ -56,6 +57,7 @@ from repro_torch.core.allocator import ArenaPlan, ArenaPlanner
 from repro_torch.core.graph import Graph, Operator
 from repro_torch.device import resolve_device
 from repro_torch.errors import GuardViolation
+from repro_torch.kernels.conv_quant.ops import RingWindow, ring_spans
 
 # Graph dtype name -> torch dtype of the typed arena views.
 TORCH_DTYPES = {
@@ -150,17 +152,6 @@ def lower_op(ctx: LoweringCtx, op: Operator, *args, out=None):
     return _RULES.get(op.kind, _fallback)(ctx, op, *args, out=out)
 
 
-def _ring_spans(start: int, n: int, rows: int):
-    """(ring row, window row, length) runs of window rows ``start + j``
-    (j < n) mapped to ring rows ``(start + j) % rows``."""
-    j = 0
-    while j < n:
-        pos = (start + j) % rows
-        length = min(rows - pos, n - j)
-        yield pos, j, length
-        j += length
-
-
 def _carry(acc: torch.Tensor, out: torch.Tensor) -> None:
     """Make ``out`` hold ``acc``: nothing to do when the plan aliased the
     two (the inplace chain), a copy otherwise."""
@@ -199,7 +190,8 @@ def _lower_pex_concat(ctx: LoweringCtx, op: Operator, *args, out):
 # of a boundary tensor lives at ring position ``r % ring_rows``.  A push
 # writes the producer's new rows at their ring positions (the chain of ring
 # states aliases to one arena offset, so this is the rolling buffer); a read
-# gathers the consumer's halo'd window back into row order.
+# gathers the consumer's halo'd window back into row order, or, zero-copy,
+# hands the consumer a ``RingWindow`` that names it where it lies.
 @register_lowering("pex_ring_push")
 def _lower_pex_ring_push(ctx: LoweringCtx, op: Operator, *args, out):
     a = op.attrs
@@ -208,30 +200,29 @@ def _lower_pex_ring_push(ctx: LoweringCtx, op: Operator, *args, out):
         out.zero_()
     else:
         _carry(args[0], out)
-    for pos, j, length in _ring_spans(a["pex_ring_dst"], part.shape[1],
-                                      a["pex_ring_rows"]):
+    for pos, j, length in ring_spans(a["pex_ring_dst"], part.shape[1],
+                                     a["pex_ring_rows"]):
         out[:, pos:pos + length] = part[:, j:j + length]
     return out
 
 
 @register_lowering("pex_ring_read")
 def _lower_pex_ring_read(ctx: LoweringCtx, op: Operator, ring, *, out):
-    a = op.attrs
-    n = ctx.shape(op.output)[0]
+    assert ring.shape[1] == op.attrs["pex_ring_rows"], op.name
+    win = RingWindow(ring, op.attrs["pex_ring_src"],
+                     ctx.shape(op.output)[0])
     if out is None:     # zero-copy: the window is handed to its consumer
-        out = torch.empty((ring.shape[0], *ctx.shape(op.output)),
-                          dtype=ring.dtype, device=ring.device)
-    for pos, j, length in _ring_spans(a["pex_ring_src"], n,
-                                      a["pex_ring_rows"]):
-        out[:, j:j + length] = ring[:, pos:pos + length]
-    return out
+        return win
+    return win.gather(out)
 
 
 # ------------------------------------------------------- zero-copy ring reads
 # A ``pex_ring_read`` gathers a halo'd window out of the ring in row order.
 # Writing that window into the arena is a pure copy the consumer never
-# needs: the window is handed to the consumer as a tensor instead, when
-# that is provably bit-safe:
+# needs: the window is handed to the consumer as a ``RingWindow`` (the
+# ring, the window's first ring row and its row count) instead, when that
+# is provably bit-safe.  K2 and K3 read it where it lies on the card;
+# every other consumer gathers it into a new tensor first.  Safe means:
 #
 # * the window is integer-typed and the consumer is an integer-exact kind;
 # * the read's output has exactly one consumer, scheduled immediately after

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Check and time K1, K4, K6, K7 and K8 of one checkout's PyTorch/CUDA port.
+"""Check and time the kernels of one checkout's PyTorch/CUDA port.
 
     python3 tools/kernel_times.py [--src DIR] [--splits 1,2,4,8] [--lanes N]
+                                  [--ppt 4,2,1]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is measured
 (default: this checkout's), so that an older commit's kernels, unpacked
@@ -12,6 +13,17 @@ plans the reorder-only int8 MobileNet-1.0@192 and then:
 
 * holds K1–K5 against their plain versions (bit-exact) at every int8
   conv of that schedule, each also as the fused conv -> add;
+* plans the 512 KB (Pex) and 224 KB (2-D tiled cascade) int8 schedules
+  too, and the int8 SwiftNet cell's, and times K2 and K3 (K3's shapes
+  also as K5) at every distinct K2/K3 shape of the four, event and device
+  times beside the bound and
+  each shape's launches per inference (``Checks.conv_shapes``;
+  ``--ppt`` adds K2's device time with its tile forced to that many
+  pixels a thread, the measurement behind ``ops.DW_BLOCKS_PER_SM``), then
+  runs
+  each of the three paths once more for its launches, run p50, device
+  busy time, the kernels' and device-to-device copies' shares of it and
+  the ring windows gathered (``chip_smoke.path_profile``);
 * times K1 at every distinct pointwise shape of the schedule against
   ``torch._int_mm``, event and device times (``Checks.k1_shapes``;
   ``--splits`` adds K1's device time with Cin forced into that many
@@ -58,6 +70,8 @@ def main() -> int:
                          "and K8")
     ap.add_argument("--lanes", type=int, default=1,
                     help="lanes of K6's per-shape calls")
+    ap.add_argument("--ppt", default="",
+                    help="comma-separated pixels a thread to force on K2")
     args = ap.parse_args()
     src = Path(args.src).resolve()
     sys.path.insert(0, str(src))
@@ -69,7 +83,7 @@ def main() -> int:
     import repro_torch
     import repro_torch.deploy as deploy
     from repro_torch.configs import get_config
-    from repro_torch.graphs import mobilenet_v1_graph
+    from repro_torch.graphs import mobilenet_v1_graph, swiftnet_cell_graph
     from repro_torch.kernels import build
     from repro_torch.kernels.conv_pointwise import ops as pw_ops
     from repro_torch.kernels.conv_quant import ops
@@ -84,8 +98,14 @@ def main() -> int:
     for name in chip_smoke.PTXAS_KERNELS:
         chip_smoke.log(f"ptxas {name}: " + "; ".join(
             getattr(build, "PTXAS", {}).get(name, ["not reported"])))
-    d = deploy.build(mobilenet_v1_graph(*chip_smoke.MODEL), device=dev,
-                     quantize=True, arena_budget=None)
+    int8 = [(f"int8 budget={b}", deploy.build(
+        mobilenet_v1_graph(*chip_smoke.MODEL), device=dev, quantize=True,
+        arena_budget=b)) for b, _ in chip_smoke.BUDGETS]
+    for (label, di), (_, golden) in zip(int8, chip_smoke.BUDGETS):
+        assert di.arena_bytes == golden, (label, di.arena_bytes, golden)
+    d = int8[0][1]
+    swift = ("swiftnet int8", deploy.build(swiftnet_cell_graph(), device=dev,
+                                           quantize=True))
     d32 = deploy.build(mobilenet_v1_graph(*chip_smoke.MODEL), device=dev,
                        arena_budget=None)
     checks = chip_smoke.Checks(torch, np, dev, {**ops.KERNEL_WRAPPERS,
@@ -93,6 +113,11 @@ def main() -> int:
     checks.from_deployment(d)
     checks.from_deployment(d32)
     assert all(v == 0 for v in checks.mismatches.values()), checks.mismatches
+    checks.conv_shapes(card, int8 + [swift],
+                       [int(n) for n in args.ppt.split(",") if n])
+    for i, (label, di) in enumerate(int8):
+        chip_smoke.path_profile(torch, label, di, 100 + i,
+                                ops.KERNEL_WRAPPERS, card)
     checks.k1_shapes(card, d, splits)
     checks.k6_shapes(card, d32, splits, args.lanes)
     for name in ("qconv1x1", "qconv1x1_add", "conv1x1"):
