@@ -55,6 +55,28 @@ after (the launches of the kernel checks above do not count):
   (``CONT_TOL``); a 2-layer variant on the card against the port's CPU
   path (``CPU_TOL``).
 
+``run``, ``serve`` and the decode step run as CUDA graphs (the compiled
+forms ``CompiledExecutor.fn``/``batched_fn`` and ``ServingEngine``'s
+``DecodeStep``); each is captured before its path's counts are zeroed,
+and replays count their launches.  Counters of Python calls (ring windows
+gathered) are read on the eager ``execute``.  ``phase graphs`` holds the
+compiled forms against the eager program in the same process:
+
+* each of the eight CNN deployments above: graphed outputs equal to
+  ``execute``'s (int8 bit-exact, f32 within ``F32_TOL``) for two requests
+  in a row through one graph and for a serve of 7 requests at
+  ``micro_batch`` 4 (a ragged last batch); launches per inference through
+  replays equal to eager's; capture ms; run p50 and serve requests/s,
+  eager vs graphed; device busy per run and idle share of each — the
+  profiler must see the port's kernels inside the replays, the graphed
+  busy time within 10 % of eager's;
+* both LLM mixes: served tokens of the captured engine equal to an eager
+  loop of ``Model.decode_step`` driven by the phase; the captured step's
+  logits within ``CONT_TOL`` of the eager step's (teacher-forced); decode
+  ms/step and tokens/s eager vs graphed; the step replayed back to back;
+  capture ms; busy and idle share of a serve of each — K8 seen inside the
+  replays, busy within 10 % of eager's.
+
 It imports only ``repro_torch``, torch and numpy.  Any failed check
 raises (exit code 1); without CUDA, or without the repository around it,
 it exits 2 before printing any result.  The line before the last is
@@ -328,13 +350,29 @@ def shares(by_name, busy, kernels):
         for n in kernels)
 
 
+def run_form(d):
+    """How ``d.run`` runs in this checkout: "graphed" (a replay of the
+    executor's captured ``fn``) or "eager" (a checkout before the compiled
+    forms)."""
+    return "graphed" if hasattr(d.executor, "batched_fn") else "eager"
+
+
+def eager_run(ex, x):
+    """One request through the eager program ``execute`` (what ``run`` did
+    before the compiled forms): fresh arena, inputs, run, outputs."""
+    return ex.outputs_from(ex.execute(ex.make_arena(x)))
+
+
 def path_profile(torch, label, d, seed, wrappers, card):
     """One int8 deployment's run without the checks of
     ``Paths.deployment``: launches per inference, run p50 of 10, device
     busy time, the kernels' and device-to-device copies' shares of it,
-    ring windows gathered."""
+    ring windows gathered (on the eager program: the counter counts
+    Python calls)."""
     from repro_torch.graphs import random_input
     x = random_input(d.graph, seed=seed)
+    d.run(x)            # captures the compiled form, where there is one
+    torch.cuda.synchronize()
     for f in wrappers.values():
         f.launches = 0
     d.run(x)
@@ -347,15 +385,16 @@ def path_profile(torch, label, d, seed, wrappers, card):
         runs.append((time.perf_counter() - t1) * 1e3)
     counts = {}
     busy, _, by_name = device_time(torch, lambda: d.run(x), counts=counts)
-    gathers = ring_gathers(d, lambda: d.run(x))
+    gathers = ring_gathers(d, lambda: eager_run(d.executor, x))
     p50 = statistics.median(runs)
     log(f"path {label}: arena {d.arena_bytes} B, {len(d.schedule)} ops, "
-        f"launches/inference {per_inf}; run p50 {p50:.3f} ms; device busy "
+        f"launches/inference {per_inf}; run ({run_form(d)}) p50 {p50:.3f} "
+        f"ms; device busy "
         f"{busy:.3f} ms/run (profiler), idle share {1 - busy / p50:.3f}; "
         f"kernel shares {shares(by_name, busy, sorted(per_inf))}; copies "
         f"{counts.get(COPY, 0):.0f}/run, {by_name.get(COPY, 0.0):.3f} ms "
         f"({by_name.get(COPY, 0.0) / max(busy, 1e-9):.3f} of busy); ring "
-        f"windows gathered/run {gathers} [{card}]")
+        f"windows gathered/run (eager execute) {gathers} [{card}]")
 
 
 def ring_gathers(d, run):
@@ -1025,6 +1064,7 @@ class Paths:
         t0 = time.perf_counter()
         g = d.graph
         x = self.random_input(g, seed=seed)
+        d.executor.fn.capture()         # before the counts: see graphs()
         self.reset()
         out = d.run(x)
         per_inf = {n: f.launches for n, f in self.wrappers.items()
@@ -1041,7 +1081,7 @@ class Paths:
         counts = {}
         busy, top, by_name = device_time(torch, lambda: d.run(x),
                                          counts=counts)
-        gathers = ring_gathers(d, lambda: d.run(x))
+        gathers = ring_gathers(d, lambda: eager_run(d.executor, x))
         p50 = statistics.median(runs)
         reqs = [self.random_input(g, seed=s) for s in range(8)]
         eng = d.engine(micro_batch=4)
@@ -1058,7 +1098,7 @@ class Paths:
             f"{d.arena_bytes} B, {len(d.schedule)} ops, launches/inference "
             f"{per_inf}, card == cpu plain path "
             f"({'bit-exact' if exact else 'within F32_TOL'}), serve 8 == "
-            f"one-shot; run p50 {p50:.3f} ms, serve "
+            f"one-shot; graphed run p50 {p50:.3f} ms, graphed serve "
             f"{eng.stats.requests_per_s:.2f} req/s (micro_batch 4); "
             f"device busy {busy:.3f} ms/run (profiler), idle share "
             f"{1 - busy / p50:.3f} of p50; top "
@@ -1068,9 +1108,100 @@ class Paths:
             f"{counts.get(COPY, 0):.0f}/run, {by_name.get(COPY, 0.0):.3f} ms "
             f"({by_name.get(COPY, 0.0) / max(busy, 1e-9):.3f} of busy); "
             f"zero-copy reads {d.executor.zero_copy_reads}, ring windows "
-            f"gathered/run {gathers}"
+            f"gathered/run (eager execute) {gathers}"
             f" [{self.card}] ({time.perf_counter() - t0:.2f} s)")
         return per_inf
+
+    def graphs(self, label, d, seed, exact):
+        """``phase graphs``: the deployment's compiled forms (``fn``,
+        ``batched_fn(4)``: CUDA-graph replays) against its eager program
+        (``execute``) in one process: outputs of two requests in a row
+        through one graph and of a ragged serve (7 requests at
+        ``micro_batch`` 4), launches per inference through replays,
+        capture ms, run p50 and serve requests/s eager vs graphed, device
+        busy per run and idle share of each.  The profiler must see the
+        port's kernels inside the replays, the busy time within 10 % of
+        eager's."""
+        np, torch = self.np, self.torch
+        t0 = time.perf_counter()
+        ex, g = d.executor, d.graph
+        xs = [self.random_input(g, seed=seed + s) for s in range(2)]
+        self.reset()
+        eager = [ex.execute(ex.make_arena(xs[0]))]
+        eager_inf = {n: v for n, v in self.read().items() if v}
+        eager.append(ex.execute(ex.make_arena(xs[1])))
+        cap = ex.fn.capture()
+        self.reset()
+        graphed = [ex.fn([xs[0]]).clone()]
+        graph_inf = {n: v for n, v in self.read().items() if v}
+        assert graph_inf == eager_inf, (graph_inf, eager_inf)
+        assert cap.launches == {n: eager_inf.get(n, 0)
+                                for n in cap.launches}, cap.launches
+        graphed.append(ex.fn([xs[1]]).clone())
+        for got, want in zip(graphed, eager):
+            if exact:       # every byte of the arena, not only the outputs
+                assert torch.equal(got, want)
+            want = ex.outputs_from(want)
+            for name, val in ex.outputs_from(got).items():
+                self.same(val, want[name], exact)
+        # serve: 7 requests at micro_batch 4 (a ragged last batch)
+        reqs = [self.random_input(g, seed=seed + 10 + s) for s in range(7)]
+        eng = d.engine(micro_batch=4)
+        eng.serve(reqs)                 # captures batched_fn(4)
+        served = eng.serve(reqs)
+        rps_graphed = eng.stats.requests_per_s
+        assert eng.stats.dispatches == 2 and eng.stats.padded_lanes == 1
+
+        def eager_serve():
+            outs = []
+            for i in range(0, len(reqs), 4):
+                arena = ex.new_arena(4)
+                for lane, r in enumerate(reqs[i:i + 4]):
+                    ex.write_inputs(arena, lane, r)
+                ex.execute(arena)
+                outs += [ex.outputs_from(arena, lane)
+                         for lane in range(len(reqs[i:i + 4]))]
+            return outs
+        eager_serve()
+        t1 = time.perf_counter()
+        eager_served = eager_serve()
+        rps_eager = len(reqs) / (time.perf_counter() - t1)
+        for got, want, r in zip(served, eager_served, reqs):
+            one = eager_run(ex, r)
+            for name in want:
+                self.same(got[name], want[name], exact)
+                self.same(want[name], one[name], exact)
+        # run p50, in turns
+        runs = {"eager": [], "graphed": []}
+        for _ in range(10):
+            for form, run in (("eager", lambda: eager_run(ex, xs[0])),
+                              ("graphed", lambda: ex.run(xs[0]))):
+                t1 = time.perf_counter()
+                run()
+                runs[form].append((time.perf_counter() - t1) * 1e3)
+        p50 = {k: statistics.median(v) for k, v in runs.items()}
+        busy_e, _, _ = device_time(torch, lambda: eager_run(ex, xs[0]))
+        busy_g, _, by_g = device_time(torch, lambda: ex.run(xs[0]))
+        seen = {n: by_g.get(n + "_kernel", 0.0) for n in eager_inf}
+        assert busy_g > 0 and all(v > 0 for v in seen.values()), (
+            "the profiler saw no kernel of the port inside the replays",
+            busy_g, seen, sorted(by_g))
+        assert abs(busy_g - busy_e) <= 0.1 * busy_e, (busy_g, busy_e)
+        log(f"phase graphs {label}: {len(d.schedule)} ops, "
+            f"{sum(eager_inf.values())} kernel launches; graphed == eager "
+            f"({'bit-exact, every arena byte' if exact else 'within F32_TOL'}"
+            f") for two requests in a row and a serve of 7 at micro_batch 4 "
+            f"(2 dispatches, 1 pad lane); launches/inference through replays "
+            f"{graph_inf} == eager; capture {cap.capture_ms:.3f} ms "
+            f"(warm-up {cap.warmup_ms:.3f} ms); run p50 eager "
+            f"{p50['eager']:.3f} ms, graphed {p50['graphed']:.3f} ms; serve "
+            f"eager {rps_eager:.2f} req/s, graphed {rps_graphed:.2f} req/s; "
+            f"device busy/run (profiler) eager {busy_e:.5f} ms, graphed "
+            f"{busy_g:.5f} ms (port kernels inside the replays: "
+            + ", ".join(f"{n} {v:.5f} ms" for n, v in sorted(seen.items()))
+            + f"); idle share eager {1 - busy_e / p50['eager']:.3f}, "
+            f"graphed {1 - busy_g / p50['graphed']:.3f} [{self.card}] "
+            f"({time.perf_counter() - t0:.2f} s)")
 
     def table1(self, d, device):
         """The paper's Table 1 on the card: the int8 SwiftNet cell fits
@@ -1176,18 +1307,23 @@ class AttentionChecks:
     @contextlib.contextmanager
     def record(self):
         """Record every K7/K8 launch configuration of the model while the
-        block runs (the wrappers' counts are untouched)."""
+        block runs eagerly (the wrappers' counts are untouched; a call
+        that a CUDA graph is capturing is not recorded: its lengths exist
+        only at replay)."""
         import repro_torch.kernels as kernels
         fa, dec = kernels.flash_attention, kernels.decode_attention
+        capturing = self.torch.cuda.is_current_stream_capturing
 
         def flash(q, k, v, *, causal=True):
-            self.main_k7.append((tuple(q.shape), tuple(k.shape), q.dtype,
-                                 causal))
+            if not capturing():
+                self.main_k7.append((tuple(q.shape), tuple(k.shape),
+                                     q.dtype, causal))
             return fa(q, k, v, causal=causal)
 
         def decode(q, k_cache, v_cache, lengths):
-            self.main_k8.append((tuple(q.shape), tuple(k_cache.shape),
-                                 q.dtype, lengths.clone()))
+            if not capturing():
+                self.main_k8.append((tuple(q.shape), tuple(k_cache.shape),
+                                     q.dtype, lengths.clone()))
             return dec(q, k_cache, v_cache, lengths)
 
         kernels.flash_attention, kernels.decode_attention = flash, decode
@@ -1453,8 +1589,10 @@ class Llm:
     def serve(self, label, n, prompt, max_new, max_batch, cache_len,
               block_bytes):
         """One traffic mix through ``ServingEngine.serve``: a warm-up
-        request, then the counted run (K7 28x per prefill, K8 28x per
-        decode step), then a profiled run for the device's busy time."""
+        batch (which captures the decode step of ``max_batch`` rows), then
+        the counted run (K7 28x per prefill, K8 28x per replayed decode
+        step), then a profiled run for the device's busy time.  Returns
+        (engine, requests, results, profiler busy ms)."""
         from repro_torch.serving import ServingEngine
         torch, np, L = self.torch, self.np, self.cfg.num_layers
         t0 = time.perf_counter()
@@ -1462,7 +1600,8 @@ class Llm:
                             cache_len=cache_len, device=self.device)
         assert eng.block_bytes == block_bytes, (eng.block_bytes, block_bytes)
         reqs = self._requests(n, prompt, max_new)
-        eng.serve(reqs[:1])                               # warm-up
+        assert n % max_batch == 0      # every batch replays one graph
+        eng.serve(reqs[:max_batch])                       # warm-up
         self.paths.reset()
         with self.attn.record():
             results = eng.serve(reqs)
@@ -1495,7 +1634,7 @@ class Llm:
             f"launches {launches} (K7 {L}/prefill, K8 {L}/decode step); "
             f"per batch prefill_ms/decode_ms "
             + ", ".join(f"{p:.3f}/{d:.3f}" for p, d in per_batch)
-            + f"; decode {1e3 * dec_s / steps:.3f} ms/step, "
+            + f"; graphed decode {1e3 * dec_s / steps:.3f} ms/step, "
             f"{dec_tokens / dec_s:.2f} tokens/s; serve wall {wall_ms:.3f} ms, "
             f"device busy {busy:.3f} ms (profiler), idle share "
             f"{1 - busy / wall_ms:.3f}; top "
@@ -1507,6 +1646,122 @@ class Llm:
             f"{st.kv_static_bytes} B, peak_concurrent {st.peak_concurrent}; "
             f"first tokens {results[0].tokens[:6]} [{self.card}] "
             f"({time.perf_counter() - t0:.2f} s)")
+        return eng, reqs, results, busy, by_name, wall_ms
+
+    def _eager_batch(self, model, batch, cache_len, logits_out=None):
+        """One batch the engine's way with an eager loop of
+        ``Model.decode_step``: (tokens per row, decode ms from the first
+        argmax to the host's read of the tokens)."""
+        torch = self.torch
+        logits, cache = model.prefill(
+            self.params, {"tokens": torch.as_tensor(self._padded(batch),
+                                                    device=self.device)},
+            cache_len=cache_len)
+        torch.cuda.synchronize()
+        max_new = max(r.max_new_tokens for r in batch)
+        t0 = time.perf_counter()
+        tok = torch.argmax(logits, -1)
+        out = [tok]
+        for _ in range(1, max_new):
+            logits, cache = model.decode_step(self.params, cache, tok)
+            if logits_out is not None:
+                logits_out.append(logits)
+            tok = torch.argmax(logits, -1)
+            out.append(tok)
+        host = torch.stack(out, 1).tolist()
+        return host, (time.perf_counter() - t0) * 1e3
+
+    def graphs(self, label, eng, reqs, results, busy_g, by_g, wall_g):
+        """``phase graphs`` of an LLM mix: the engine's captured decode
+        step against an eager loop of ``Model.decode_step`` driven here
+        (the engine has no eager switch): served tokens equal, the
+        captured step's logits within ``CONT_TOL`` of the eager step's
+        (teacher-forced), decode ms/step and tokens/s, device busy and
+        idle share of each, capture ms.  The profiler must see K8 inside
+        the replays, the busy time within 10 % of eager's."""
+        from repro_torch.models import Model
+        torch = self.torch
+        t0 = time.perf_counter()
+        model = Model(self.cfg)
+        mb, cache_len = eng.max_batch, eng.cache_len
+        batches = [reqs[i:i + mb] for i in range(0, len(reqs), mb)]
+        steps = sum(max(r.max_new_tokens for r in b) - 1 for b in batches)
+        tokens = sum(len(b) * (max(r.max_new_tokens for r in b) - 1)
+                     for b in batches)
+        logits = [[] for _ in batches]
+        with self.attn.record():
+            for b, out in zip(batches, logits):
+                self._eager_batch(model, b, cache_len, out)
+        t1 = time.perf_counter()
+        eager = [self._eager_batch(model, b, cache_len) for b in batches]
+        wall_e = (time.perf_counter() - t1) * 1e3
+        served = {r.rid: r.tokens for r in results}
+        for b, (host, _) in zip(batches, eager):
+            for r, row in zip(b, host):
+                assert served[r.rid] == row[:r.max_new_tokens], (
+                    label, r.rid, served[r.rid], row)
+        # the captured step, teacher-forced with the eager tokens
+        err = scale = 0.0
+        for b, want in zip(batches, logits):
+            first, cache = model.prefill(
+                self.params, {"tokens": torch.as_tensor(self._padded(b),
+                                                        device=self.device)},
+                cache_len=cache_len)
+            step = eng.decode_step(len(b))
+            step.load(cache, torch.argmax(first, -1))
+            del cache
+            for i, w in enumerate(want):
+                step()
+                err = max(err, float((step.logits - w).abs().max()))
+                scale = max(scale, float(w.abs().max()))
+                if i + 1 < len(want):
+                    step.tok.copy_(torch.argmax(w, -1))
+        del logits
+        # the captured step alone, replayed back to back
+        step_ms = time_ms(torch, step, iters=20, warmup=2)
+        step_busy, step_top, _ = device_time(torch, step, reps=5)
+        dec_e = sum(ms for _, ms in eager) / 1e3
+        dec_g = sum(results[i].decode_ms
+                    for i in range(0, len(reqs), mb)) / 1e3
+        busy_e, _, _ = device_time(
+            torch, lambda: [self._eager_batch(model, b, cache_len)
+                            for b in batches], reps=1)
+        k8 = "decode_attention_kernel"
+        assert busy_g > 0 and by_g.get(k8, 0) > 0, (
+            "the profiler saw no K8 inside the decode replays", busy_g,
+            sorted(by_g))
+        assert abs(busy_g - busy_e) <= 0.1 * busy_e, (busy_g, busy_e)
+        cap = eng.decode_step(mb).graph
+        log(f"phase graphs llm-{label}: served tokens == eager loop of "
+            f"Model.decode_step (all {len(reqs)} requests); captured step "
+            f"vs eager step max|delta logit| {err:.5f} of max|logit| "
+            f"{scale:.5f} (ratio {err / scale:.5f}, tolerance {CONT_TOL}); "
+            f"decode ms/step eager {1e3 * dec_e / steps:.3f}, graphed "
+            f"{1e3 * dec_g / steps:.3f}; tokens/s eager "
+            f"{tokens / dec_e:.2f}, graphed {tokens / dec_g:.2f}; the step "
+            f"replayed back to back {step_ms:.3f} ms (events), device busy "
+            f"{step_busy:.3f} ms (profiler), top "
+            + ", ".join(f"{nm} {t:.3f} ms" for nm, t in step_top)
+            + f"; capture "
+            f"{cap.capture_ms:.3f} ms (warm-up {cap.warmup_ms:.3f} ms), "
+            f"K8 {cap.launches['decode_attention']} launches/replay; serve "
+            f"device busy (profiler) eager {busy_e:.3f} ms, graphed "
+            f"{busy_g:.3f} ms (K8 inside the replays "
+            f"{by_g.get(k8, 0.0):.3f} ms); idle share eager "
+            f"{1 - busy_e / wall_e:.3f} of {wall_e:.3f} ms, graphed "
+            f"{1 - busy_g / wall_g:.3f} of {wall_g:.3f} ms [{self.card}] "
+            f"({time.perf_counter() - t0:.2f} s)")
+        assert err <= CONT_TOL * scale, (err, scale)
+
+    def _padded(self, batch):
+        """The batch's prompts left-padded with token 0, as the engine
+        pads them."""
+        np = self.np
+        S = max(len(r.prompt) for r in batch)
+        toks = np.zeros((len(batch), S), np.int64)
+        for i, r in enumerate(batch):
+            toks[i, S - len(r.prompt):] = r.prompt
+        return toks
 
     def continuation(self):
         """Decoding token t after a prefill of t-1 tokens gives the logits
@@ -1686,7 +1941,8 @@ def main() -> int:
     # every zero-copy window of the 224 KB cascade is read by K2 or K3 in
     # place: none is gathered
     assert d.executor.zero_copy_reads == ZERO_COPY_224
-    assert ring_gathers(d, lambda: d.run(paths.random_input(d.graph))) == 0
+    assert ring_gathers(d, lambda: eager_run(
+        d.executor, paths.random_input(d.graph))) == 0
     for i, (budget, d, n_pw) in enumerate(f32):
         per_inf = paths.deployment(f"f32 budget={budget}", d, 200 + i,
                                    exact=False)
@@ -1696,6 +1952,13 @@ def main() -> int:
     per_inf = paths.deployment("swiftnet int8", swift_int8, 301, exact=True)
     assert all(per_inf.get(n, 0) > 0
                for n in ("qconv1x1", "qdwconv", "qconv")), per_inf
+    # the compiled forms against the eager program
+    for i, (budget, d) in enumerate(int8):
+        paths.graphs(f"int8 budget={budget}", d, 400 + 20 * i, exact=True)
+    for i, (budget, d, _) in enumerate(f32):
+        paths.graphs(f"f32 budget={budget}", d, 500 + 20 * i, exact=False)
+    paths.graphs("swiftnet f32", swift_f32, 600, exact=False)
+    paths.graphs("swiftnet int8", swift_int8, 620, exact=True)
     paths.table1(swift_int8, device)
     paths.fused_add([swift_int8, int8[0][1]], device)
 
@@ -1711,7 +1974,7 @@ def main() -> int:
     llm = Llm(torch, np, device, paths, attn, card)
     n_k7 = {}
     for mix in LLM_MIXES:
-        llm.serve(*mix)
+        llm.graphs(mix[0], *llm.serve(*mix))
         n_k7[mix[0]] = len(attn.main_k7)
     llm.continuation()
     llm.card_vs_cpu()

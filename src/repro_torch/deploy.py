@@ -141,7 +141,8 @@ class Deployment:
     # ------------------------------------------------------------- running
     def run(self, inputs: Dict[str, Any], as_numpy: bool = True, *,
             validate: bool = True, faults=None) -> Dict[str, Any]:
-        """One request through the arena program.
+        """One request through the arena program's compiled form ``fn``
+        (a CUDA graph on the card, ``execute`` on the CPU).
 
         ``validate=True`` (default) runs ``validate_inputs`` first.
         ``faults`` (a ``serving.FaultPlan`` or ``FaultInjector``; test-only)
@@ -160,7 +161,7 @@ class Deployment:
         inj = FaultInjector(faults) if isinstance(faults, FaultPlan) \
             else faults
         arena, _retried, _trips = dispatch_with_retry(
-            lambda: ex.execute(ex.make_arena(inputs)), faults=inj)
+            lambda: ex.fn([inputs]), faults=inj)
         a = arena[0].cpu().numpy().copy()   # faults touch a host copy only
         if inj.corrupt_lanes(1):
             inj.corrupt_arena(a, ex.guard_regions)
@@ -181,7 +182,8 @@ class Deployment:
 
     def engine(self, *, micro_batch: int = 8, **kw):
         """The single-device micro-batching ``GraphServingEngine`` over
-        this deployment (the replica-sharded engine is not ported yet)."""
+        this deployment, dispatching through ``batched_fn(micro_batch)``
+        (the replica-sharded engine is ROADMAP Queue 1 item 2)."""
         from repro_torch.serving.engine import GraphServingEngine
         return GraphServingEngine(deployment=self, micro_batch=micro_batch,
                                   **kw)

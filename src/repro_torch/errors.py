@@ -68,8 +68,17 @@ class NaNActivationError(ReproError):
     poisoned results must never be returned as answers."""
 
 
+class CaptureError(ReproError):
+    """A compiled form (the arena program's ``fn``/``batched_fn``, the LLM
+    engine's decode step) could not be captured as a CUDA graph or
+    replayed, or holds an operator that runs host code.  The message names
+    the program and the operator or layer that was running.  Nothing runs
+    eagerly in its place."""
+
+
 __all__ = [
     "ReproError", "InputValidationError", "BudgetUnreachableError",
     "DeploymentError", "GuardViolation", "TransientDeviceError",
     "DeviceInitError", "DispatchFailedError", "NaNActivationError",
+    "CaptureError",
 ]

@@ -38,8 +38,8 @@ from repro_torch.core.partition import PEX_ATTR, SliceSpec, same_pads
 from repro_torch.kernels.conv_pointwise.ops import conv1x1_fused
 from repro_torch.kernels.conv_quant.ops import (RingWindow, qconv_fused,
                                                 qdwconv_fused)
-from repro_torch.kernels.conv_quant.ref import (INT8_MAX, INT8_MIN, qadd,
-                                                requantize)
+from repro_torch.kernels.conv_quant.ref import (INT8_MAX, INT8_MIN,
+                                                f32_scalar, qadd, requantize)
 
 
 def _weight(name: str, shape: Tuple[int, ...], scale: float = 0.1):
@@ -344,14 +344,14 @@ def fc(x, w):
 # int8 ops stay bit-identical too.
 def quantize_array(x, scale: float, zp: int):
     """f32 -> int8 at (scale, zp).  Also the semantics of ``quant`` ops."""
-    s = torch.tensor(np.float32(scale), device=x.device)
+    s = f32_scalar(scale, x.device)
     q = torch.round(x.to(torch.float32) / s) + zp
     return torch.clamp(q, INT8_MIN, INT8_MAX).to(torch.int8)
 
 
 def dequantize_array(q, scale: float, zp: int):
     """int8 -> f32; the semantics of ``dequant`` ops."""
-    s = torch.tensor(np.float32(scale), device=q.device)
+    s = f32_scalar(scale, q.device)
     return (q.to(torch.float32) - zp) * s
 
 
@@ -403,7 +403,7 @@ def qconcat(*xs, mults: Sequence[float], zps: Sequence[int], zp_out: int):
     """Channel concat with per-input requantization to the output params."""
     parts = []
     for x, m, zp in zip(xs, mults, zps):
-        mt = torch.tensor(np.float32(m), device=x.device)
+        mt = f32_scalar(m, x.device)
         y = torch.round((x.to(torch.float32) - zp) * mt) + zp_out
         parts.append(torch.clamp(y, INT8_MIN, INT8_MAX).to(torch.int8))
     return torch.cat(parts, dim=-1)

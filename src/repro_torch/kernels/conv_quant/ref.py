@@ -29,6 +29,7 @@ it, so that the plain K4/K5 and the graph op are one function).
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -38,13 +39,23 @@ import torch.nn.functional as F
 INT8_MIN, INT8_MAX = -128, 127
 
 
+@functools.lru_cache(maxsize=None)
+def f32_scalar(value: float, device: torch.device) -> torch.Tensor:
+    """``np.float32(value)`` as a 0-dim float32 tensor on ``device``, made
+    once per value: a CUDA graph capture may not copy from the host, so
+    the arena program's first (eager) run makes the scalars it replays.
+    Read only."""
+    return torch.tensor(np.float32(value), dtype=torch.float32,
+                        device=device)
+
+
 def requantize(acc: torch.Tensor, mult: float, zp_out: int,
                lo: int = INT8_MIN) -> torch.Tensor:
     """int32 accumulator -> int8 at the output (scale, zero_point).  ``lo``
     is the lower clamp: ``zp_out`` for fused relu (real 0), -128 otherwise.
     ``mult`` is applied as ``np.float32(mult)`` in a float32 tensor, never
     as a Python float, so the product is the reference's float32 one."""
-    m = torch.tensor(np.float32(mult), dtype=torch.float32, device=acc.device)
+    m = f32_scalar(mult, acc.device)
     y = torch.round(acc.to(torch.float32) * m) + zp_out
     return torch.clamp(y, lo, INT8_MAX).to(torch.int8)
 
@@ -180,7 +191,8 @@ def qconv_add_ring_ref(ring: torch.Tensor, w: torch.Tensor, r: torch.Tensor,
     return qconv_add_ref(ring_window(ring, src, n), w, r, **kw)
 
 
-__all__ = ["requantize", "qconv1x1_ref", "qconv_ref", "qdwconv_ref",
-           "qadd", "qadd_multipliers", "qconv1x1_add_ref", "qconv_add_ref",
-           "QADD_SHIFT", "INT8_MIN", "INT8_MAX", "ring_window",
-           "qconv_ring_ref", "qdwconv_ring_ref", "qconv_add_ring_ref"]
+__all__ = ["f32_scalar", "requantize", "qconv1x1_ref", "qconv_ref",
+           "qdwconv_ref", "qadd", "qadd_multipliers", "qconv1x1_add_ref",
+           "qconv_add_ref", "QADD_SHIFT", "INT8_MIN", "INT8_MAX",
+           "ring_window", "qconv_ring_ref", "qdwconv_ring_ref",
+           "qconv_add_ring_ref"]

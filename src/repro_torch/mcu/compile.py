@@ -39,11 +39,24 @@ buffer, the byte-addressed SRAM arena of TFLite-Micro:
   loop over its iterations with offsets as Python ints, and has no speed
   meaning.
 
+``execute`` is the eager program, the counterpart of the reference's
+``raw_fn``: one Python call per operator, and what the CPU runs.  ``fn``
+and ``batched_fn(lanes)`` are its compiled forms, the reference's
+``jit(raw_fn)`` and ``jit(vmap(raw_fn))``: on the card, the whole program
+over a static ``[lanes, pitch]`` arena that the executor owns, captured as
+one CUDA graph at first call (``repro_torch.cuda_graphs``) and cached per
+lane count.  A dispatch zeroes that arena, writes the requests' inputs,
+replays the graph and returns the arena; on the CPU it runs ``execute``
+on it.  Rolled loops, ring windows and the ``pending`` hand-offs are
+Python-side, so they unroll into the graph.  An operator that runs its
+``op.fn`` (host code) cannot be captured: ``fn``/``batched_fn`` refuse
+such a program on the card with ``CaptureError``.
+
 What the reference needed only for XLA is gone: the optimization barriers
 between operators (eager PyTorch already materialises each output), the
-``fuse`` and ``donate`` options, ``jit``/``vmap``, and the ``pmap``
-replication (a later slice).  Integer outputs are bit-identical to the
-reference's; float outputs agree within accumulation tolerance.
+``fuse`` and ``donate`` options, and the ``pmap`` replication (a later
+slice).  Integer outputs are bit-identical to the reference's; float
+outputs agree within accumulation tolerance.
 """
 from __future__ import annotations
 
@@ -55,8 +68,9 @@ import torch
 
 from repro_torch.core.allocator import ArenaPlan, ArenaPlanner
 from repro_torch.core.graph import Graph, Operator
+from repro_torch.cuda_graphs import CapturedGraph, capture
 from repro_torch.device import resolve_device
-from repro_torch.errors import GuardViolation
+from repro_torch.errors import CaptureError, GuardViolation
 from repro_torch.kernels.conv_quant.ops import RingWindow, ring_spans
 
 # Graph dtype name -> torch dtype of the typed arena views.
@@ -377,8 +391,9 @@ class CompiledExecutor:
     ``new_arena(lanes)`` makes a zeroed ``[lanes, pitch]`` arena on
     ``device``, ``write_inputs`` fills one lane, ``execute`` runs the
     program on every lane in place (one kernel launch per op for all
-    lanes), ``outputs_from`` reads one lane's outputs.  ``run`` is the
-    one-request composition of the four.
+    lanes), ``outputs_from`` reads one lane's outputs.  ``fn`` and
+    ``batched_fn(lanes)`` are the compiled forms (``ArenaProgram``);
+    ``run`` is one request through ``fn``.
     """
 
     graph: Graph
@@ -401,6 +416,9 @@ class CompiledExecutor:
         default_factory=list, repr=False, compare=False)
     _zc: frozenset = dataclasses.field(
         default=frozenset(), repr=False, compare=False)
+    # the compiled forms, per lane count (the reference's ``_fn_cache``)
+    _fn_cache: Dict[int, "ArenaProgram"] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     # ------------------------------------------------------------ arenas
     def new_arena(self, lanes: int = 1) -> torch.Tensor:
@@ -459,15 +477,20 @@ class CompiledExecutor:
     # --------------------------------------------------------- execution
     def _step(self, arena: torch.Tensor, op: Operator,
               pending: Dict[str, torch.Tensor]) -> None:
-        args = [pending.pop(i) if i in pending else self._view(arena, i)
-                for i in op.inputs]
-        if op.output in self._zc:   # zero-copy: straight to the consumer
-            pending[op.output] = lower_op(self._ctx, op, *args, out=None)
-            return
-        out = self._view(arena, op.output)
-        val = lower_op(self._ctx, op, *args, out=out)
-        if val is not out:
-            _store(op.output, val, out)
+        try:
+            args = [pending.pop(i) if i in pending
+                    else self._view(arena, i) for i in op.inputs]
+            if op.output in self._zc:   # zero-copy: straight to the consumer
+                pending[op.output] = lower_op(self._ctx, op, *args,
+                                              out=None)
+                return
+            out = self._view(arena, op.output)
+            val = lower_op(self._ctx, op, *args, out=out)
+            if val is not out:
+                _store(op.output, val, out)
+        except Exception as e:
+            e.add_note(f"operator {op.name!r} (kind {op.kind!r})")
+            raise
 
     def execute(self, arena: torch.Tensor) -> torch.Tensor:
         """Run the program in place on every lane of ``arena``."""
@@ -490,15 +513,17 @@ class CompiledExecutor:
     # ----------------------------------------------------------- results
     def outputs_from(self, arena, lane: int = 0,
                      as_numpy: bool = True) -> Dict[str, Any]:
-        """One lane's graph outputs (``arena``: a ``[lanes, pitch]`` or
-        ``[pitch]`` tensor or numpy array)."""
+        """One lane's graph outputs, copied out of ``arena`` (a ``[lanes,
+        pitch]`` or ``[pitch]`` tensor or numpy array; the compiled forms
+        overwrite theirs at the next dispatch)."""
         arena = torch.as_tensor(arena)
         if arena.dim() == 1:
             arena = arena[None]
         out: Dict[str, Any] = {}
         for o in self.graph.outputs:
             val = self._view(arena[lane:lane + 1], o)[0]
-            out[o] = val.cpu().numpy() if as_numpy else val.clone()
+            out[o] = (val.to("cpu", copy=True).numpy() if as_numpy
+                      else val.clone())
         return out
 
     def verify_guards(self, arena) -> None:
@@ -523,9 +548,82 @@ class CompiledExecutor:
 
     def run(self, inputs: Dict[str, Any], as_numpy: bool = True
             ) -> Dict[str, Any]:
-        arena = self.execute(self.make_arena(inputs))
+        """One request through ``fn``."""
+        arena = self.fn([inputs])
         self.verify_guards(arena)
         return self.outputs_from(arena, 0, as_numpy)
+
+    # ---------------------------------------------------- compiled forms
+    def check_capturable(self) -> None:
+        """Raise ``CaptureError`` naming the first operator that runs its
+        ``op.fn`` (host code a CUDA graph cannot hold)."""
+        for op in self.schedule:
+            if op.kind not in _RULES:
+                raise CaptureError(
+                    f"operator {op.name!r} (kind {op.kind!r}) has no "
+                    f"lowering rule and runs its op.fn on the host; a CUDA "
+                    f"graph cannot hold it (execute runs such a program)")
+
+    def batched_fn(self, lanes: int) -> "ArenaProgram":
+        """The program over a static ``[lanes, pitch]`` arena, as one CUDA
+        graph on the card (captured at its first call), cached per lane
+        count."""
+        prog = self._fn_cache.get(lanes)
+        if prog is None:
+            if lanes < 1:
+                raise ValueError(f"lanes must be >= 1, got {lanes}")
+            if self.device.type == "cuda":
+                self.check_capturable()
+            prog = self._fn_cache[lanes] = ArenaProgram(self, lanes)
+        return prog
+
+    @property
+    def fn(self) -> "ArenaProgram":
+        """The one-lane program (``batched_fn(1)``): what ``run`` and
+        ``Deployment.run`` dispatch."""
+        return self.batched_fn(1)
+
+
+class ArenaProgram:
+    """``batched_fn(lanes)``: the arena program over ``arena``, a static
+    ``[lanes, pitch]`` arena.  Calling it with up to ``lanes`` requests'
+    input dicts zeroes the arena, writes one request per lane (the rest
+    stay all zero: pad lanes), runs the program and returns the arena,
+    which the next call overwrites.  On the card the run is a replay of
+    ``graph``, captured at the first call; on the CPU, ``execute``."""
+
+    def __init__(self, executor: CompiledExecutor, lanes: int) -> None:
+        self.executor = executor
+        self.lanes = lanes
+        self.arena = executor.new_arena(lanes)
+        self.graph: Optional[CapturedGraph] = None
+
+    def capture(self) -> CapturedGraph:
+        """Capture the program on the card, once."""
+        if self.graph is None:
+            ex, arena = self.executor, self.arena
+            self.graph = capture(
+                lambda: ex.execute(arena), ex.device,
+                what=f"the arena program ({self.lanes} lanes, "
+                     f"{ex.steps} ops)")
+        return self.graph
+
+    def __call__(self, requests: Sequence[Dict[str, Any]]) -> torch.Tensor:
+        if len(requests) > self.lanes:
+            raise ValueError(f"{len(requests)} requests for {self.lanes} "
+                             f"lanes")
+        ex, arena = self.executor, self.arena
+        on_card = ex.device.type == "cuda"
+        if on_card:
+            self.capture()
+        arena.zero_()
+        for lane, inputs in enumerate(requests):
+            ex.write_inputs(arena, lane, inputs)
+        if on_card:
+            self.graph.replay()
+        else:
+            ex.execute(arena)
+        return arena
 
 
 def compile_schedule(graph: Graph,
@@ -577,5 +675,6 @@ def compile_schedule(graph: Graph,
         _ctx=ctx, _items=items, _zc=zc)
 
 
-__all__ = ["CANARY_BYTE", "CompiledExecutor", "LoweringCtx", "TORCH_DTYPES",
-           "compile_schedule", "lower_op", "register_lowering"]
+__all__ = ["ArenaProgram", "CANARY_BYTE", "CompiledExecutor", "LoweringCtx",
+           "TORCH_DTYPES", "compile_schedule", "lower_op",
+           "register_lowering"]

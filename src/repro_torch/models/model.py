@@ -20,12 +20,13 @@ and the VLM, and a sliding window on the card (the CPU path has it).  The
 mesh and sharding code and ``loss_fn`` come with training and sharded
 serving.
 
-Two departures from the reference, both about where state lives: the
-decode step writes the new token's K/V into the cache tensors in place
-(a copy per step would move the whole cache, 235 MB per request for
-Llama-3.2-3B at 2048 positions), and the cache's bookkeeping, ``pos`` and
-``kv_pos``, stays on the host, so that the decode loop never waits on the
-card to learn where it is.
+One departure from the reference: the decode step updates its cache in
+place — the new token's K/V, ``kv_pos`` and ``pos`` — where the reference
+returns a new one (a copy per step would move the whole cache, 235 MB per
+request for Llama-3.2-3B at 2048 positions).  ``pos`` and ``kv_pos`` lie
+on the cache's device, and the step derives its cache slot, valid lengths
+and RoPE angles from ``pos`` there: it makes no host read, so one
+captured step can be replayed (``serving.ServingEngine``).
 """
 from __future__ import annotations
 
@@ -154,20 +155,20 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
                device=None) -> Params:
-    """Zeroed decode cache (``model.py:713-750``, the uniform part):
-    ``k``/``v`` [L, B, Sc, K, hd] on ``device`` (None: the card), and the
-    host-side ``pos`` (int32 scalar) and ``kv_pos`` ([Sc] int32, -1 =
-    empty).  ``Sc`` is ``cache_len``, or the sliding window if smaller."""
+    """Zeroed decode cache (``model.py:713-750``, the uniform part), all on
+    ``device`` (None: the card): ``k``/``v`` [L, B, Sc, K, hd], ``pos``
+    (int32 scalar) and ``kv_pos`` ([Sc] int32, -1 = empty).  ``Sc`` is
+    ``cache_len``, or the sliding window if smaller."""
     check_config(cfg)
     dev = _device(device)
     Sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
         else cache_len
     shape = (cfg.num_layers, batch_size, Sc, cfg.num_kv_heads,
              cfg.head_dim_)
-    return {"pos": torch.zeros((), dtype=torch.int32),
+    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
             "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
             "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-            "kv_pos": torch.full((Sc,), -1, dtype=torch.int32)}
+            "kv_pos": torch.full((Sc,), -1, dtype=torch.int32, device=dev)}
 
 
 def decode_lengths(pos: int, cache_slots: int) -> int:
@@ -175,7 +176,8 @@ def decode_lengths(pos: int, cache_slots: int) -> int:
     sliding window: slots ``0 .. min(pos, Sc-1)`` hold positions ``<= pos``
     (the prompt from slot 0, then one slot per step, the last slot
     overwritten once the cache is full), which is exactly the reference's
-    mask ``(kv_pos >= 0) & (kv_pos <= pos)`` (``model.py:1043-1049``)."""
+    mask ``(kv_pos >= 0) & (kv_pos <= pos)`` (``model.py:1043-1049``).
+    ``decode_step`` computes the same on the device from a tensor ``pos``."""
     return min(pos + 1, cache_slots)
 
 
@@ -233,20 +235,22 @@ def attn_mixer_seq(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def attn_mixer_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                    k_cache: torch.Tensor, v_cache: torch.Tensor, slot: int,
+                    k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    slot: torch.Tensor,
                     rope: Tuple[torch.Tensor, torch.Tensor], *,
                     lengths: Optional[torch.Tensor] = None,
                     length_mask: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Single-token decode block: x [B,1,d]; caches [B,Sc,K,hd], into whose
-    ``slot`` this token's K/V are written in place.  On the card K8 attends
-    over the first ``lengths[b]`` slots; on the CPU the plain path over
-    ``length_mask`` [B,Sc].  Returns the new x."""
+    slot ``slot`` (a [1] int64 tensor on their device) this token's K/V are
+    written in place.  On the card K8 attends over the first ``lengths[b]``
+    slots; on the CPU the plain path over ``length_mask`` [B,Sc].  Returns
+    the new x."""
     h = rms_norm(x, p["ln1"])
     q, k, v = _proj_qkv(cfg, p, h)
     q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
     if _on_card(cfg, x):
         out = kernels.decode_attention(q[:, 0], k_cache, v_cache,
                                        lengths)[:, None]
@@ -296,47 +300,52 @@ class Model:
                                        rope, want_kv=True)
             k_all[i, :, :keep] = k[:, S - keep:]
             v_all[i, :, :keep] = v[:, S - keep:]
-        kv_pos = torch.full((Sc,), -1, dtype=torch.int32)
-        kv_pos[:keep] = torch.arange(S - keep, S, dtype=torch.int32)
-        cache = {"pos": torch.tensor(S, dtype=torch.int32), "k": k_all,
-                 "v": v_all, "kv_pos": kv_pos}
+        kv_pos = torch.full((Sc,), -1, dtype=torch.int32, device=x.device)
+        kv_pos[:keep] = torch.arange(S - keep, S, dtype=torch.int32,
+                                     device=x.device)
+        cache = {"pos": torch.full((), S, dtype=torch.int32,
+                                   device=x.device),
+                 "k": k_all, "v": v_all, "kv_pos": kv_pos}
         return self._logits(params, x[:, -1]), cache
 
     def decode_step(self, params: Params, cache: Params,
                     tokens: torch.Tensor):
         """One token for every sequence of the batch: tokens [B] ->
-        (logits [B,vocab] float32, cache).  Writes this token's K/V into
-        ``cache["k"]``/``cache["v"]`` in place; the returned dict shares
-        them and holds the advanced ``pos``/``kv_pos``."""
+        (logits [B,vocab] float32, cache).  Updates ``cache`` in place —
+        this token's K/V, ``kv_pos`` and ``pos`` — and returns it.  Every
+        index comes from ``cache["pos"]`` on its device (the reference's
+        ``model.py:1037-1052``): no host read, so a captured step
+        replays."""
         cfg = self.cfg
         embed = params["embed"]
         tokens = torch.as_tensor(tokens, device=embed.device)
         x = F.embedding(tokens[:, None], embed)
         B = x.shape[0]
-        pos = int(cache["pos"])
+        pos, kv_pos = cache["pos"], cache["kv_pos"]
         Sc = cache["k"].shape[2]
-        slot = pos % Sc if cfg.sliding_window else min(pos, Sc - 1)
-        kv_pos = cache["kv_pos"].clone()
-        kv_pos[slot] = pos
+        slot = (pos % Sc if cfg.sliding_window
+                else pos.clamp(max=Sc - 1)).reshape(1).long()
+        kv_pos.index_copy_(0, slot, pos.reshape(1))
         lengths = mask = None
         if _on_card(cfg, x):
-            lengths = torch.full((B,), decode_lengths(pos, Sc),
-                                 dtype=torch.int32, device=x.device)
+            # decode_lengths(pos, Sc) for every row
+            lengths = (pos + 1).clamp(max=Sc).expand(B).contiguous()
         else:
             mask1 = (kv_pos >= 0) & (kv_pos <= pos)
             if cfg.sliding_window:
                 mask1 &= kv_pos > pos - cfg.sliding_window
-            mask = mask1[None].expand(B, Sc).to(x.device)
-        rope = rope_angles(torch.full((1,), pos, device=x.device),
-                           cfg.head_dim_, cfg.rope_theta)
+            mask = mask1[None].expand(B, Sc)
+        rope = rope_angles(pos[None], cfg.head_dim_, cfg.rope_theta)
         for i in range(cfg.num_layers):
-            x = attn_mixer_step(cfg, _layer(params["blocks"], i), x,
-                                cache["k"][i], cache["v"][i], slot, rope,
-                                lengths=lengths, length_mask=mask)
-        new_cache = dict(cache)
-        new_cache["kv_pos"] = kv_pos
-        new_cache["pos"] = torch.tensor(pos + 1, dtype=torch.int32)
-        return self._logits(params, x[:, 0]), new_cache
+            try:
+                x = attn_mixer_step(cfg, _layer(params["blocks"], i), x,
+                                    cache["k"][i], cache["v"][i], slot,
+                                    rope, lengths=lengths, length_mask=mask)
+            except Exception as e:
+                e.add_note(f"decode layer {i}")
+                raise
+        pos.add_(1)
+        return self._logits(params, x[:, 0]), cache
 
 
 __all__ = ["Model", "UnsupportedConfigError", "attn_mixer_seq",

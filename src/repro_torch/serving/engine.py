@@ -2,13 +2,14 @@
 prefill + greedy decode.
 
 ``GraphServingEngine`` runs requests through a ``repro_torch.deploy.
-Deployment`` in **micro-batches**: each batch is one ``[micro_batch,
-arena]`` uint8 arena, one lane per request, and one execution of the
-arena program over all lanes — one kernel launch per operator for the
-whole batch.  A ragged final batch keeps its unused lanes all zero: pad
-lanes are executed (every dispatch has the same geometry) but are
-**accounted separately** (``stats.padded_lanes``) and never read back —
-they are not requests, and per-request stats never count them.
+Deployment`` in **micro-batches**: each batch is one dispatch of the
+executor's ``batched_fn(micro_batch)`` — its static ``[micro_batch,
+arena]`` uint8 arena zeroed and written with one request per lane, then
+one run of the arena program over all lanes (a CUDA-graph replay on the
+card).  A ragged final batch keeps its unused lanes all zero: pad lanes
+are executed (every dispatch has the same geometry) but are **accounted
+separately** (``stats.padded_lanes``) and never read back — they are not
+requests, and per-request stats never count them.
 
 ``ServingEngine`` runs prefill + greedy decode over batches of LLM
 requests (the reference's ``serving/engine.py:170-270``), on the card
@@ -16,9 +17,14 @@ unless ``device="cpu"``: prompts of a batch are left-padded with token 0
 to the longest, and each admitted request owns a KV block of
 ``kv_block_bytes`` in an arena kept by the paper's §4 dynamic allocator
 (first-fit + defragment, the L2 level of DESIGN.md §2), so the arena
-statistics come out equal to the reference's.  The reference's L1 level,
-``analyse_decode_schedule`` (a jaxpr reorder of the decode step), comes
-with the ``torch.fx`` front end (ROADMAP Queue 1 item 6).
+statistics come out equal to the reference's.  Prefill runs eagerly.
+The decode step (embedding through ``argmax``) is the counterpart of the
+reference's ``jax.jit``: a ``DecodeStep`` over static buffers, one per
+batch size, captured as a CUDA graph on the card and run eagerly on the
+CPU; each step's tokens stay on the device until the batch ends.  The
+reference's L1 level, ``analyse_decode_schedule`` (a jaxpr reorder of the
+decode step), comes with the ``torch.fx`` front end (ROADMAP Queue 1
+item 6).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.allocator import DynamicAllocator
 from repro_torch.core.graph import Graph
+from repro_torch.cuda_graphs import CapturedGraph, capture
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model, init_cache
 from repro_torch.serving.faults import (FaultInjector, FaultPlan,
@@ -79,11 +86,9 @@ class GraphServingEngine:
             replicas=1, lanes=micro_batch)
 
     def _dispatch(self, chunk: Sequence[Dict[str, Any]]):
-        ex = self.executor
-        arena = ex.new_arena(self.micro_batch)   # lanes >= len(chunk): pads
-        for lane, inputs in enumerate(chunk):
-            ex.write_inputs(arena, lane, inputs)
-        return ex.execute(arena)
+        # the static arena of batched_fn(micro_batch), zeroed and written
+        # with the chunk (lanes >= len(chunk): pads), then replayed
+        return self.executor.batched_fn(self.micro_batch)(chunk)
 
     def serve(self, requests: Sequence[Dict[str, Any]]
               ) -> List[Dict[str, Any]]:
@@ -149,6 +154,53 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class DecodeStep:
+    """One greedy decode step over static buffers: ``tok`` [B] (this
+    step's tokens, overwritten with the next ones) and ``cache``, a decode
+    cache of ``cache_len`` slots (``k``/``v`` [L, B, Sc, K, hd],
+    ``kv_pos``, ``pos``), updated in place.  ``logits`` holds the last
+    step's.  On the card the step is a CUDA graph, captured by
+    ``capture()``; on the CPU it runs eagerly."""
+
+    def __init__(self, model: Model, params, batch: int, cache_len: int,
+                 device: torch.device) -> None:
+        self.model, self.params, self.device = model, params, device
+        self.cache = init_cache(model.cfg, batch, cache_len, device=device)
+        self.tok = torch.zeros((batch,), dtype=torch.int64, device=device)
+        self.logits: Optional[torch.Tensor] = None
+        self.graph: Optional[CapturedGraph] = None
+
+    def _run(self) -> torch.Tensor:
+        logits, _ = self.model.decode_step(self.params, self.cache,
+                                           self.tok)
+        self.tok.copy_(torch.argmax(logits, -1))
+        return logits
+
+    def capture(self) -> CapturedGraph:
+        """Capture the step on the card, once (its warm-up runs scribble
+        on the buffers: ``load`` them afterwards)."""
+        if self.graph is None:
+            B = self.tok.shape[0]
+            self.graph = capture(
+                self._run, self.device,
+                what=f"the decode step (B {B}, cache_len "
+                     f"{self.cache['k'].shape[2]})")
+            self.logits = self.graph.output
+        return self.graph
+
+    def load(self, cache, tok: torch.Tensor) -> None:
+        """Copy a prefill's cache and the first tokens into the buffers."""
+        for name, buf in self.cache.items():
+            buf.copy_(cache[name])
+        self.tok.copy_(tok)
+
+    def __call__(self) -> None:
+        if self.device.type == "cuda":
+            self.capture().replay()
+        else:
+            self.logits = self._run()
+
+
 class ServingEngine:
     """Batch-mode LLM serving: prefill + greedy decode of up to
     ``max_batch`` requests at a time, with a KV block per admitted request
@@ -171,6 +223,19 @@ class ServingEngine:
         self.block_bytes = kv_block_bytes(cfg, cache_len)
         self.arena = DynamicAllocator(capacity=hbm_budget)
         self.stats = EngineStats(lanes=max_batch)
+        self._steps: Dict[int, DecodeStep] = {}
+
+    def decode_step(self, batch: int) -> DecodeStep:
+        """The engine's ``DecodeStep`` for ``batch`` sequences, made (and on
+        the card captured) at first use."""
+        step = self._steps.get(batch)
+        if step is None:
+            step = DecodeStep(self.model, self.params, batch,
+                              self.cache_len, self.device)
+            if self.device.type == "cuda":
+                step.capture()
+            self._steps[batch] = step
+        return step
 
     def serve(self, requests: Sequence[Request]) -> List[RequestResult]:
         """Batch-mode serving: admit up to max_batch requests at a time.
@@ -218,23 +283,22 @@ class ServingEngine:
         t_pre = (time.perf_counter() - t0) * 1e3
 
         max_new = max(r.max_new_tokens for r in batch)
-        out: List[List[int]] = [[] for _ in batch]
+        step = self.decode_step(B)
         t0 = time.perf_counter()
-        tok = torch.argmax(logits, -1)
-        for step in range(max_new):
-            host = tok.tolist()
-            for i, r in enumerate(batch):
-                if step < r.max_new_tokens:
-                    out[i].append(int(host[i]))
-            if step == max_new - 1:
-                break
-            logits, cache = self.model.decode_step(self.params, cache, tok)
-            tok = torch.argmax(logits, -1)
-        _synchronize(self.device)
+        # the prefill's cache is copied into the step's static buffers
+        step.load(cache, torch.argmax(logits, -1))
+        del cache
+        tokens = torch.empty((max_new, B), dtype=torch.int64,
+                             device=self.device)
+        tokens[0] = step.tok
+        for i in range(1, max_new):
+            step()
+            tokens[i] = step.tok
+        host = tokens.t().tolist()      # the batch's one read of tokens
         t_dec = (time.perf_counter() - t0) * 1e3
-        return [RequestResult(r.rid, out[i], t_pre, t_dec)
-                for i, r in enumerate(batch)]
+        return [RequestResult(r.rid, host[i][:r.max_new_tokens], t_pre,
+                              t_dec) for i, r in enumerate(batch)]
 
 
-__all__ = ["GraphServingEngine", "Request", "RequestResult", "ServingEngine",
-           "kv_block_bytes"]
+__all__ = ["DecodeStep", "GraphServingEngine", "Request", "RequestResult",
+           "ServingEngine", "kv_block_bytes"]

@@ -75,7 +75,9 @@ def test_prefill_and_decode_match_the_reference(twins, cache_len):
     """Prefill logits and cache, then five teacher-forced decode steps:
     with cache_len 22 the cache fills after two steps and its last slot is
     overwritten (pos >= Sc); with 16 the 20-token prompt keeps only its
-    last 16 positions."""
+    last 16 positions.  ``pos`` is an int32 tensor beside the cache, and
+    every step updates the one cache in place (what a captured step
+    replays)."""
     cfg, params, jcfg, jparams = twins
     jmodel, model = JaxModel(jcfg), Model(cfg)
     toks = _prompt(2, 20)
@@ -90,6 +92,9 @@ def test_prefill_and_decode_match_the_reference(twins, cache_len):
         _close(cache[name].numpy(), jcache[name])
     np.testing.assert_array_equal(cache["kv_pos"].numpy(), jcache["kv_pos"])
     assert int(cache["pos"]) == int(jcache["pos"]) == 20
+    assert cache["pos"].dtype == torch.int32 and cache["pos"].dim() == 0
+    assert cache["pos"].device == cache["kv_pos"].device == cache["k"].device
+    ptrs = {n: t.data_ptr() for n, t in cache.items()}
     step = jax.jit(jmodel.decode_step)
     rng = np.random.default_rng(1)
     for _ in range(5):
@@ -99,7 +104,9 @@ def test_prefill_and_decode_match_the_reference(twins, cache_len):
             np.arange(Sc) < decode_lengths(pos, Sc), _jax_mask(jcache))
         tok = rng.integers(0, 512, 2).astype(np.int32)
         jlog, jcache = step(jparams, jcache, jnp.asarray(tok))
-        log, cache = model.decode_step(params, cache, torch.as_tensor(tok))
+        log, out = model.decode_step(params, cache, torch.as_tensor(tok))
+        assert out is cache
+        assert {n: t.data_ptr() for n, t in cache.items()} == ptrs
         _close(log.numpy(), jlog)
         np.testing.assert_array_equal(cache["kv_pos"].numpy(),
                                       jcache["kv_pos"])
@@ -185,15 +192,26 @@ def _jax_reqs(n, seed=0):
             for i in range(n)]
 
 
-def test_serving_engine_matches_the_reference(twins):
+def test_serving_engine_matches_the_reference(twins, monkeypatch):
     """tests/test_serving.py's traffic (5 requests, max_batch 2, cache_len
-    48): the same greedy tokens and the same KV-arena statistics."""
+    48): the same greedy tokens and the same KV-arena statistics.  The
+    engine reads its tokens from the device once per batch."""
     cfg, params, jcfg, jparams = twins
     jeng = JaxServingEngine(jcfg, jparams, max_batch=2, cache_len=48)
     jres = jeng.serve(_jax_reqs(5))
     eng = ServingEngine(cfg, params, max_batch=2, cache_len=48, device="cpu")
+    reads = []
+    tolist = torch.Tensor.tolist
+
+    def counted(t):
+        reads.append(tuple(t.shape))
+        return tolist(t)
+    monkeypatch.setattr(torch.Tensor, "tolist", counted)
     res = eng.serve([Request(r.rid, r.prompt, r.max_new_tokens)
                      for r in _jax_reqs(5)])
+    monkeypatch.undo()
+    assert reads == [(2, 6), (2, 6), (1, 6)]   # [B, max_new] per batch
+    assert sorted(eng._steps) == [1, 2]        # one decode step per B
     assert [r.rid for r in res] == [r.rid for r in jres]
     assert [r.tokens for r in res] == [r.tokens for r in jres]
     assert eng.block_bytes == jeng.block_bytes
