@@ -77,6 +77,29 @@ compiled forms against the eager program in the same process:
   capture ms; busy and idle share of a serve of each — K8 seen inside the
   replays, busy within 10 % of eager's.
 
+``phase sharded`` drives ``ShardedServingEngine(d, replicas=None,
+lanes=4)`` (one replica per card: ``batched_fn(4)`` replayed on each)
+over the three int8 deployments and the f32 one at no budget: 11
+requests submitted up front, then the same 11 as late arrivals between
+``step``s with mixed priorities; every output equal to ``Deployment.run``
+of that request alone (int8 bit-exact, f32 within ``F32_TOL``), launches
+per dispatch through the replays equal to the eager program's over 4
+lanes; dispatches, padded lanes, requests/s and p50/p99 latency in turns
+with ``GraphServingEngine``'s graphed serve at ``micro_batch`` 4; the
+degradation path (a ``FaultPlan`` failing ``engine_init``: a note in
+``stats.degraded``, the same outputs); ``replicas=2`` clipped to the
+device count; one seeded chaos plan (``CHAOS_SEED``) with every request
+a result or a typed ``RequestError`` and the counters balancing the
+fault ledger.  ``phase fx`` runs the reference tests' branchy program and
+MLP at the tests' sizes and at ``FX_ROWS`` rows on CUDA tensors through
+``core.fx_reorder.reorder`` (bit-exact against eager torch) and
+``reorder_graph_module(partition_budget=...)`` (a ``+pex`` program
+within the float32 accumulation bound of its row-sliced mms,
+``fx_pex_bound``; the count outside the reference test's ``FX_MM_TOL``
+is printed), each report's peaks equal to ``peak_liveness`` of the
+emitted module, with the host seconds of trace and schedule; tracing the
+int8 arena program stops at its first kernel with ``TraceError``.
+
 It imports only ``repro_torch``, torch and numpy.  Any failed check
 raises (exit code 1); without CUDA, or without the repository around it,
 it exits 2 before printing any result.  The line before the last is
@@ -1239,6 +1262,145 @@ class Paths:
             f"launches {launches}; reordered run {rep.wall_time_s:.3f} s "
             f"[{self.card}] ({time.perf_counter() - t0:.2f} s)")
 
+    def sharded(self, label, d, seed, exact):
+        """``phase sharded``: ``ShardedServingEngine(d, replicas=None,
+        lanes=4)`` serves 11 requests submitted up front, then the same
+        11 as late arrivals between ``step``s with mixed priorities; every
+        output equal to ``Deployment.run`` of that request alone, launches
+        per dispatch through the replays equal to the eager program's over
+        a 4-lane arena; requests/s and p50/p99 latency in turns with
+        ``GraphServingEngine``'s graphed serve at ``micro_batch`` 4; the
+        degradation path (a ``FaultPlan`` failing ``engine_init``);
+        ``replicas=2`` clipped to the device count.  Returns the engine's
+        stats of the up-front serve."""
+        from repro_torch.serving import FaultPlan, ShardedServingEngine
+        np, torch = self.np, self.torch
+        t0 = time.perf_counter()
+        ex, g = d.executor, d.graph
+        (name,) = g.outputs
+        reqs = [self.random_input(g, seed=seed + s) for s in range(11)]
+        refs = [d.run(r)[name] for r in reqs]
+        self.reset()
+        ex.execute(ex.new_arena(4))
+        eager = {n: v for n, v in self.read().items() if v}
+        eng = ShardedServingEngine(d, replicas=None, lanes=4)
+        n_dev = torch.cuda.device_count()
+        assert (eng.replicas, eng.capacity) == (n_dev, 4 * n_dev)
+        ex.batched_fn(4).capture()      # before the counts (see graphs())
+        # up front: 11 requests, 3 dispatches of 4 lanes, 1 pad lane
+        self.reset()
+        outs = eng.serve(reqs)
+        launches = {n: v for n, v in self.read().items() if v}
+        st = eng.stats
+        n_disp = -(-11 // eng.capacity)
+        assert (st.requests, st.dispatches, st.padded_lanes) == \
+            (11, n_disp, n_disp * eng.capacity - 11), st.as_json()
+        assert launches == {n: v * n_disp for n, v in eager.items()}, (
+            launches, eager)
+        for o, want in zip(outs, refs):
+            self.same(o[name], want, exact)
+        up_front = st.as_json()
+        # late arrivals with mixed priorities between steps
+        prio = [0, 1, 0, 2, 0, 1, 0, 3, 1, 0, 2]
+        rids = [eng.submit(r, priority=p)
+                for r, p in zip(reqs[:3], prio[:3])]
+        eng.step()
+        rids += [eng.submit(r, priority=p)
+                 for r, p in zip(reqs[3:7], prio[3:7])]
+        eng.step()
+        rids += [eng.submit(r, priority=p)
+                 for r, p in zip(reqs[7:], prio[7:])]
+        done = eng.drain()
+        assert sorted(done) == sorted(rids)
+        for rid, want in zip(rids, refs):
+            self.same(done[rid][name], want, exact)
+        late = eng.stats.as_json()
+        # requests/s in turns with the single-device graphed engine
+        geng = d.engine(micro_batch=4)
+        geng.serve(reqs)
+        rps = {"sharded": [], "graph": []}
+        lat = {"p50": [], "p99": []}
+        for _ in range(5):
+            eng.serve(reqs)
+            rps["sharded"].append(eng.stats.requests_per_s)
+            lat["p50"].append(eng.stats.p50_ms)
+            lat["p99"].append(eng.stats.p99_ms)
+            geng.serve(reqs)
+            rps["graph"].append(geng.stats.requests_per_s)
+        med = {k: statistics.median(v) for k, v in {**rps, **lat}.items()}
+        # degradation and clipping
+        deg = ShardedServingEngine(d, replicas=None, lanes=4,
+                                   faults=FaultPlan(fail_engine_init=True))
+        for o, want in zip(deg.serve(reqs), refs):
+            self.same(o[name], want, exact)
+        assert deg.replicas == 1 and any(
+            "falling back to single-device" in n
+            for n in deg.stats.degraded), deg.stats.degraded
+        clipped = ShardedServingEngine(d, replicas=2, lanes=4).replicas
+        assert clipped == min(2, n_dev), clipped
+        log(f"phase sharded {label}: ShardedServingEngine replicas "
+            f"{eng.replicas} (device count {n_dev}) x lanes 4; 11 requests "
+            f"up front: dispatches {up_front['dispatches']}, padded_lanes "
+            f"{up_front['padded_lanes']}; late arrivals between steps with "
+            f"priorities {prio}: dispatches {late['dispatches']}, "
+            f"padded_lanes {late['padded_lanes']}; every output == "
+            f"Deployment.run alone ({'bit-exact' if exact else 'within F32_TOL'}"
+            f"); launches/dispatch through the replays {eager} == eager "
+            f"execute over 4 lanes ({sum(eager.values()) * n_disp / 11:.2f} "
+            f"a request); median of 5 serves in turns: sharded "
+            f"{med['sharded']:.2f} req/s (p50 {med['p50']:.3f} ms, p99 "
+            f"{med['p99']:.3f} ms), GraphServingEngine micro_batch 4 "
+            f"{med['graph']:.2f} req/s; all 5: sharded "
+            + ", ".join(f"{v:.2f}" for v in rps["sharded"]) + "; graph "
+            + ", ".join(f"{v:.2f}" for v in rps["graph"])
+            + f"; degraded (engine_init fault): {deg.stats.degraded[-1]!r}, "
+            f"same outputs; replicas=2 -> {clipped} [{self.card}] "
+            f"({time.perf_counter() - t0:.2f} s)")
+        return eng
+
+    def chaos(self, label, d, seed, exact):
+        """One seeded chaos plan on the card: device errors, arena
+        corruption (the injector's lane report) and NaN poison; every
+        request ends as a result equal to ``Deployment.run`` or a typed
+        ``RequestError``, and the counters balance the injector's
+        ledger."""
+        from repro_torch.serving import (FaultInjector, FaultPlan,
+                                         RequestError, ShardedServingEngine)
+        t0 = time.perf_counter()
+        g = d.graph
+        (name,) = g.outputs
+        inj = FaultInjector(FaultPlan(seed=CHAOS_SEED, device_error_rate=0.15,
+                                      corrupt_rate=0.25, nan_rate=0.25))
+        eng = ShardedServingEngine(d, replicas=None, lanes=4, max_retries=2,
+                                   faults=inj)
+        reqs = [self.random_input(g, seed=seed + s) for s in range(12)]
+        rids = [eng.submit(r) for r in reqs]
+        done = eng.drain()
+        results = [done[rid] for rid in rids]
+        codes = [r.code if isinstance(r, RequestError) else "ok"
+                 for r in results]
+        assert set(codes) <= {"ok", "corrupted", "nan_output",
+                              "dispatch_failed"}, codes
+        for r, out in zip(reqs, results):
+            if not isinstance(out, RequestError):
+                self.same(out[name], d.run(r)[name], exact)
+        led, s = inj.injected, eng.stats
+        assert all(led[k] > 0 for k in ("device_error", "corrupt", "nan")), led
+        assert "ok" in codes and len(set(codes)) > 1, codes
+        poison = sum(c in ("corrupted", "nan_output") for c in codes)
+        assert s.retried == led["device_error"] + led["corrupt"] + \
+            led["nan"] - poison, (s.as_json(), led)
+        assert s.failed == poison + codes.count("dispatch_failed")
+        assert s.admitted >= 12 - codes.count("dispatch_failed")
+        log(f"phase sharded chaos {label}: FaultPlan(seed={CHAOS_SEED}, "
+            f"device_error "
+            f"0.15, corrupt 0.25, nan 0.25), 12 requests: results "
+            f"{ {c: codes.count(c) for c in sorted(set(codes))} }, ledger "
+            f"{led}, retried {s.retried}, failed {s.failed}, dispatches "
+            f"{s.dispatches}; every ok result == Deployment.run, every "
+            f"other a typed RequestError [{self.card}] "
+            f"({time.perf_counter() - t0:.2f} s)")
+
     def fused_add(self, deployments, device):
         """``kernels.qconv_add_fused`` at every int8 conv shape of the
         given deployments, with a seeded residual: K4/K5 launched, each
@@ -1281,6 +1443,136 @@ class Paths:
             f"shapes of the int8 schedules, launches {launches}, each == "
             f"qconv_fused then qadd (bit-exact) "
             f"({time.perf_counter() - t0:.2f} s)")
+
+
+# phase sharded's chaos plan: with 12 requests over 4 lanes this seed
+# fires every fault kind and ends some requests in typed errors
+CHAOS_SEED = 43
+# phase fx: the reference tests' programs (tests/test_jaxpr_reorder.py's
+# branchy_fn, tests/test_partition.py's MLP), at the tests' row counts and
+# at FX_ROWS.  A +pex program computes each mm in row slices, and cuBLAS
+# picks its float32 GEMM kernel, and with it the order of the K sum, by
+# the row count: the +pex output is held to the float32 accumulation
+# bound of its mms (F32_BOUND, as K6's check) carried through the program
+# (``fx_pex_bound``).  The reference test's own constants (FX_MM_TOL) hold
+# on the CPU (tests/test_torch_fx_partial.py); on the card the count of
+# outputs outside them is printed.
+FX_ROWS = 4096
+FX_MM_TOL = dict(rtol=2e-6, atol=1e-6)
+# float32 unit roundoff; CUDA's tanhf is within 2 ulp
+F32_EPS = 2.0 ** -24
+TANH_ULPS = 2
+
+
+def fx_pex_bound(torch, program, x, w):
+    """Per output, the most two float32 evaluations of ``program`` whose
+    mms sum K in two orders can differ: ``F32_BOUND * (K + 2) * (|a| @
+    |b|)`` for each mm and sum, tanh's ulps, and every difference carried
+    forward (tanh is 1-Lipschitz), in float64."""
+    def mm(a, b, da):
+        bound = F32_BOUND * (a.shape[1] + 2) * (a.abs() @ b.abs())
+        return bound if da is None else bound + da @ b.abs()
+
+    def tanh(v, dv):
+        t = torch.tanh(v)
+        return t, dv + 2 * TANH_ULPS * 2 * F32_EPS * t.abs()
+
+    x = x.double()
+    if program == "mlp":
+        w1, w2 = (v.double() for v in w)
+        t, dt = tanh(x @ w1, mm(x, w1, None))
+        return mm(t, w2, dt)
+    t1 = torch.tanh(x)
+    tm, dtm = tanh(t1 @ t1.T, mm(t1, t1.T, None))
+    da = F32_BOUND * (tm.shape[1] + 2) * tm.abs().sum(dim=1) + dtm.sum(dim=1)
+    out = tm.sum(dim=1) + t1.sum(dim=1)
+    return da + 2 * F32_EPS * out.abs()
+
+
+def fx_phase(torch, np, device, card, d):
+    """``phase fx``: each program through ``fx_reorder.reorder`` (output
+    equal to eager torch bit for bit) and ``reorder_graph_module(
+    partition_budget=half the reordered peak)`` (a ``+pex`` program within
+    ``fx_pex_bound`` of eager), on CUDA tensors; each report's peaks equal
+    ``peak_liveness`` of the emitted module.  Prints each report and the
+    host seconds of the trace and of the schedule.  Last, tracing the int8
+    deployment ``d``'s arena program must stop at its first kernel with
+    ``TraceError``, not record an unwritten output."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from repro_torch.core.fx_reorder import (peak_liveness, reorder,
+                                             reorder_graph_module, trace)
+    from repro_torch.errors import TraceError
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(0)
+
+    def dev_tensor(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=device)
+
+    def branchy(x):
+        t1 = torch.tanh(x)
+        a = torch.tanh(t1 @ t1.T).sum(dim=1)
+        return a + t1.sum(dim=1)
+
+    w1, w2 = dev_tensor(32, 512), dev_tensor(512, 32)
+
+    def mlp(x):
+        return torch.tanh(x @ w1) @ w2
+
+    for label, fn, shapes in (
+            ("branchy 128x128", branchy, (128, 128)),
+            (f"branchy {FX_ROWS}x128", branchy, (FX_ROWS, 128)),
+            ("mlp 256x32", mlp, (256, 32)),
+            (f"mlp {FX_ROWS}x32", mlp, (FX_ROWS, 32))):
+        program = label.split()[0]
+        x = dev_tensor(*shapes)
+        want = fn(x)
+        reports = []
+        got = reorder(fn, report_to=reports)(x)
+        assert torch.equal(got, want), label
+        t0 = time.perf_counter()
+        gm, leaves = trace(fn, x)
+        torch.cuda.synchronize()
+        t_trace = time.perf_counter() - t0
+        new_gm, rep = reorder_graph_module(gm)
+        t_sched = time.perf_counter() - t0 - t_trace
+        assert (rep.peak_after, rep.changed) == (reports[0].peak_after,
+                                                 reports[0].changed)
+        assert rep.peak_after <= rep.peak_before
+        assert peak_liveness(new_gm) == rep.peak_after
+        assert torch.equal(new_gm(*leaves), want), label
+        t0 = time.perf_counter()
+        pgm, prep = reorder_graph_module(
+            gm, partition_budget=rep.peak_after // 2)
+        t_pex = time.perf_counter() - t0
+        assert prep.method.endswith("+pex"), prep
+        assert prep.peak_after < rep.peak_after
+        assert peak_liveness(pgm) == prep.peak_after
+        pgot = pgm(*leaves)
+        err = (pgot - want).abs()
+        bound = fx_pex_bound(torch, program, x, (w1, w2))
+        ratio = float((err.double() / bound).max())
+        n_tol = int((err > FX_MM_TOL["atol"]
+                     + FX_MM_TOL["rtol"] * want.abs()).sum())
+        log(f"phase fx {label}: reorder == eager (bit-exact); {rep}; "
+            f"+pex: {prep}, max|+pex - eager| {float(err.max()):.3e}, "
+            f"max |+pex - eager| / fx_pex_bound {ratio:.3e}; {n_tol} of "
+            f"{want.numel()} outside the reference test's rtol "
+            f"{FX_MM_TOL['rtol']}, atol {FX_MM_TOL['atol']}; host s: trace "
+            f"{t_trace:.3f}, schedule {t_sched:.3f}, +pex rewrite and "
+            f"schedule {t_pex:.3f} [{card}]")
+        assert ratio <= 1.0, (label, ratio)
+    ex = d.executor
+    try:
+        make_fx(lambda arena: ex.execute(arena))(ex.new_arena(1))
+    except TraceError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("make_fx traced the arena program's kernels")
+    log(f"phase fx: make_fx of the int8 arena program ({len(d.schedule)} "
+        f"ops) -> TraceError ({refused.split(':')[0]}); "
+        f"{time.perf_counter() - t_all:.2f} s")
 
 
 class AttentionChecks:
@@ -1961,6 +2253,14 @@ def main() -> int:
     paths.graphs("swiftnet int8", swift_int8, 620, exact=True)
     paths.table1(swift_int8, device)
     paths.fused_add([swift_int8, int8[0][1]], device)
+    # sharded continuous batching over the same deployments
+    t0 = time.perf_counter()
+    for i, (budget, d) in enumerate(int8):
+        paths.sharded(f"int8 budget={budget}", d, 700 + 20 * i, exact=True)
+    paths.sharded("f32 budget=None", f32[0][1], 760, exact=False)
+    paths.chaos("f32 budget=None", f32[0][1], 780, exact=False)
+    log(f"phase sharded: {time.perf_counter() - t0:.2f} s")
+    fx_phase(torch, np, device, card, int8[0][1])
 
     # ------------------------------------------- the LLM serving path
     t0 = time.perf_counter()

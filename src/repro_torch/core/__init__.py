@@ -1,5 +1,6 @@
 # The paper's primary contribution: peak-memory-minimal operator scheduling
-# (Liberis & Lane 2019) plus the runtime substrates built around it.
+# (Liberis & Lane 2019) plus the runtime substrates built around it, and the
+# same reordering over traced PyTorch programs (fx_reorder, fx_partial).
 from .graph import Graph, Operator, Tensor, linear_chains
 from .scheduler import ScheduleResult, minimise_peak_memory
 from .heuristics import (beam_schedule, build_chains, greedy_schedule,
@@ -14,6 +15,9 @@ from .partition import (PEX_ATTR, Cascade, CascadeResult, PartitionResult,
 from .solver import (ParetoPoint, SolverResult, branch_and_bound_order,
                      enumerate_pex_configs, graph_macs, pareto_front,
                      segment_extra_macs, solve)
+from .fx_reorder import (ReorderReport, fx_to_graph, node_bytes,
+                         peak_liveness, reorder, reorder_graph_module)
+from .fx_partial import partial_execute_graph_module
 from . import profile
 
 __all__ = [
@@ -30,4 +34,6 @@ __all__ = [
     "ParetoPoint", "SolverResult", "branch_and_bound_order",
     "enumerate_pex_configs", "graph_macs", "pareto_front",
     "segment_extra_macs", "solve",
+    "ReorderReport", "fx_to_graph", "node_bytes", "partial_execute_graph_module",
+    "peak_liveness", "reorder", "reorder_graph_module",
 ]

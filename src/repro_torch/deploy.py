@@ -8,6 +8,7 @@ returning a ``Deployment``::
     d = deploy.build(graph, quantize=True, arena_budget=512 * 1024)
     out = d.run(d.quantize_inputs(x))     # one request, on the card
     outs = d.serve(requests)              # micro-batched engine
+    eng = d.engine(micro_batch=4, replicas=0)   # sharded, every device
     d.stats.arena_bytes                   # typed, not stringly-keyed
 
 ``device=None`` means the card; without CUDA that raises
@@ -180,13 +181,21 @@ class Deployment:
         """Micro-batched one-shot serve on the deployment's device."""
         return self.engine(micro_batch=micro_batch).serve(requests)
 
-    def engine(self, *, micro_batch: int = 8, **kw):
-        """The single-device micro-batching ``GraphServingEngine`` over
-        this deployment, dispatching through ``batched_fn(micro_batch)``
-        (the replica-sharded engine is ROADMAP Queue 1 item 2)."""
-        from repro_torch.serving.engine import GraphServingEngine
-        return GraphServingEngine(deployment=self, micro_batch=micro_batch,
-                                  **kw)
+    def engine(self, *, micro_batch: int = 8, replicas: Optional[int] = None,
+               **kw):
+        """A serving engine over this deployment.  ``replicas=None`` gives
+        the single-device micro-batching ``GraphServingEngine``
+        (dispatching through ``batched_fn(micro_batch)``); any other value
+        the sharded continuous-batching ``ShardedServingEngine`` with
+        ``micro_batch`` lanes a replica (``replicas=0`` = one replica per
+        device of the deployment's kind)."""
+        if replicas is None:
+            from repro_torch.serving.engine import GraphServingEngine
+            return GraphServingEngine(deployment=self,
+                                      micro_batch=micro_batch, **kw)
+        from repro_torch.serving.sharded import ShardedServingEngine
+        return ShardedServingEngine(self, replicas=replicas or None,
+                                    lanes=micro_batch, **kw)
 
     # ------------------------------------------------------------- stats
     @property

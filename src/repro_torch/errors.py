@@ -76,9 +76,17 @@ class CaptureError(ReproError):
     eagerly in its place."""
 
 
+class TraceError(ReproError):
+    """A kernel of the port was reached while a program was being traced
+    (``make_fx``).  Its launch writes through ``data_ptr``, which a trace
+    cannot record: the trace would hold the output's allocation and
+    nothing that writes it.  Trace on the CPU, or make the kernel an op
+    the tracer sees."""
+
+
 __all__ = [
     "ReproError", "InputValidationError", "BudgetUnreachableError",
     "DeploymentError", "GuardViolation", "TransientDeviceError",
     "DeviceInitError", "DispatchFailedError", "NaNActivationError",
-    "CaptureError",
+    "CaptureError", "TraceError",
 ]

@@ -334,6 +334,10 @@ def fc(x, w):
     return y.reshape(*lead, 1, 1, y.shape[-1])
 
 
+def model_weight_bytes(graph: Graph) -> int:
+    return sum(op.attrs.get("weight_bytes", 0) for op in graph.operators)
+
+
 # ------------------------------------------------------ int8 (quantized) ops
 # Per-tensor affine quantization (TFLite-Micro convention): real = scale *
 # (q - zero_point), q int8 in [-128, 127].  Convolutions subtract the input

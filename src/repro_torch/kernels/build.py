@@ -13,11 +13,16 @@ runs at import.  ``-Xptxas -v`` is on: ``PTXAS`` keeps, per library built
 by this process, each kernel's registers, stack and spill bytes.
 
 A kernel package declares its kernels as a ``KernelSet``: its ``csrc``
-directory and the C signature of each ``<name>_launch`` function.
+directory and the C signature of each ``<name>_launch`` function.  Every
+launch goes through ``KernelSet.launch``, which refuses to launch while
+``make_fx`` traces (``errors.TraceError``): a ctypes launch fills its
+output through ``data_ptr``, so a trace would record an unwritten
+``torch.empty``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -132,6 +137,12 @@ def build(targets: Sequence[Tuple[Path, str]]) -> Dict[str, float]:
         return seconds
 
 
+@functools.lru_cache(maxsize=None)
+def _proxy_mode_getter():
+    from torch.fx.experimental.proxy_tensor import get_proxy_mode
+    return get_proxy_mode
+
+
 class KernelSet:
     """The kernels of one package: sources in ``csrc``, and the C argument
     types of each ``<name>_launch`` (pointers and the stream as void*)."""
@@ -162,7 +173,15 @@ class KernelSet:
             return self._fns[name]
 
     def launch(self, name: str, *args) -> None:
-        """Call ``<name>_launch(*args)``; raise on a nonzero CUDA error."""
+        """Call ``<name>_launch(*args)``; raise on a nonzero CUDA error, and
+        ``TraceError`` instead of launching while ``make_fx`` traces (a
+        trace cannot see what the kernel writes)."""
+        if _proxy_mode_getter()() is not None:
+            from repro_torch.errors import TraceError
+            raise TraceError(
+                f"kernel {name} reached while make_fx traces the program: "
+                f"its launch writes through data_ptr, which the trace "
+                f"cannot record")
         rc = (self._fns.get(name) or self.load(name))(*args)
         if rc != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

@@ -52,14 +52,22 @@ Python-side, so they unroll into the graph.  An operator that runs its
 ``op.fn`` (host code) cannot be captured: ``fn``/``batched_fn`` refuse
 such a program on the card with ``CaptureError``.
 
+``replicated_fn(replicas, lanes)`` is the reference's
+``pmap(vmap(raw_fn))``: one ``batched_fn(lanes)`` per device, each with its
+own static arena (on ``cuda:i`` also its own copy of the constants and
+its own captured graph).  A dispatch launches every replica on its own
+device's stream before it waits for any of them; there are no
+collectives.  On the CPU the host replicas (``device.force_host_devices``)
+run one after another.
+
 What the reference needed only for XLA is gone: the optimization barriers
-between operators (eager PyTorch already materialises each output), the
-``fuse`` and ``donate`` options, and the ``pmap`` replication (a later
-slice).  Integer outputs are bit-identical to the reference's; float
-outputs agree within accumulation tolerance.
+between operators (eager PyTorch already materialises each output) and
+the ``fuse`` and ``donate`` options.  Integer outputs are bit-identical to
+the reference's; float outputs agree within accumulation tolerance.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -69,8 +77,8 @@ import torch
 from repro_torch.core.allocator import ArenaPlan, ArenaPlanner
 from repro_torch.core.graph import Graph, Operator
 from repro_torch.cuda_graphs import CapturedGraph, capture
-from repro_torch.device import resolve_device
-from repro_torch.errors import CaptureError, GuardViolation
+from repro_torch.device import device_count, resolve_device
+from repro_torch.errors import CaptureError, DeviceInitError, GuardViolation
 from repro_torch.kernels.conv_quant.ops import RingWindow, ring_spans
 
 # Graph dtype name -> torch dtype of the typed arena views.
@@ -419,6 +427,9 @@ class CompiledExecutor:
     # the compiled forms, per lane count (the reference's ``_fn_cache``)
     _fn_cache: Dict[int, "ArenaProgram"] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
+    # replica index (>= 1) -> this program on that replica's device
+    _replicas: Dict[int, "CompiledExecutor"] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     # ------------------------------------------------------------ arenas
     def new_arena(self, lanes: int = 1) -> torch.Tensor:
@@ -467,6 +478,13 @@ class CompiledExecutor:
                     f"expects {t.elements} ({size} bytes as {t.dtype})")
             row[off:off + size] = val.reshape(-1).view(torch.uint8).to(
                 self.device)
+
+    def pad_arena(self) -> torch.Tensor:
+        """One all-zero ``[pitch]`` lane: what every lane past the admitted
+        requests holds when a dispatch of ``batched_fn`` or
+        ``replicated_fn`` starts (a serving pad lane: executed, never read
+        back, visibly not a duplicated request)."""
+        return torch.zeros(self.pitch, dtype=torch.uint8, device=self.device)
 
     def make_arena(self, inputs: Dict[str, Any]) -> torch.Tensor:
         """A fresh one-lane arena with ``inputs`` written."""
@@ -583,6 +601,42 @@ class CompiledExecutor:
         ``Deployment.run`` dispatch."""
         return self.batched_fn(1)
 
+    def replicated_fn(self, replicas: int, lanes: int) -> "ReplicatedProgram":
+        """``batched_fn(lanes)`` on each of ``replicas`` devices of this
+        executor's kind: this device first, then the others in index
+        order (on the CPU, host replicas).  Raises ``DeviceInitError``
+        when there are fewer devices than ``replicas``."""
+        have = device_count(self.device)
+        if replicas < 1:
+            raise ValueError(f"need at least one replica, got {replicas}")
+        if replicas > have:
+            hint = (" (call repro_torch.serving.force_host_devices"
+                    f"({replicas}) to offer more host replicas)"
+                    if self.device.type == "cpu" else "")
+            raise DeviceInitError(
+                f"replicas={replicas} but only {have} {self.device.type} "
+                f"device(s){hint}")
+        if self.device.type == "cuda":
+            devices = [self.device] + [
+                torch.device("cuda", i) for i in range(have)
+                if i != self.device.index]
+        else:
+            devices = [self.device] * replicas
+        progs = [self.batched_fn(lanes)]
+        for r in range(1, replicas):
+            rex = self._replicas.get(r)
+            if rex is None:
+                rex = self._replicas[r] = self._on(devices[r])
+            progs.append(rex.batched_fn(lanes))
+        return ReplicatedProgram(progs)
+
+    def _on(self, device: torch.device) -> "CompiledExecutor":
+        """This program on ``device``: its own device copies of the
+        constants (made at its first run) and its own compiled forms."""
+        return dataclasses.replace(self, device=device,
+                                   _ctx=LoweringCtx(self.graph, device),
+                                   _fn_cache={}, _replicas={})
+
 
 class ArenaProgram:
     """``batched_fn(lanes)``: the arena program over ``arena``, a static
@@ -624,6 +678,40 @@ class ArenaProgram:
         else:
             ex.execute(arena)
         return arena
+
+
+class ReplicatedProgram:
+    """``replicated_fn(replicas, lanes)``: one ``ArenaProgram`` of ``lanes``
+    lanes per replica.  Calling it with up to ``capacity`` requests' input
+    dicts hands request i to replica ``i // lanes``, lane ``i % lanes``,
+    launches every replica on its own device's current stream, then waits
+    for all of them, and returns the replicas' ``[lanes, pitch]`` arenas
+    in replica order (each overwritten by the next call)."""
+
+    def __init__(self, programs: Sequence[ArenaProgram]) -> None:
+        self.programs = list(programs)
+        self.lanes = self.programs[0].lanes
+
+    @property
+    def capacity(self) -> int:
+        return len(self.programs) * self.lanes
+
+    def __call__(self, requests: Sequence[Dict[str, Any]]
+                 ) -> List[torch.Tensor]:
+        if len(requests) > self.capacity:
+            raise ValueError(f"{len(requests)} requests for {self.capacity} "
+                             f"lanes")
+        arenas = []
+        for r, prog in enumerate(self.programs):
+            chunk = requests[r * self.lanes:(r + 1) * self.lanes]
+            dev = prog.executor.device
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                arenas.append(prog(chunk))
+        for prog in self.programs:
+            if prog.executor.device.type == "cuda":
+                torch.cuda.synchronize(prog.executor.device)
+        return arenas
 
 
 def compile_schedule(graph: Graph,
@@ -676,5 +764,5 @@ def compile_schedule(graph: Graph,
 
 
 __all__ = ["ArenaProgram", "CANARY_BYTE", "CompiledExecutor", "LoweringCtx",
-           "TORCH_DTYPES", "compile_schedule", "lower_op",
-           "register_lowering"]
+           "ReplicatedProgram", "TORCH_DTYPES", "compile_schedule",
+           "lower_op", "register_lowering"]

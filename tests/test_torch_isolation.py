@@ -1,8 +1,10 @@
 """The port stands alone: importing it pulls in neither JAX nor the JAX
-package, no file of it (nor ``chip_smoke.py``) imports either, and its
-entry points run on the card unless the caller asks for the CPU."""
+package, no file of it (nor ``chip_smoke.py``, nor ``examples_torch/``)
+imports either, and its entry points run on the card unless the caller
+asks for the CPU."""
 import ast
 import os
+import runpy
 import subprocess
 import sys
 from pathlib import Path
@@ -18,7 +20,8 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.mcu import MicroInterpreter
 from repro_torch.mcu.compile import compile_schedule
 from repro_torch.models import init_params
-from repro_torch.serving import GraphServingEngine, ServingEngine
+from repro_torch.serving import (GraphServingEngine, ServingEngine,
+                                 ShardedServingEngine)
 
 # One intra-op thread: the suite runs in several worker processes at
 # once, and idle OpenMP threads spinning in each would starve the rest.
@@ -32,7 +35,11 @@ def test_import_leaves_jax_and_the_reference_out():
     code = ("import sys, repro_torch, repro_torch.deploy, "
             "repro_torch.mcu.compile, repro_torch.params, "
             "repro_torch.models, repro_torch.configs, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.serving.sharded, "
+            "repro_torch.serving.admission, repro_torch.core.fx_reorder, "
+            "repro_torch.core.fx_partial\n"
+            f"sys.path.insert(0, {str(ROOT / 'examples_torch')!r})\n"
+            "import quickstart, mcu_deploy\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -55,6 +62,9 @@ def _imports(path: Path):
 def test_no_source_imports_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples_torch").glob("*.py"))
+    assert {f.name for f in examples} >= {"quickstart.py", "mcu_deploy.py"}
+    files += examples
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -84,3 +94,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         ServingEngine(cfg, params)
     with pytest.raises(DeviceInitError, match="device='cpu'"):
         launch_serve.main(["--arch", "llama3.2-3b@smoke", "--requests", "1"])
+    with pytest.raises(DeviceInitError, match="device='cpu'"):
+        ShardedServingEngine(g)
+    for example in ("quickstart", "mcu_deploy"):
+        main = runpy.run_path(str(ROOT / "examples_torch" / f"{example}.py"))
+        with pytest.raises(DeviceInitError, match="device='cpu'"):
+            main["main"]([])
