@@ -53,7 +53,21 @@ after (the launches of the kernel checks above do not count):
   the device's busy time, K8's share of it and the KV-arena bytes;
   decoding token t after a prefill of t−1 against prefilling t tokens
   (``CONT_TOL``); a 2-layer variant on the card against the port's CPU
-  path (``CPU_TOL``).
+  path (``CPU_TOL``);
+* ``phase llm-reorder``: the paper's reordering of Llama-3.2-3B's decode
+  step, ``ServingEngine.analyse_decode_schedule(4)`` at cache 96 and
+  2 048 (the layer stack one operator, ``repro_torch::decode_layers``;
+  traced from shapes, so nothing is allocated on the card), with the host
+  seconds of trace and schedule, then the reordered step against the
+  eager ``decode_step`` after a prefill: logits and every cache tensor
+  bit-equal, K8 28× through the reordered module;
+* ``phase llm-moe``: the MoE decoder Granite-3.0-1B-A400M at full width
+  and depth (24 layers, 32 experts top 8, bf16) through the launcher's
+  engine with the short mix — K7 24× per prefill, K8 24× per decode step
+  — with the same lines and ``phase graphs llm-moe`` as Llama's mixes;
+  continuation and a 2-layer card vs CPU comparison in float32
+  (``MOE_CONT_TOL``, ``MOE_CPU_TOL``: the routing's near-ties are why), and
+  its reordered step as above at cache 96.
 
 ``run``, ``serve`` and the decode step run as CUDA graphs (the compiled
 forms ``CompiledExecutor.fn``/``batched_fn`` and ``ServingEngine``'s
@@ -184,6 +198,32 @@ CONT_TOL, CONT_T = 3e-2, 64
 # card and on the port's CPU path, both bf16: the same one-ulp-per-layer
 # argument over 2 layers instead of 28 gives ~0.1 %; 2e-2 * max|logit|.
 CPU_TOL, CPU_LAYERS, CPU_S, CPU_STEPS = 2e-2, 2, 12, 3
+# ---- the paper's reordering of the decode step (phase llm-reorder): the
+# launcher's batch at both mixes' cache lengths
+REORDER_B, REORDER_CACHES = 4, (96, 2048)
+# ---- the MoE decoder (phase llm-moe): Granite-3.0-1B-A400M at full width
+# and depth (24 layers, d 1024, 32 experts top 8, bf16, 2.77 GB), random
+# weights drawn on the card by the launcher, the reference launcher's
+# traffic as LLM_MIXES' short mix (KV block: 2*24*96*8*64*2 B + pos + kv_pos)
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_MIX = ("moe", 8, None, 12, 4, 96, 4_718_980)
+# MoE routing picks each token's top 8 of 32 experts.  In bf16 the two
+# paths of the continuation and card-vs-CPU checks differ by about an ulp
+# (2^-9) per layer (see CONT_TOL), which moves a router logit by ~2e-3: at
+# a near-tie between a token's 8th and 9th expert (spacing ~0.1 between
+# neighbouring order statistics of 32 unit-normal logits) that flips the
+# expert, for some % of (token, layer) pairs, and a flip swaps a whole
+# expert's output.  So the MoE checks run the same weights in float32 (TF32
+# off), where the paths differ by ~1e-6 per layer and a flip needs a gap
+# 1e4 times smaller.  Continuation: the attention kernels' float32 bound
+# F32_ATTN (2e-5 of max|want|) per layer over 24 layers is at most ~5e-4
+# if every layer's error adds; 2e-3 * max|logit|.  The capacity factor is
+# E/k there, so that no expert drops a token in either path (prefill t-1
+# and t tokens, decode one: capacities 126, 128 and 2 rows for 126, 128
+# and 2 tokens); at the configured 1.25 the prefill of t-1 and of t tokens
+# would drop other tokens.  Card vs CPU keeps 1.25 (capacity drops on
+# both sides): 2 layers, 1e-3 * max|logit|.
+MOE_CONT_TOL, MOE_CPU_TOL = 2e-3, 1e-3
 # K7/K8 against their plain versions.  float32: |got - want| <= F32_ATTN *
 # max|want| (the JAX package's own kernel tests use 2e-5); bf16: within one
 # bf16 ulp of want plus 1e-6 * max|want| — both compute in float32 from the
@@ -1838,31 +1878,36 @@ class AttentionChecks:
 
 
 class Llm:
-    """The LLM serving path of the port: Llama-3.2-3B at full width and
-    depth in bf16 through ``repro_torch.launch.serve``'s engine, K7 on every
-    prefill layer, K8 on every decode layer."""
+    """An LLM serving path of the port at full width and depth in bf16
+    through ``repro_torch.launch.serve``'s engine, K7 on every prefill
+    layer, K8 on every decode layer: Llama-3.2-3B (``LLM_ARCH``), or the
+    MoE decoder Granite-3.0-1B-A400M (``MOE_ARCH``)."""
 
-    def __init__(self, torch, np, device, paths, attn, card):
+    def __init__(self, torch, np, device, paths, attn, card, arch=LLM_ARCH,
+                 mix=LLM_MIXES[0]):
         from repro_torch.configs import get_config
         from repro_torch.launch import serve as launch_serve
         self.torch, self.np, self.device = torch, np, device
         self.paths, self.attn, self.card = paths, attn, card
         self.launch_serve = launch_serve
         t0 = time.perf_counter()
-        self.cfg = get_config(LLM_ARCH)
+        self.cfg = get_config(arch)
         # the launcher's own engine: random bf16 weights drawn on the card
         self.engine = launch_serve.build_engine(
-            LLM_ARCH, max_batch=LLM_MIXES[0][4], cache_len=LLM_MIXES[0][5],
-            device=device)
+            arch, max_batch=mix[4], cache_len=mix[5], device=device)
         self.params = self.engine.params
         torch.cuda.synchronize()
         n = sum(t.numel() for t in self._leaves(self.params))
-        log(f"phase llm-init: {LLM_ARCH} ({self.cfg.num_layers} layers, d "
+        moe = (f", {self.cfg.num_experts} experts top "
+               f"{self.cfg.experts_per_token}, capacity factor "
+               f"{self.cfg.capacity_factor}" if self.cfg.is_moe else "")
+        log(f"phase llm-init: {arch} ({self.cfg.num_layers} layers, d "
             f"{self.cfg.d_model}, {self.cfg.num_heads} heads / "
             f"{self.cfg.num_kv_heads} kv heads of {self.cfg.head_dim_}, "
-            f"vocab {self.cfg.vocab_size}, {self.cfg.dtype}): {n} parameters "
-            f"drawn on the card, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-            f"allocated ({time.perf_counter() - t0:.2f} s)")
+            f"d_ff {self.cfg.d_ff}{moe}, vocab {self.cfg.vocab_size}, "
+            f"{self.cfg.dtype}): {n} parameters drawn on the card, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+            f"({time.perf_counter() - t0:.2f} s)")
 
     @staticmethod
     def _leaves(tree):
@@ -2055,45 +2100,62 @@ class Llm:
             toks[i, S - len(r.prompt):] = r.prompt
         return toks
 
-    def continuation(self):
+    def float32(self, **changes):
+        """(config, parameters) of this model in float32 — the same
+        weights, widened exactly — with ``changes`` to the config."""
+        f32 = self.torch.float32
+        params = {k: v.to(f32) for k, v in self.params.items()
+                  if k != "blocks"}
+        params["blocks"] = {k: v.to(f32)
+                            for k, v in self.params["blocks"].items()}
+        return self.cfg.replace(dtype="float32", **changes), params
+
+    def continuation(self, label="llm", cfg=None, params=None,
+                     tol=CONT_TOL):
         """Decoding token t after a prefill of t-1 tokens gives the logits
         of prefilling t tokens (tests/test_arch_smoke.py:78-93) at full
-        width and depth: K7 against K8."""
+        width and depth: K7 against K8.  ``cfg``/``params`` replace the
+        served model (the MoE check runs it in float32)."""
         from repro_torch.models import Model
         torch, np = self.torch, self.np
         t0 = time.perf_counter()
-        model = Model(self.cfg)
+        cfg, params = cfg or self.cfg, params or self.params
+        model = Model(cfg)
         toks = torch.as_tensor(np.random.default_rng(2).integers(
-            0, self.cfg.vocab_size, (2, CONT_T)), device=self.device)
+            0, cfg.vocab_size, (2, CONT_T)), device=self.device)
         self.paths.reset()
         with self.attn.record():
-            full, _ = model.prefill(self.params, {"tokens": toks})
-            _, cache = model.prefill(self.params, {"tokens": toks[:, :-1]},
+            full, _ = model.prefill(params, {"tokens": toks})
+            _, cache = model.prefill(params, {"tokens": toks[:, :-1]},
                                      cache_len=CONT_T)
-            dec, _ = model.decode_step(self.params, cache, toks[:, -1])
+            dec, _ = model.decode_step(params, cache, toks[:, -1])
         launches = self.paths.read()
-        assert launches["flash_attention"] == 2 * self.cfg.num_layers
-        assert launches["decode_attention"] == self.cfg.num_layers
+        assert launches["flash_attention"] == 2 * cfg.num_layers
+        assert launches["decode_attention"] == cfg.num_layers
         assert torch.isfinite(full).all() and torch.isfinite(dec).all()
         err = float((dec - full).abs().max())
         scale = float(full.abs().max())
-        log(f"phase llm-continuation: B 2, t {CONT_T}: max|decode(t) - "
-            f"prefill(t)| {err:.5f} of max|logit| {scale:.5f} "
-            f"(ratio {err / scale:.5f}, tolerance {CONT_TOL}); launches "
-            f"{launches} ({time.perf_counter() - t0:.2f} s)")
-        assert err <= CONT_TOL * scale, (err, scale)
+        log(f"phase {label}-continuation: B 2, t {CONT_T}, {cfg.dtype}"
+            + (f", capacity factor {cfg.capacity_factor}" if cfg.is_moe
+               else "")
+            + f": max|decode(t) - prefill(t)| {err:.3e} of max|logit| "
+            f"{scale:.5f} (ratio {err / scale:.3e}, tolerance {tol}); "
+            f"launches {launches} ({time.perf_counter() - t0:.2f} s)")
+        assert err <= tol * scale, (err, scale)
 
-    def card_vs_cpu(self):
+    def card_vs_cpu(self, label="llm", cfg=None, params=None, tol=CPU_TOL):
         """A 2-layer variant at full width (the first two layers' weights)
         on the card and on the port's plain CPU path: prefill and
-        teacher-forced decode steps agree."""
+        teacher-forced decode steps agree.  ``cfg``/``params`` replace the
+        served model (the MoE check runs it in float32)."""
         from repro_torch.models import Model
         torch, np = self.torch, self.np
         t0 = time.perf_counter()
-        cfg = self.cfg.replace(num_layers=CPU_LAYERS)
-        card = dict(self.params)
+        cfg, params = cfg or self.cfg, params or self.params
+        cfg = cfg.replace(num_layers=CPU_LAYERS)
+        card = dict(params)
         card["blocks"] = {k: v[:CPU_LAYERS] for k, v in
-                          self.params["blocks"].items()}
+                          params["blocks"].items()}
         cpu = {k: v.cpu() for k, v in card.items() if k != "blocks"}
         cpu["blocks"] = {k: v.cpu() for k, v in card["blocks"].items()}
         model = Model(cfg)
@@ -2119,13 +2181,86 @@ class Llm:
             ratios.append(err / float(w.abs().max()))
         assert launches["flash_attention"] == CPU_LAYERS
         assert launches["decode_attention"] == CPU_LAYERS * CPU_STEPS
-        log(f"phase llm-card-vs-cpu: {CPU_LAYERS} layers at full width, "
-            f"prefill of {CPU_S} tokens + {CPU_STEPS} decode steps, bf16: "
-            f"max|card - cpu| / max|cpu logit| per call "
-            + ", ".join(f"{r:.5f}" for r in ratios)
-            + f" (tolerance {CPU_TOL}); launches {launches} "
+        log(f"phase {label}-card-vs-cpu: {CPU_LAYERS} layers at full width, "
+            f"prefill of {CPU_S} tokens + {CPU_STEPS} decode steps, "
+            f"{cfg.dtype}: max|card - cpu| / max|cpu logit| per call "
+            + ", ".join(f"{r:.3e}" for r in ratios)
+            + f" (tolerance {tol}); launches {launches} "
             f"({time.perf_counter() - t0:.2f} s)")
-        assert max(ratios) <= CPU_TOL, ratios
+        assert max(ratios) <= tol, ratios
+
+    def reorder(self, label, caches):
+        """``phase llm-reorder``: ``ServingEngine.analyse_decode_schedule
+        (REORDER_B)`` at each cache length of ``caches`` — the report, the
+        layer stack one operator, the host seconds of trace and schedule
+        (shapes only: no cache is allocated, no kernel launched) — then
+        the reordered step at the first against the eager
+        ``decode_step``: after a prefill of the short mix's first batch,
+        one step of each on copies of one cache, logits and every cache
+        tensor bit-equal, K8 launched once a layer through the reordered
+        module.  Both run the same aten calls and K8 launches on the same
+        operands, only the nodes outside the layer operator in another
+        order, so nothing may differ."""
+        from repro_torch.models import Model
+        from repro_torch.serving import ServingEngine
+        torch, L = self.torch, self.cfg.num_layers
+        t0 = time.perf_counter()
+        reports = []
+        for cache_len in caches:
+            eng = ServingEngine(self.cfg, self.params, max_batch=REORDER_B,
+                                cache_len=cache_len, device=self.device)
+            mem = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            rep = eng.analyse_decode_schedule(REORDER_B)
+            secs = time.perf_counter() - t
+            assert torch.cuda.memory_allocated() == mem   # nothing on card
+            ops = [n for n in eng.reordered_step.gm.graph.nodes
+                   if n.target is torch.ops.repro_torch.decode_layers.default]
+            assert len(ops) == 1 and rep.peak_after <= rep.peak_before
+            assert eng.reorder_report is rep
+            reports.append((cache_len, rep, secs))
+            if len(reports) == 1:
+                first = eng
+        model = Model(self.cfg)
+        prompts = self._padded(self._requests(REORDER_B, None, 2))
+        logits, cache = model.prefill(
+            self.params, {"tokens": torch.as_tensor(prompts,
+                                                    device=self.device)},
+            cache_len=caches[0])
+        tok = torch.argmax(logits, -1)
+        mine = {n: t.clone() for n, t in cache.items()}
+        self.paths.reset()
+        with self.attn.record():
+            got, mine = first.reordered_step(self.params, mine, tok)
+        launches = self.paths.read()
+        assert launches["decode_attention"] == L, launches
+        assert all(v == 0 for k, v in launches.items()
+                   if k != "decode_attention"), launches
+        self.paths.reset()
+        want, cache = model.decode_step(self.params, cache, tok)
+        eager = self.paths.read()
+        assert eager == launches, (eager, launches)
+        same = [n for n in cache if torch.equal(mine[n], cache[n])]
+        equal = torch.equal(got, want)
+        # one step of each on its own cache copy, back to back
+        step_ms = {}
+        for name, fn in (("reordered", first.reordered_step),
+                         ("eager", model.decode_step)):
+            c = {n: t.clone() for n, t in cache.items()}
+            step_ms[name] = time_ms(torch, lambda: fn(self.params, c, tok),
+                                    iters=10, warmup=2)
+        log(f"phase {label}-reorder: " + "; ".join(
+            f"cache {c}: {rep} (trace + schedule {secs:.3f} s, host)"
+            for c, rep, secs in reports)
+            + f"; at cache {caches[0]} after a prefill of "
+            f"{prompts.shape[0]} x {prompts.shape[1]} tokens: reordered "
+            f"step == eager decode_step: logits "
+            f"{equal}, cache {sorted(same)} of {sorted(cache)}; K8 launches "
+            f"through the reordered module {launches['decode_attention']}; "
+            f"step ms (events) reordered {step_ms['reordered']:.3f}, eager "
+            f"{step_ms['eager']:.3f} [{self.card}] "
+            f"({time.perf_counter() - t0:.2f} s)")
+        assert equal and len(same) == len(cache), (equal, same)
 
 
 def main() -> int:
@@ -2278,6 +2413,18 @@ def main() -> int:
         n_k7[mix[0]] = len(attn.main_k7)
     llm.continuation()
     llm.card_vs_cpu()
+    llm.reorder("llm", REORDER_CACHES)
+    # the MoE decoder: Granite-MoE at full width beside Llama's weights
+    t0 = time.perf_counter()
+    moe = Llm(torch, np, device, paths, attn, card, arch=MOE_ARCH,
+              mix=MOE_MIX)
+    moe.graphs(MOE_MIX[0], *moe.serve(*MOE_MIX))
+    E, k = moe.cfg.num_experts, moe.cfg.experts_per_token
+    moe.continuation("llm-moe", *moe.float32(capacity_factor=E / k),
+                     tol=MOE_CONT_TOL)
+    moe.card_vs_cpu("llm-moe", *moe.float32(), tol=MOE_CPU_TOL)
+    moe.reorder("llm-moe", MOE_MIX[5:6])
+    log(f"phase llm-moe: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     n_main = attn.main_path()
     log(f"phase attention-main-path: K7/K8 vs plain at the {n_main} "

@@ -8,7 +8,9 @@ The same flags as the reference's ``repro.launch.serve``, plus
 ``--device cpu`` runs the plain PyTorch path on the host (use a ``@smoke``
 arch there).  Weights are random, drawn on the device from a
 ``torch.Generator`` seeded with 0; prompts come from
-``np.random.default_rng(0)`` as in the reference.
+``np.random.default_rng(0)`` as in the reference.  The last line is the
+paper's reordering of the decode step at ``--max-batch``
+(``ServingEngine.analyse_decode_schedule``), as the reference prints it.
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ def main(argv: Optional[List[str]] = None) -> ServingEngine:
     print(f"\narena peak {engine.stats['arena_peak_bytes']/1e6:.1f} MB "
           f"(static {engine.stats['static_bytes']/1e6:.1f} MB) on "
           f"{engine.device}")
+    print(engine.analyse_decode_schedule(args.max_batch))
     return engine
 
 

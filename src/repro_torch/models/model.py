@@ -4,7 +4,12 @@ The port builds the reference's ``"uniform"`` layout for dense decoders
 (Llama, Qwen2, Phi-3, GLM-4): one stack of attention blocks over stacked
 per-layer parameters ``[L, ...]``, with the same parameter names, shapes,
 scales and dtypes, the same decode cache and the same prefill / greedy
-decode contract.  The scan over layers is a loop over layers.
+decode contract.  The scan over layers is a loop over layers
+(``decode_layers``); the traced form of the decode step wraps that loop
+in one functional operator, ``torch.ops.repro_torch.decode_layers``, the
+counterpart of the reference's scan equation, so that the paper's
+reordering (``serving.ServingEngine.analyse_decode_schedule``) sees the
+layer stack as one operator, as the reference's jaxpr does.
 
 The device decides the attention, as it does for the CNN kernels: on CUDA
 tensors prefill runs the flash-attention kernel K7 and each decode step the
@@ -14,11 +19,12 @@ same calls go to the plain ``layers.chunked_attention`` /
 are the same computation as the reference's jnp attention
 (``src/repro/models/layers.py:7-9``, ``:135``).
 
-Configurations outside this slice raise ``UnsupportedConfigError`` naming
-the ROADMAP item that brings them: MoE, the Zamba2 hybrid, xLSTM, Whisper
-and the VLM, and a sliding window on the card (the CPU path has it).  The
-mesh and sharding code and ``loss_fn`` come with training and sharded
-serving.
+MoE decoders (Granite-MoE, Phi-3.5-MoE) are the same stack with
+``moe.moe_ffn`` in place of the SwiGLU FFN.  Configurations outside this
+slice raise ``UnsupportedConfigError`` naming the ROADMAP item that brings
+them: the Zamba2 hybrid, xLSTM, Whisper and the VLM, and a sliding window
+on the card (the CPU path has it).  The mesh and sharding code and
+``loss_fn`` come with training and sharded serving.
 
 One departure from the reference: the decode step updates its cache in
 place — the new token's K/V, ``kv_pos`` and ``pos`` — where the reference
@@ -31,7 +37,7 @@ captured step can be replayed (``serving.ServingEngine``).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,12 +49,12 @@ from repro_torch.errors import ReproError
 
 from .layers import (apply_rope, chunked_attention, decode_attention,
                      rms_norm, rope_angles, swiglu)
+from .moe import moe_ffn
 
 Params = Dict[str, Any]
 
 # where each configuration outside this slice comes in (ROADMAP.md Queue 1)
 _LATER = {
-    "moe": "ROADMAP Queue 1 item 8 (MoE, models/moe.py)",
     "hybrid": "ROADMAP Queue 1 item 9 (the Zamba2 hybrid and xLSTM, "
               "models/ssm.py)",
     "ssm": "ROADMAP Queue 1 item 9 (the Zamba2 hybrid and xLSTM, "
@@ -66,10 +72,11 @@ class UnsupportedConfigError(ReproError, NotImplementedError):
 
 
 def check_config(cfg: ModelConfig) -> None:
-    """Raise ``UnsupportedConfigError`` unless ``cfg`` is a dense decoder
-    without patch tokens or an encoder."""
+    """Raise ``UnsupportedConfigError`` unless ``cfg`` is a dense or MoE
+    decoder without patch tokens or an encoder."""
     kind = cfg.arch_type
-    if kind != "dense" or cfg.num_patch_tokens or cfg.encoder_layers:
+    if kind not in ("dense", "moe") or cfg.num_patch_tokens \
+            or cfg.encoder_layers:
         later = _LATER.get(kind, _LATER["vlm"])
         raise UnsupportedConfigError(
             f"{cfg.name}: arch_type {kind!r} is not in the port yet; it "
@@ -141,7 +148,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         blocks["bq"] = const(L + (H, hd), 0.0, dt)
         blocks["bk"] = const(L + (K, hd), 0.0, dt)
         blocks["bv"] = const(L + (K, hd), 0.0, dt)
-    if cfg.d_ff:
+    if cfg.is_moe:
+        ff, E = cfg.d_ff, cfg.num_experts
+        blocks.update({
+            "ln2": const(L + (d,), 1.0, torch.float32),
+            "router": normal(L + (d, E), s_in, torch.float32),
+            "we_g": normal(L + (E, d, ff), s_in),
+            "we_u": normal(L + (E, d, ff), s_in),
+            "we_d": normal(L + (E, ff, d), 1.0 / math.sqrt(ff)),
+        })
+    elif cfg.d_ff:
         ff = cfg.d_ff
         blocks.update({
             "ln2": const(L + (d,), 1.0, torch.float32),
@@ -206,7 +222,13 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    if cfg.d_ff:
+    if cfg.is_moe:      # the load-balance loss matters only to training
+        h = rms_norm(x, p["ln2"])
+        y, _ = moe_ffn(h, p["router"], p["we_g"], p["we_u"], p["we_d"],
+                       k=cfg.experts_per_token,
+                       capacity_factor=cfg.capacity_factor)
+        x = x + y
+    elif cfg.d_ff:
         h = rms_norm(x, p["ln2"])
         x = x + swiglu(h, p["wg"], p["wu"], p["wdn"])
     return x
@@ -260,10 +282,64 @@ def attn_mixer_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return _ffn(cfg, p, x)
 
 
+def decode_layers(cfg: ModelConfig, blocks: Params, x: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, slot: torch.Tensor,
+                  rope: Tuple[torch.Tensor, torch.Tensor],
+                  lengths: Optional[torch.Tensor],
+                  mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The decode step's layer stack: ``attn_mixer_step`` of every layer
+    over the stacked ``blocks`` and caches ``k``/``v`` [L, B, Sc, K, hd],
+    which it updates in place.  Returns the new x."""
+    for i in range(cfg.num_layers):
+        try:
+            x = attn_mixer_step(cfg, _layer(blocks, i), x, k[i], v[i], slot,
+                                rope, lengths=lengths, length_mask=mask)
+        except Exception as e:
+            e.add_note(f"decode layer {i}")
+            raise
+    return x
+
+
+# (config, block names) of each model the layer-stack operator has run;
+# the operator's schema takes tensors and scalars, so it gets an index here
+_STACKS: List[Tuple[ModelConfig, Tuple[str, ...]]] = []
+
+
+def _stack_key(cfg: ModelConfig, names: Tuple[str, ...]) -> int:
+    entry = (cfg, names)
+    if entry not in _STACKS:
+        _STACKS.append(entry)
+    return _STACKS.index(entry)
+
+
+@torch.library.custom_op("repro_torch::decode_layers", mutates_args=())
+def _decode_layers_op(blocks: List[torch.Tensor], x: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor, slot: torch.Tensor,
+                      cos: torch.Tensor, sin: torch.Tensor,
+                      lengths: Optional[torch.Tensor],
+                      mask: Optional[torch.Tensor], stack: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``decode_layers`` as one functional operator (the reference's scan
+    equation, ``model.py:1061-1075``): it updates copies of the caches and
+    returns ``(x, k_new, v_new)``.  ``blocks`` are the stacked block
+    tensors in the order of the names registered under ``stack``."""
+    cfg, names = _STACKS[stack]
+    k, v = k.clone(), v.clone()
+    x = decode_layers(cfg, dict(zip(names, blocks)), x, k, v, slot,
+                      (cos, sin), lengths, mask)
+    return x, k, v
+
+
+@_decode_layers_op.register_fake
+def _(blocks, x, k, v, slot, cos, sin, lengths, mask, stack):
+    return torch.empty_like(x), torch.empty_like(k), torch.empty_like(v)
+
+
 # ------------------------------------------------------------------- model
 class Model:
-    """Prefill and greedy-decode entry points of a dense decoder.  They
-    take the parameters explicitly and run where the parameters are."""
+    """Prefill and greedy-decode entry points of a dense or MoE decoder.
+    They take the parameters explicitly and run where the parameters
+    are."""
 
     def __init__(self, cfg: ModelConfig):
         check_config(cfg)
@@ -309,13 +385,19 @@ class Model:
         return self._logits(params, x[:, -1]), cache
 
     def decode_step(self, params: Params, cache: Params,
-                    tokens: torch.Tensor):
+                    tokens: torch.Tensor, *, traced: bool = False):
         """One token for every sequence of the batch: tokens [B] ->
         (logits [B,vocab] float32, cache).  Updates ``cache`` in place —
         this token's K/V, ``kv_pos`` and ``pos`` — and returns it.  Every
         index comes from ``cache["pos"]`` on its device (the reference's
         ``model.py:1037-1052``): no host read, so a captured step
-        replays."""
+        replays.
+
+        ``traced=True`` is the form ``make_fx`` traces: the layer stack
+        runs as the one functional operator ``repro_torch::decode_layers``,
+        and the returned cache is a new dict whose ``k``/``v`` are that
+        operator's new tensors (``kv_pos`` and ``pos`` are still updated
+        in place), as the reference's step returns a new cache."""
         cfg = self.cfg
         embed = params["embed"]
         tokens = torch.as_tensor(tokens, device=embed.device)
@@ -336,18 +418,20 @@ class Model:
                 mask1 &= kv_pos > pos - cfg.sliding_window
             mask = mask1[None].expand(B, Sc)
         rope = rope_angles(pos[None], cfg.head_dim_, cfg.rope_theta)
-        for i in range(cfg.num_layers):
-            try:
-                x = attn_mixer_step(cfg, _layer(params["blocks"], i), x,
-                                    cache["k"][i], cache["v"][i], slot,
-                                    rope, lengths=lengths, length_mask=mask)
-            except Exception as e:
-                e.add_note(f"decode layer {i}")
-                raise
+        blocks = params["blocks"]
+        if traced:
+            names = tuple(sorted(blocks))
+            x, k, v = torch.ops.repro_torch.decode_layers(
+                [blocks[n] for n in names], x, cache["k"], cache["v"], slot,
+                *rope, lengths, mask, _stack_key(cfg, names))
+            cache = dict(cache, k=k, v=v)
+        else:
+            x = decode_layers(cfg, blocks, x, cache["k"], cache["v"], slot,
+                              rope, lengths, mask)
         pos.add_(1)
         return self._logits(params, x[:, 0]), cache
 
 
 __all__ = ["Model", "UnsupportedConfigError", "attn_mixer_seq",
-           "attn_mixer_step", "check_config", "decode_lengths", "init_cache",
-           "init_params"]
+           "attn_mixer_step", "check_config", "decode_layers",
+           "decode_lengths", "init_cache", "init_params"]

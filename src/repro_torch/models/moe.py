@@ -1,0 +1,127 @@
+"""The Mixture-of-Experts FFN of ``src/repro/models/moe.py`` on PyTorch, its
+single-device path (``moe_ffn`` with no mesh, ``:101-105``).
+
+Routing is the reference's: router logits in float32, softmax, top-k,
+renormalised (``router_topk``).  Each expert takes at most ``capacity``
+tokens: a token's slot in expert e is the number of tokens before it in
+the flat ``[B*S]`` order that also chose e; a token at or past the
+capacity is dropped for that expert (GShard's capacity factor).  The
+expert FFNs run batched over the experts, three products over ``[E,
+capacity, d]`` buffers with the weights' (bf16) operands accumulated in
+float32, as the reference's ``preferred_element_type=f32`` einsums do;
+a token's expert outputs are summed in ascending expert id in float32.
+
+The reference loops over the experts one at a time; here each step of
+that loop is a batched tensor operation, so the routing costs a fixed
+number of launches and no host read (the decode step stays capturable).
+The expert-parallel mesh path (``:107-139``) comes with the sharded model
+code (ROADMAP Queue 1 item 14).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def router_topk(x: torch.Tensor, w_router: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x [B,S,d] -> (probs [B,S,k] float32, expert ids [B,S,k] int32,
+    load-balance aux loss), the reference's ``router_topk`` (``:26-42``).
+    Equal probabilities may be ordered differently from ``lax.top_k``."""
+    logits = x.float() @ w_router.float()
+    probs = torch.softmax(logits, dim=-1)                    # [B,S,E]
+    top_p, top_i = torch.topk(probs, k, dim=-1)
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    E = w_router.shape[-1]
+    # one-hot of the first choice by comparison: F.one_hot reads the ids'
+    # range on the host
+    first = (top_i[..., :1] == torch.arange(E, device=x.device)).float()
+    f = first.reshape(-1, E).mean(0)
+    p = probs.reshape(-1, E).mean(0)
+    aux = E * torch.sum(f * p)
+    return top_p, top_i.to(torch.int32), aux
+
+
+def dispatch(top_i: torch.Tensor, num_experts: int, capacity: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """top_i [T,k] -> (slot [T,E] int64, kept [T,E] bool): token t's row
+    in expert e's buffer and whether it is there.  A token that chose e
+    gets slot ``cumsum`` of e's hits before and at it, minus one, and is
+    kept while that is below ``capacity``; every other (t, e) gets slot
+    ``capacity``, the overflow row (``_expert_pass``, ``:58-63``)."""
+    experts = torch.arange(num_experts, device=top_i.device)
+    hit = (top_i[:, :, None] == experts).any(1)              # [T,E]
+    pos = torch.cumsum(hit.long(), 0) - 1
+    kept = hit & (pos < capacity)
+    return torch.where(kept, pos, capacity), kept
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [E,m,n] @ b [E,n,p] with float32 accumulation and result: bf16
+    products are exact in float32, so only the order of the sums can
+    differ from the reference's einsums.  On the card cuBLAS takes the
+    bf16 operands as they are; on the CPU they are widened first."""
+    if a.dtype == torch.float32 or not a.is_cuda:
+        return torch.bmm(a.float(), b.float())
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def expert_pass(x_flat: torch.Tensor, top_p: torch.Tensor,
+                top_i: torch.Tensor, w_gate: torch.Tensor,
+                w_up: torch.Tensor, w_down: torch.Tensor,
+                capacity: int) -> torch.Tensor:
+    """Tokens -> experts -> tokens, capacity-bounded: x_flat [T,d], top_p /
+    top_i [T,k], w_gate / w_up [E,d,ff], w_down [E,ff,d].  Returns y [T,d]
+    float32 (the reference's ``_expert_pass`` with every expert local)."""
+    T, d = x_flat.shape
+    E, k = w_gate.shape[0], top_i.shape[1]
+    wt, dev = w_gate.dtype, x_flat.device
+    top_i = top_i.long()
+    slot, kept = dispatch(top_i, E, capacity)
+    gate = torch.where(top_i[:, :, None] == torch.arange(E, device=dev),
+                       top_p[:, :, None], 0.0).sum(1)        # [T,E]
+    # the token in each expert's rows (T: none); only the overflow column
+    # receives more than one token, and it is dropped
+    src = torch.full((E, capacity + 1), T, dtype=torch.long, device=dev)
+    src.scatter_(1, slot.t(), torch.arange(T, device=dev).expand(E, T))
+    xz = torch.cat([x_flat.to(wt), x_flat.new_zeros((1, d), dtype=wt)])
+    buf = xz[src[:, :capacity]]                              # [E,cap,d]
+    h = (F.silu(_bmm_f32(buf, w_gate)) * _bmm_f32(buf, w_up)).to(wt)
+    out = _bmm_f32(h, w_down)                                # [E,cap,d]
+    out = torch.cat([out, out.new_zeros((E, 1, d))], 1).reshape(-1, d)
+    # each token's chosen experts in ascending id, their rows and weights
+    ids = torch.sort(top_i, dim=1).values                    # [T,k]
+    rows = ids * (capacity + 1) + slot.gather(1, ids)
+    weight = torch.where(kept & (gate > 0), gate, 0.0).gather(1, ids)
+    part = out[rows] * weight[:, :, None]                    # [T,k,d]
+    y = part[:, 0]
+    for j in range(1, k):
+        y = y + part[:, j]
+    return y
+
+
+def capacity_of(tokens: int, k: int, num_experts: int,
+                capacity_factor: float) -> int:
+    """Rows per expert: the reference's ``max(1, int(B*S*k/E*cf))``."""
+    return max(1, int(tokens * k / num_experts * capacity_factor))
+
+
+def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
+            w_up: torch.Tensor, w_down: torch.Tensor, *, k: int,
+            capacity_factor: float = 1.25
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B,S,d] -> (y [B,S,d] in x's dtype, aux loss).  w_gate / w_up
+    [E,d,ff], w_down [E,ff,d]."""
+    B, S, d = x.shape
+    E = w_router.shape[-1]
+    top_p, top_i, aux = router_topk(x, w_router, k)
+    cap = capacity_of(B * S, k, E, capacity_factor)
+    y = expert_pass(x.reshape(-1, d), top_p.reshape(-1, k),
+                    top_i.reshape(-1, k), w_gate, w_up, w_down, cap)
+    return y.reshape(B, S, d).to(x.dtype), aux
+
+
+__all__ = ["capacity_of", "dispatch", "expert_pass", "moe_ffn",
+           "router_topk"]

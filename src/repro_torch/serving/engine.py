@@ -21,22 +21,30 @@ statistics come out equal to the reference's.  Prefill runs eagerly.
 The decode step (embedding through ``argmax``) is the counterpart of the
 reference's ``jax.jit``: a ``DecodeStep`` over static buffers, one per
 batch size, captured as a CUDA graph on the card and run eagerly on the
-CPU; each step's tokens stay on the device until the batch ends.  The
-reference's L1 level, ``analyse_decode_schedule`` (a jaxpr reorder of the
-decode step), comes with the ``torch.fx`` front end (ROADMAP Queue 1
-item 6).
+CPU; each step's tokens stay on the device until the batch ends.
+
+The L1 level, ``analyse_decode_schedule``, is the paper's reordering of
+the decode step: the step's traced form (``Model.decode_step(...,
+traced=True)``: the layer stack as one operator, as the reference's scan
+is one jaxpr equation) is traced by ``make_fx(functionalize(...),
+tracing_mode="fake")`` — shapes only: no cache is allocated and no
+kernel launched — and its aten nodes reordered by ``core.fx_reorder``.
+The engine keeps the report and the reordered step.  The layer body is
+not reordered, as the reference does not reorder inside its scan.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.allocator import DynamicAllocator
+from repro_torch.core.fx_reorder import ReorderReport, reorder_graph_module
 from repro_torch.core.graph import Graph
 from repro_torch.cuda_graphs import CapturedGraph, capture
 from repro_torch.device import resolve_device
@@ -201,15 +209,61 @@ class DecodeStep:
             self.logits = self._run()
 
 
+class ReorderedStep:
+    """The decode step's traced form with its nodes in the order the
+    paper's scheduler chose: called like ``Model.decode_step(params,
+    cache, tokens)``, it returns ``(logits, cache)``, ``cache`` a new dict
+    with the new ``k``/``v`` (``kv_pos`` and ``pos`` updated in place)."""
+
+    def __init__(self, gm: torch.fx.GraphModule, spec) -> None:
+        self.gm, self.spec = gm, spec
+
+    def __call__(self, params, cache, tokens):
+        leaves, spec = pytree.tree_flatten((params, cache, tokens))
+        if spec != self.spec:
+            raise ValueError("the step was traced for other arguments")
+        logits, k, v = self.gm(*leaves)
+        return logits, dict(cache, k=k, v=v)
+
+
+def reorder_decode_step(model: Model, params, batch_size: int,
+                        cache_len: int
+                        ) -> Tuple[ReorderedStep, ReorderReport]:
+    """Trace ``model``'s decode step (traced form) over ``params`` (on any
+    device, ``"meta"`` included), a cache of ``cache_len`` slots and
+    ``[batch_size]`` int64 tokens, all fake tensors on the parameters'
+    device, and reorder its nodes for minimal peak liveness."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.proxy_tensor import make_fx
+    dev = params["embed"].device
+    with FakeTensorMode():
+        cache = init_cache(model.cfg, batch_size, cache_len, device=dev)
+        tokens = torch.zeros((batch_size,), dtype=torch.int64, device=dev)
+    leaves, spec = pytree.tree_flatten((params, cache, tokens))
+
+    def step(*xs):
+        p, c, t = pytree.tree_unflatten(list(xs), spec)
+        logits, new = model.decode_step(p, c, t, traced=True)
+        return logits, new["k"], new["v"]
+
+    gm = make_fx(torch.func.functionalize(step),
+                 tracing_mode="fake")(*leaves)
+    gm, report = reorder_graph_module(gm)
+    return ReorderedStep(gm, spec), report
+
+
 class ServingEngine:
     """Batch-mode LLM serving: prefill + greedy decode of up to
     ``max_batch`` requests at a time, with a KV block per admitted request
     in a ``DynamicAllocator`` arena (``hbm_budget`` its capacity, None =
-    unbounded).  ``params`` must lie on ``device`` (None: the card)."""
+    unbounded).  ``params`` must lie on ``device`` (None: the card).
+    ``execute_reordered`` is stored and not read, as in the reference:
+    serving runs the in-place step; ``analyse_decode_schedule`` keeps the
+    reordered one in ``reordered_step``."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
-                 cache_len: int = 128, hbm_budget: Optional[int] = None,
-                 device=None):
+                 cache_len: int = 128, execute_reordered: bool = False,
+                 hbm_budget: Optional[int] = None, device=None):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params lie on {params['embed'].device}, the "
@@ -219,11 +273,24 @@ class ServingEngine:
         self.params = params
         self.max_batch = max_batch
         self.cache_len = cache_len
+        self.execute_reordered = execute_reordered
         # ---- L2: KV arena (virtual device-memory bookkeeping)
         self.block_bytes = kv_block_bytes(cfg, cache_len)
         self.arena = DynamicAllocator(capacity=hbm_budget)
+        self.reorder_report: Optional[ReorderReport] = None
+        self.reordered_step: Optional[ReorderedStep] = None
         self.stats = EngineStats(lanes=max_batch)
         self._steps: Dict[int, DecodeStep] = {}
+
+    # --------------------------------------------------------- L1 reorder
+    def analyse_decode_schedule(self, batch_size: int) -> ReorderReport:
+        """Trace the decode step of ``batch_size`` sequences at the engine's
+        ``cache_len`` (shapes only), apply the paper's scheduler to its
+        nodes, keep and return the liveness report; the reordered step
+        goes to ``reordered_step``."""
+        self.reordered_step, self.reorder_report = reorder_decode_step(
+            self.model, self.params, batch_size, self.cache_len)
+        return self.reorder_report
 
     def decode_step(self, batch: int) -> DecodeStep:
         """The engine's ``DecodeStep`` for ``batch`` sequences, made (and on
@@ -300,5 +367,6 @@ class ServingEngine:
                               t_dec) for i, r in enumerate(batch)]
 
 
-__all__ = ["DecodeStep", "GraphServingEngine", "Request", "RequestResult",
-           "ServingEngine", "kv_block_bytes"]
+__all__ = ["DecodeStep", "GraphServingEngine", "ReorderedStep", "Request",
+           "RequestResult", "ServingEngine", "kv_block_bytes",
+           "reorder_decode_step"]

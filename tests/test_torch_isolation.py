@@ -39,7 +39,7 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.serving.admission, repro_torch.core.fx_reorder, "
             "repro_torch.core.fx_partial\n"
             f"sys.path.insert(0, {str(ROOT / 'examples_torch')!r})\n"
-            "import quickstart, mcu_deploy\n"
+            "import quickstart, mcu_deploy, serve_llm\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -63,7 +63,8 @@ def test_no_source_imports_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     examples = sorted((ROOT / "examples_torch").glob("*.py"))
-    assert {f.name for f in examples} >= {"quickstart.py", "mcu_deploy.py"}
+    assert {f.name for f in examples} >= {"quickstart.py", "mcu_deploy.py",
+                                          "serve_llm.py"}
     files += examples
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
@@ -96,7 +97,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         launch_serve.main(["--arch", "llama3.2-3b@smoke", "--requests", "1"])
     with pytest.raises(DeviceInitError, match="device='cpu'"):
         ShardedServingEngine(g)
-    for example in ("quickstart", "mcu_deploy"):
+    for example in ("quickstart", "mcu_deploy", "serve_llm"):
         main = runpy.run_path(str(ROOT / "examples_torch" / f"{example}.py"))
         with pytest.raises(DeviceInitError, match="device='cpu'"):
             main["main"]([])

@@ -224,12 +224,16 @@ def test_serving_engine_matches_the_reference(twins, monkeypatch):
 
 def test_launcher_serves_on_the_cpu(capsys):
     """``python -m repro_torch.launch.serve --device cpu``: the reference
-    launcher's traffic, every request answered."""
+    launcher's traffic, every request answered, then the L1 report."""
     eng = launch_serve.main(["--arch", ARCH, "--requests", "3",
                              "--max-new", "4", "--device", "cpu"])
     out = capsys.readouterr().out
     assert out.count("tokens=") == 3 and "arena peak" in out
     assert eng.stats.requests == 3 and eng.device.type == "cpu"
+    # the last line is the decode step's reordering at max_batch 4, cache 96
+    last = out.strip().splitlines()[-1]
+    assert last.startswith("fx reorder: 25 ops, peak 6,829,804 -> ")
+    assert eng.reorder_report.n_eqns == 25
 
 
 def _shapes(tree, prefix=""):
@@ -242,7 +246,9 @@ def _shapes(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-7b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-7b",
+                                  "granite-moe-1b-a400m",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_full_width_parameters_and_kv_blocks_match(arch):
     """At full width, without allocating: the port's parameters on the meta
     device have the reference's names, shapes and dtypes, and a request's
@@ -256,6 +262,13 @@ def test_full_width_parameters_and_kv_blocks_match(arch):
     for cache_len in (96, 2048):
         assert kv_block_bytes(cfg, cache_len) == \
             jax_kv_block_bytes(jcfg, cache_len)
+    # the MoE models' sizes with the vocab padded to a multiple of 128
+    # (the config's param_count: 1 384 912 896 and 41 872 261 120 over the
+    # logical vocab): Granite-3.0-1B-A400M fits one 80 GB card in bf16
+    # (2.77 GB), Phi-3.5-MoE does not (83.75 GB)
+    n = sum(int(np.prod(shape)) for shape, _ in got.values())
+    assert n == {"granite-moe-1b-a400m": 1_385_219_072,
+                 "phi3.5-moe-42b-a6.6b": 41_873_051_648}.get(arch, n)
     if arch == "llama3.2-3b":
         assert kv_block_bytes(cfg, 96) == 11_010_436
         assert kv_block_bytes(cfg, 2048) == 234_889_220
@@ -263,8 +276,8 @@ def test_full_width_parameters_and_kv_blocks_match(arch):
         assert tuple(c["k"].shape) == (28, 4, 2048, 8, 128)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if get_config(a).arch_type != "dense"])
+@pytest.mark.parametrize("arch", [
+    a for a in ARCH_IDS if get_config(a).arch_type not in ("dense", "moe")])
 def test_configs_outside_the_slice_raise(arch):
     cfg = get_config(f"{arch}@smoke")
     with pytest.raises(UnsupportedConfigError, match="ROADMAP Queue 1 item"):
