@@ -67,7 +67,17 @@ after (the launches of the kernel checks above do not count):
   — with the same lines and ``phase graphs llm-moe`` as Llama's mixes;
   continuation and a 2-layer card vs CPU comparison in float32
   (``MOE_CONT_TOL``, ``MOE_CPU_TOL``: the routing's near-ties are why), and
-  its reordered step as above at cache 96.
+  its reordered step as above at cache 96;
+* ``phase llm-ssm``: the recurrent decoders at full width and depth, bf16,
+  after the earlier models' weights are freed — Zamba2-2.7B (54 Mamba2
+  layers in 9 groups, each closed by one weight-shared attention block of
+  32 heads of 80) and then xLSTM-350M (4 groups of 5 mLSTM + 1 sLSTM) —
+  each through the launcher's engine with the short mix (K7 9x per
+  prefill and K8 9x per decode step for Zamba2, none for xLSTM; the
+  state bytes a request plans, ``SSM_MIXES``), ``phase graphs
+  llm-ssm-*``, the continuation at full depth and card vs CPU at two
+  groups, both in float32 (``SSM_CONT_TOL``, ``SSM_CPU_TOL``), and the
+  reordered step bit-equal to the eager one at cache 96.
 
 ``run``, ``serve`` and the decode step run as CUDA graphs (the compiled
 forms ``CompiledExecutor.fn``/``batched_fn`` and ``ServingEngine``'s
@@ -224,6 +234,24 @@ MOE_MIX = ("moe", 8, None, 12, 4, 96, 4_718_980)
 # would drop other tokens.  Card vs CPU keeps 1.25 (capacity drops on
 # both sides): 2 layers, 1e-3 * max|logit|.
 MOE_CONT_TOL, MOE_CPU_TOL = 2e-3, 1e-3
+# ---- the recurrent decoders (phase llm-ssm), random weights drawn on the
+# card by the launcher, the short mix as LLM_MIXES', with the bytes of a
+# request's block: Zamba2-2.7B (bf16, 4.85 GB: 9 K/V layers of 32 heads of
+# 80 at cache 96, conv windows and SSM states of 54 Mamba2 layers) and
+# xLSTM-350M (bf16, 0.43 GB: recurrent states only)
+SSM_MIXES = (("zamba2-2.7b", ("ssm-zamba", 8, None, 12, 4, 96, 81_326_980)),
+             ("xlstm-350m", ("ssm-xlstm", 8, None, 12, 4, 96, 21_118_980)))
+# Their float32 checks (TF32 off).  Continuation at full depth: the prefill
+# of t tokens runs the chunked recurrence (intra-chunk products, the state
+# carried between chunks) and K7, the step after a prefill of t-1 the
+# stepped recurrence and K8; each sums in another order (~1e-7 relative per
+# operation, the attention kernels within F32_ATTN = 2e-5 of max|want|),
+# so a layer moves the residual stream by ~1e-6 of its scale, and 54
+# (Zamba2) or 24 (xLSTM) layers add up to ~5e-5 if every error adds; the
+# gates' exponentials (sLSTM's running max, the decays) amplify no more
+# than the residual norms let them: 2e-3 * max|logit|.  Card vs CPU at two
+# groups (12 layers): the same sums on cuBLAS against MKL, 1e-3.
+SSM_CONT_TOL, SSM_CPU_TOL, SSM_CPU_LAYERS = 2e-3, 1e-3, 12
 # K7/K8 against their plain versions.  float32: |got - want| <= F32_ATTN *
 # max|want| (the JAX package's own kernel tests use 2e-5); bf16: within one
 # bf16 ulp of want plus 1e-6 * max|want| — both compute in float32 from the
@@ -248,7 +276,12 @@ HOSTILE_K7 = [(1, 1, 1, 2, 2, 64, True, False),
               (2, 77, 77, 4, 2, 40, True, False),
               (1, 200, 200, 4, 2, 40, False, False),
               (1, 200, 200, 6, 2, 128, True, False),
-              (1, 70, 333, 6, 3, 128, True, False)]
+              (1, 70, 333, 6, 3, 128, True, False),
+              # Zamba2's shared attention: D 80 (zero-filled to the
+              # 128-wide tile), H = K
+              (4, 23, 23, 32, 32, 80, True, False),
+              (1, 200, 200, 4, 4, 80, True, True),
+              (2, 65, 150, 8, 8, 80, False, False)]
 # hostile K8 shapes (B, S, H, K, D, lengths, strided): caches of 96 and
 # 2048 rows, lengths 1, S and between, GQA 1, 3 and 4; `strided` caches are
 # views of a longer cache, MISALIGNED ones start one element into it (no
@@ -266,7 +299,12 @@ HOSTILE_K8 = [(1, 96, 8, 8, 128, (1,), False),
               (2, 2048, 12, 4, 40, (1039, 5), False),
               (2, 1024, 6, 2, 96, (1024, 600), True),
               (4, 2048, 24, 8, 128, (1039, 2, 2048, 9), MISALIGNED),
-              (2, 512, 6, 2, 40, (300, 1), MISALIGNED)]
+              (2, 512, 6, 2, 40, (300, 1), MISALIGNED),
+              # D 80, H = K (Zamba2): 160-byte rows take the 16-byte path;
+              # strided and misaligned caches the others
+              (4, 96, 32, 32, 80, (1, 24, 96, 50), False),
+              (2, 2048, 4, 4, 80, (2048, 17), True),
+              (3, 300, 8, 8, 80, (300, 1, 129), MISALIGNED)]
 # test_torch_qconv.py's hostile shapes: odd H/W, 1-lane channels, stride
 # 2, asymmetric pads (H, W, Cin, Cout, k, stride, hpad, wpad; Cout=0 for
 # depthwise)
@@ -1877,21 +1915,50 @@ class AttentionChecks:
             f"mismatches {self.mismatches['decode_attention']} [{card}]")
 
 
+def attn_layers(cfg) -> int:
+    """K7 launches per prefill and K8 launches per decode step: one per
+    layer of a uniform stack, one per group of Zamba2 (its shared attention
+    block), none in xLSTM."""
+    from repro_torch.models.model import model_layout
+    lay = model_layout(cfg)
+    return {"uniform": cfg.num_layers, "zamba": lay.groups}.get(lay.kind, 0)
+
+
+def tree_map(fn, tree):
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def cut_depth(params, layers):
+    """The weights of a model's first ``layers`` layers: a uniform stack's
+    first layers, or for Zamba2 and xLSTM (``layers`` a multiple of 6)
+    the first ``layers // 6`` groups, the shared attention block whole."""
+    g = layers // 6
+    keep = {"blocks": layers, "mamba": layers, "mlstm": 5 * g, "slstm": g}
+    return {k: ({n: t[:keep[k]] for n, t in v.items()} if k in keep else v)
+            if isinstance(v, dict) else v for k, v in params.items()}
+
+
 class Llm:
     """An LLM serving path of the port at full width and depth in bf16
     through ``repro_torch.launch.serve``'s engine, K7 on every prefill
-    layer, K8 on every decode layer: Llama-3.2-3B (``LLM_ARCH``), or the
-    MoE decoder Granite-3.0-1B-A400M (``MOE_ARCH``)."""
+    attention, K8 on every decode attention: Llama-3.2-3B (``LLM_ARCH``),
+    the MoE decoder Granite-3.0-1B-A400M (``MOE_ARCH``), or a recurrent
+    decoder of ``SSM_MIXES`` (Zamba2: one attention a group; xLSTM:
+    none)."""
 
     def __init__(self, torch, np, device, paths, attn, card, arch=LLM_ARCH,
                  mix=LLM_MIXES[0]):
         from repro_torch.configs import get_config
         from repro_torch.launch import serve as launch_serve
+        from repro_torch.models.model import model_layout
         self.torch, self.np, self.device = torch, np, device
         self.paths, self.attn, self.card = paths, attn, card
         self.launch_serve = launch_serve
         t0 = time.perf_counter()
         self.cfg = get_config(arch)
+        self.n_attn = attn_layers(self.cfg)
+        lay = model_layout(self.cfg)
         # the launcher's own engine: random bf16 weights drawn on the card
         self.engine = launch_serve.build_engine(
             arch, max_batch=mix[4], cache_len=mix[5], device=device)
@@ -1901,6 +1968,10 @@ class Llm:
         moe = (f", {self.cfg.num_experts} experts top "
                f"{self.cfg.experts_per_token}, capacity factor "
                f"{self.cfg.capacity_factor}" if self.cfg.is_moe else "")
+        if lay.kind != "uniform":
+            moe += (f", layout {lay.kind}: {lay.groups} groups of "
+                    f"{lay.per_group}, {self.n_attn} attention "
+                    f"applications a step")
         log(f"phase llm-init: {arch} ({self.cfg.num_layers} layers, d "
             f"{self.cfg.d_model}, {self.cfg.num_heads} heads / "
             f"{self.cfg.num_kv_heads} kv heads of {self.cfg.head_dim_}, "
@@ -1931,7 +2002,7 @@ class Llm:
         step), then a profiled run for the device's busy time.  Returns
         (engine, requests, results, profiler busy ms)."""
         from repro_torch.serving import ServingEngine
-        torch, np, L = self.torch, self.np, self.cfg.num_layers
+        torch, np, L = self.torch, self.np, self.n_attn
         t0 = time.perf_counter()
         eng = ServingEngine(self.cfg, self.params, max_batch=max_batch,
                             cache_len=cache_len, device=self.device)
@@ -2064,9 +2135,9 @@ class Llm:
             torch, lambda: [self._eager_batch(model, b, cache_len)
                             for b in batches], reps=1)
         k8 = "decode_attention_kernel"
-        assert busy_g > 0 and by_g.get(k8, 0) > 0, (
-            "the profiler saw no K8 inside the decode replays", busy_g,
-            sorted(by_g))
+        assert busy_g > 0 and (by_g.get(k8, 0) > 0) == (self.n_attn > 0), (
+            "the profiler saw K8 inside the decode replays, or not, "
+            "against the model's attention count", busy_g, sorted(by_g))
         assert abs(busy_g - busy_e) <= 0.1 * busy_e, (busy_g, busy_e)
         cap = eng.decode_step(mb).graph
         log(f"phase graphs llm-{label}: served tokens == eager loop of "
@@ -2103,11 +2174,8 @@ class Llm:
     def float32(self, **changes):
         """(config, parameters) of this model in float32 — the same
         weights, widened exactly — with ``changes`` to the config."""
-        f32 = self.torch.float32
-        params = {k: v.to(f32) for k, v in self.params.items()
-                  if k != "blocks"}
-        params["blocks"] = {k: v.to(f32)
-                            for k, v in self.params["blocks"].items()}
+        assert not self.torch.backends.cuda.matmul.allow_tf32
+        params = tree_map(lambda t: t.to(self.torch.float32), self.params)
         return self.cfg.replace(dtype="float32", **changes), params
 
     def continuation(self, label="llm", cfg=None, params=None,
@@ -2130,8 +2198,8 @@ class Llm:
                                      cache_len=CONT_T)
             dec, _ = model.decode_step(params, cache, toks[:, -1])
         launches = self.paths.read()
-        assert launches["flash_attention"] == 2 * cfg.num_layers
-        assert launches["decode_attention"] == cfg.num_layers
+        assert launches["flash_attention"] == 2 * attn_layers(cfg)
+        assert launches["decode_attention"] == attn_layers(cfg)
         assert torch.isfinite(full).all() and torch.isfinite(dec).all()
         err = float((dec - full).abs().max())
         scale = float(full.abs().max())
@@ -2143,21 +2211,20 @@ class Llm:
             f"launches {launches} ({time.perf_counter() - t0:.2f} s)")
         assert err <= tol * scale, (err, scale)
 
-    def card_vs_cpu(self, label="llm", cfg=None, params=None, tol=CPU_TOL):
-        """A 2-layer variant at full width (the first two layers' weights)
-        on the card and on the port's plain CPU path: prefill and
-        teacher-forced decode steps agree.  ``cfg``/``params`` replace the
-        served model (the MoE check runs it in float32)."""
+    def card_vs_cpu(self, label="llm", cfg=None, params=None, tol=CPU_TOL,
+                    layers=CPU_LAYERS):
+        """A ``layers``-layer variant at full width (the first layers'
+        weights; whole groups for Zamba2 and xLSTM) on the card and on the
+        port's plain CPU path: prefill and teacher-forced decode steps
+        agree.  ``cfg``/``params`` replace the served model (the MoE and
+        recurrent checks run it in float32)."""
         from repro_torch.models import Model
         torch, np = self.torch, self.np
         t0 = time.perf_counter()
         cfg, params = cfg or self.cfg, params or self.params
-        cfg = cfg.replace(num_layers=CPU_LAYERS)
-        card = dict(params)
-        card["blocks"] = {k: v[:CPU_LAYERS] for k, v in
-                          params["blocks"].items()}
-        cpu = {k: v.cpu() for k, v in card.items() if k != "blocks"}
-        cpu["blocks"] = {k: v.cpu() for k, v in card["blocks"].items()}
+        cfg = cfg.replace(num_layers=layers)
+        card = cut_depth(params, layers)
+        cpu = tree_map(lambda t: t.cpu(), card)
         model = Model(cfg)
         rng = np.random.default_rng(3)
         toks = rng.integers(0, cfg.vocab_size, (2, CPU_S))
@@ -2179,9 +2246,9 @@ class Llm:
         for (g, _), (w, _) in zip(got, want):
             err = float((g.cpu() - w).abs().max())
             ratios.append(err / float(w.abs().max()))
-        assert launches["flash_attention"] == CPU_LAYERS
-        assert launches["decode_attention"] == CPU_LAYERS * CPU_STEPS
-        log(f"phase {label}-card-vs-cpu: {CPU_LAYERS} layers at full width, "
+        assert launches["flash_attention"] == attn_layers(cfg)
+        assert launches["decode_attention"] == attn_layers(cfg) * CPU_STEPS
+        log(f"phase {label}-card-vs-cpu: {layers} layers at full width, "
             f"prefill of {CPU_S} tokens + {CPU_STEPS} decode steps, "
             f"{cfg.dtype}: max|card - cpu| / max|cpu logit| per call "
             + ", ".join(f"{r:.3e}" for r in ratios)
@@ -2203,7 +2270,9 @@ class Llm:
         order, so nothing may differ."""
         from repro_torch.models import Model
         from repro_torch.serving import ServingEngine
-        torch, L = self.torch, self.cfg.num_layers
+        torch, L = self.torch, self.n_attn
+        stack_ops = (torch.ops.repro_torch.decode_layers.default,
+                     torch.ops.repro_torch.decode_recurrent_layers.default)
         t0 = time.perf_counter()
         reports = []
         for cache_len in caches:
@@ -2215,7 +2284,7 @@ class Llm:
             secs = time.perf_counter() - t
             assert torch.cuda.memory_allocated() == mem   # nothing on card
             ops = [n for n in eng.reordered_step.gm.graph.nodes
-                   if n.target is torch.ops.repro_torch.decode_layers.default]
+                   if n.target in stack_ops]
             assert len(ops) == 1 and rep.peak_after <= rep.peak_before
             assert eng.reorder_report is rep
             reports.append((cache_len, rep, secs))
@@ -2425,6 +2494,23 @@ def main() -> int:
     moe.card_vs_cpu("llm-moe", *moe.float32(), tol=MOE_CPU_TOL)
     moe.reorder("llm-moe", MOE_MIX[5:6])
     log(f"phase llm-moe: {time.perf_counter() - t0:.2f} s")
+    # the recurrent decoders, one at a time, the earlier models freed
+    del llm, moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for arch, mix in SSM_MIXES:
+        rec = Llm(torch, np, device, paths, attn, card, arch=arch, mix=mix)
+        rec.graphs(mix[0], *rec.serve(*mix))
+        label = f"llm-{mix[0]}"
+        rec.continuation(label, *rec.float32(), tol=SSM_CONT_TOL)
+        rec.card_vs_cpu(label, *rec.float32(), tol=SSM_CPU_TOL,
+                        layers=SSM_CPU_LAYERS)
+        rec.reorder(label, mix[5:6])
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase llm-ssm: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     n_main = attn.main_path()
     log(f"phase attention-main-path: K7/K8 vs plain at the {n_main} "

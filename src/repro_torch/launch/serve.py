@@ -6,11 +6,18 @@
 The same flags as the reference's ``repro.launch.serve``, plus
 ``--device``: the default runs on the card (and fails without CUDA);
 ``--device cpu`` runs the plain PyTorch path on the host (use a ``@smoke``
-arch there).  Weights are random, drawn on the device from a
-``torch.Generator`` seeded with 0; prompts come from
-``np.random.default_rng(0)`` as in the reference.  The last line is the
-paper's reordering of the decode step at ``--max-batch``
-(``ServingEngine.analyse_decode_schedule``), as the reference prints it.
+arch there).  Every decoder of the port serves: the dense and MoE ones,
+the Zamba2 hybrid and xLSTM, e.g.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch zamba2-2.7b@smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m
+
+Weights are random, drawn on the device from a ``torch.Generator`` seeded
+with 0; prompts come from ``np.random.default_rng(0)`` as in the
+reference.  The last line is the paper's reordering of the decode step
+at ``--max-batch`` (``ServingEngine.analyse_decode_schedule``), as the
+reference prints it.
 """
 from __future__ import annotations
 

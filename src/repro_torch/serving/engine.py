@@ -164,15 +164,16 @@ def _synchronize(device: torch.device) -> None:
 
 class DecodeStep:
     """One greedy decode step over static buffers: ``tok`` [B] (this
-    step's tokens, overwritten with the next ones) and ``cache``, a decode
-    cache of ``cache_len`` slots (``k``/``v`` [L, B, Sc, K, hd],
-    ``kv_pos``, ``pos``), updated in place.  ``logits`` holds the last
-    step's.  On the card the step is a CUDA graph, captured by
-    ``capture()``; on the CPU it runs eagerly."""
+    step's tokens, overwritten with the next ones) and ``cache``, the
+    model's decode cache at ``cache_len`` (``pos``, and the layout's K/V
+    slots, conv windows and recurrent states), updated in place.
+    ``logits`` holds the last step's.  On the card the step is a CUDA
+    graph, captured by ``capture()``; on the CPU it runs eagerly."""
 
     def __init__(self, model: Model, params, batch: int, cache_len: int,
                  device: torch.device) -> None:
         self.model, self.params, self.device = model, params, device
+        self.cache_len = cache_len
         self.cache = init_cache(model.cfg, batch, cache_len, device=device)
         self.tok = torch.zeros((batch,), dtype=torch.int64, device=device)
         self.logits: Optional[torch.Tensor] = None
@@ -192,7 +193,7 @@ class DecodeStep:
             self.graph = capture(
                 self._run, self.device,
                 what=f"the decode step (B {B}, cache_len "
-                     f"{self.cache['k'].shape[2]})")
+                     f"{self.cache_len})")
             self.logits = self.graph.output
         return self.graph
 
@@ -213,17 +214,20 @@ class ReorderedStep:
     """The decode step's traced form with its nodes in the order the
     paper's scheduler chose: called like ``Model.decode_step(params,
     cache, tokens)``, it returns ``(logits, cache)``, ``cache`` a new dict
-    with the new ``k``/``v`` (``kv_pos`` and ``pos`` updated in place)."""
+    with new tensors for the names in ``state`` (the model's
+    ``stack_state``: ``k``/``v``, or a recurrent layout's states too;
+    ``kv_pos`` and ``pos`` are updated in place)."""
 
-    def __init__(self, gm: torch.fx.GraphModule, spec) -> None:
-        self.gm, self.spec = gm, spec
+    def __init__(self, gm: torch.fx.GraphModule, spec,
+                 state: Tuple[str, ...]) -> None:
+        self.gm, self.spec, self.state = gm, spec, state
 
     def __call__(self, params, cache, tokens):
         leaves, spec = pytree.tree_flatten((params, cache, tokens))
         if spec != self.spec:
             raise ValueError("the step was traced for other arguments")
-        logits, k, v = self.gm(*leaves)
-        return logits, dict(cache, k=k, v=v)
+        logits, *new = self.gm(*leaves)
+        return logits, dict(cache, **dict(zip(self.state, new)))
 
 
 def reorder_decode_step(model: Model, params, batch_size: int,
@@ -244,12 +248,12 @@ def reorder_decode_step(model: Model, params, batch_size: int,
     def step(*xs):
         p, c, t = pytree.tree_unflatten(list(xs), spec)
         logits, new = model.decode_step(p, c, t, traced=True)
-        return logits, new["k"], new["v"]
+        return (logits,) + tuple(new[n] for n in model.stack_state)
 
     gm = make_fx(torch.func.functionalize(step),
                  tracing_mode="fake")(*leaves)
     gm, report = reorder_graph_module(gm)
-    return ReorderedStep(gm, spec), report
+    return ReorderedStep(gm, spec, model.stack_state), report
 
 
 class ServingEngine:

@@ -236,6 +236,37 @@ def test_launcher_serves_on_the_cpu(capsys):
     assert eng.reorder_report.n_eqns == 25
 
 
+@pytest.mark.parametrize("arch", ["zamba2-2.7b@smoke", "xlstm-350m@smoke"])
+def test_recurrent_decoders_serve_the_references_tokens(arch):
+    """The Zamba2 hybrid and xLSTM through ``ServingEngine`` on
+    tests/test_serving.py's traffic: the reference engine's greedy tokens,
+    KV block and arena statistics; then the launcher serves the model on
+    the CPU and prints the L1 report, the layer stack one operator."""
+    jcfg = jax_get_config(arch)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = get_config(arch)
+    params = llm_params_from_numpy(
+        cfg, jax.tree_util.tree_map(np.asarray, jparams))
+    jeng = JaxServingEngine(jcfg, jparams, max_batch=2, cache_len=48)
+    jres = jeng.serve(_jax_reqs(5))
+    eng = ServingEngine(cfg, params, max_batch=2, cache_len=48, device="cpu")
+    res = eng.serve([Request(r.rid, r.prompt, r.max_new_tokens)
+                     for r in _jax_reqs(5)])
+    assert [r.tokens for r in res] == [r.tokens for r in jres]
+    assert eng.block_bytes == jeng.block_bytes
+    for name in ("kv_arena_peak_bytes", "kv_static_bytes", "peak_concurrent",
+                 "requests", "dispatches"):
+        assert getattr(eng.stats, name) == getattr(jeng.stats, name), name
+    eng = launch_serve.main(["--arch", arch, "--requests", "3",
+                             "--max-new", "4", "--device", "cpu"])
+    assert eng.stats.requests == 3
+    op = {"zamba2-2.7b@smoke": 25, "xlstm-350m@smoke": 10}[arch]
+    assert eng.reorder_report.n_eqns == op
+    assert [n.target for n in eng.reordered_step.gm.graph.nodes
+            if n.op == "call_function"].count(
+        torch.ops.repro_torch.decode_recurrent_layers.default) == 1
+
+
 def _shapes(tree, prefix=""):
     out = {}
     for k, v in tree.items():
@@ -248,12 +279,16 @@ def _shapes(tree, prefix=""):
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-7b",
                                   "granite-moe-1b-a400m",
-                                  "phi3.5-moe-42b-a6.6b"])
+                                  "phi3.5-moe-42b-a6.6b", "zamba2-2.7b",
+                                  "xlstm-350m"])
 def test_full_width_parameters_and_kv_blocks_match(arch):
     """At full width, without allocating: the port's parameters on the meta
-    device have the reference's names, shapes and dtypes, and a request's
-    KV block the reference's bytes (Llama-3.2-3B: k + v = 2·28·Sc·8·128·2,
-    plus pos 4 B and kv_pos 4·Sc)."""
+    device have the reference's names, shapes and dtypes (Zamba2's
+    unstacked ``shared_attn`` included), and a request's KV block the
+    reference's bytes (Llama-3.2-3B: k + v = 2·28·Sc·8·128·2, plus pos
+    4 B and kv_pos 4·Sc; Zamba2: 9 K/V layers, conv windows and SSM
+    states; xLSTM: its recurrent states only, whatever the cache
+    length)."""
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     got = _shapes(init_params(cfg, device="meta"))
     want = _shapes(jax.eval_shape(lambda: jax_init_params(
@@ -268,7 +303,14 @@ def test_full_width_parameters_and_kv_blocks_match(arch):
     # (2.77 GB), Phi-3.5-MoE does not (83.75 GB)
     n = sum(int(np.prod(shape)) for shape, _ in got.values())
     assert n == {"granite-moe-1b-a400m": 1_385_219_072,
-                 "phi3.5-moe-42b-a6.6b": 41_873_051_648}.get(arch, n)
+                 "phi3.5-moe-42b-a6.6b": 41_873_051_648,
+                 "zamba2-2.7b": 2_422_386_848,
+                 "xlstm-350m": 212_300_880}.get(arch, n)
+    blocks = {"zamba2-2.7b": (81_326_980, 261_231_108),
+              "xlstm-350m": (21_118_980, 21_118_980)}
+    if arch in blocks:
+        assert (kv_block_bytes(cfg, 96), kv_block_bytes(cfg, 2048)) == \
+            blocks[arch]
     if arch == "llama3.2-3b":
         assert kv_block_bytes(cfg, 96) == 11_010_436
         assert kv_block_bytes(cfg, 2048) == 234_889_220
@@ -277,7 +319,8 @@ def test_full_width_parameters_and_kv_blocks_match(arch):
 
 
 @pytest.mark.parametrize("arch", [
-    a for a in ARCH_IDS if get_config(a).arch_type not in ("dense", "moe")])
+    a for a in ARCH_IDS
+    if get_config(a).arch_type not in ("dense", "moe", "hybrid", "ssm")])
 def test_configs_outside_the_slice_raise(arch):
     cfg = get_config(f"{arch}@smoke")
     with pytest.raises(UnsupportedConfigError, match="ROADMAP Queue 1 item"):
