@@ -13,8 +13,10 @@ and K8 among them; K2/K3/K5 reading cascade ring windows in place, at
 the 224 KB schedule's windows and at hostile ones), and times it there
 (K1 and K6 at every distinct pointwise shape of the reorder-only int8 and
 float32 schedules, K2/K3/K5 at every depthwise and k×k shape of the int8
-MobileNet and SwiftNet schedules, K7 at the largest prefill of each LLM
-mix, K8 at the largest decode step).  Integer kernels must be bit-exact;
+MobileNet and SwiftNet schedules, K7 at the largest prefill of each of
+Llama's mixes and K8 at the long mix's largest decode step — the shapes
+of PERF.md's rows — and both at Whisper's encoder and cross-attention
+shapes).  Integer kernels must be bit-exact;
 K6 must stay within the worst-case float32 dot-product error bound (see
 ``F32_BOUND``); K7/K8 within ``F32_ATTN`` of max|want| in float32 and one
 bf16 ulp in bf16.  The build phase prints ``ptxas -v``'s registers and
@@ -77,7 +79,19 @@ after (the launches of the kernel checks above do not count):
   state bytes a request plans, ``SSM_MIXES``), ``phase graphs
   llm-ssm-*``, the continuation at full depth and card vs CPU at two
   groups, both in float32 (``SSM_CONT_TOL``, ``SSM_CPU_TOL``), and the
-  reordered step bit-equal to the eager one at cache 96.
+  reordered step bit-equal to the eager one at cache 96;
+* ``phase llm-encdec`` and ``phase llm-vlm``, after the recurrent models
+  are freed: Whisper-large-v3 (32 encoder layers over 1 500 frames, 32
+  decoder layers with cross attention; K7 96x per prefill — 32 encoder,
+  32 self, 32 cross, non-causal but the self ones — and K8 64x per
+  decode step, the cross calls over all 1 500 rows of the cross cache;
+  cache 96) and InternVL2-1B (256 patch rows before each prompt, 24
+  layers, H 14 / K 2; K7 and K8 24x; cache 320), at full width and depth
+  in bf16, each through the launcher's engine with the short mix and its
+  zero frames / patches (``CROSS_MIXES``), ``phase graphs llm-*``, the
+  continuation at full depth and card vs CPU at two layers, both in
+  float32 on the data pipeline's seeded frames / patches
+  (``CROSS_CONT_TOL``, ``CROSS_CPU_TOL``), and the reordered step.
 
 ``run``, ``serve`` and the decode step run as CUDA graphs (the compiled
 forms ``CompiledExecutor.fn``/``batched_fn`` and ``ServingEngine``'s
@@ -252,6 +266,40 @@ SSM_MIXES = (("zamba2-2.7b", ("ssm-zamba", 8, None, 12, 4, 96, 81_326_980)),
 # than the residual norms let them: 2e-3 * max|logit|.  Card vs CPU at two
 # groups (12 layers): the same sums on cuBLAS against MKL, 1e-3.
 SSM_CONT_TOL, SSM_CPU_TOL, SSM_CPU_LAYERS = 2e-3, 1e-3, 12
+# ---- the encoder-decoder and the vision-language decoder (phase
+# llm-encdec, phase llm-vlm), after the recurrent ones are freed, random
+# weights drawn on the card by the launcher, the reference launcher's
+# traffic as LLM_MIXES' short mix, with the bytes of a request's block:
+# Whisper-large-v3 (bf16, 4.05 GB: 32 encoder + 32 decoder layers of 20
+# heads of 64; k + v at cache 96 and the cross cache ck + cv of 1 500
+# frames, 2*32*(96 + 1500)*20*64*2 B + pos + kv_pos) and InternVL2-1B
+# (bf16, 1.26 GB: 24 layers, 14 heads / 2 kv heads of 64; cache 320 = 256
+# patch rows + <= 23 prompt tokens + 12 new ones: at 96 the prefill would
+# keep only its last 96 positions, as the reference's does, and drop
+# every patch row).  The engine feeds both zero patches / frames, as the
+# reference's engine does; the continuation, card-vs-CPU and reorder
+# checks feed the data pipeline's seeded ones (SyntheticLMDataset(cfg, B,
+# S, seed).batch(0)), since zero frames give a zero encoder output and a
+# cross attention that adds nothing.
+CROSS_MIXES = (("whisper-large-v3",
+                ("encdec", 8, None, 12, 4, 96, 261_489_028)),
+               ("internvl2-1b", ("vlm", 8, None, 12, 4, 320, 3_933_444)))
+# Their checks run in float32 (TF32 off): in bf16 Llama's 28-layer
+# continuation came to 2.041e-02 of CONT_TOL's 3e-2 on an H100 (PERF.md),
+# a 1.5x margin, and Whisper's decoder has two attentions a layer over 32
+# layers.
+# Continuation at full depth: both paths run the encoder and the cross K/V
+# on the same frames with the same shapes, so they agree there; in the
+# decoder the prefill of t tokens runs K7 and the step after a prefill of
+# t-1 runs K8, each within F32_ATTN (2e-5 of max|want|) of plain
+# attention, and the GEMMs sum in other orders (~1e-7 relative).  If every
+# error adds, Whisper's 64 attentions (32 self + 32 cross) move a logit by
+# at most ~1.3e-3 of its scale, InternVL2's 24 by ~5e-4: 2e-3 *
+# max|logit|.  Card vs CPU at two layers (Whisper: two encoder and two
+# decoder layers) at full width: cuBLAS against MKL and the kernels
+# against the chunked path, 1e-3, as SSM_CPU_TOL.
+CROSS_CONT_TOL, CROSS_CPU_TOL = 2e-3, 1e-3
+CROSS_WHISPER_FRAMES = 1500     # encoder_seq: the rows of its cross cache
 # K7/K8 against their plain versions.  float32: |got - want| <= F32_ATTN *
 # max|want| (the JAX package's own kernel tests use 2e-5); bf16: within one
 # bf16 ulp of want plus 1e-6 * max|want| — both compute in float32 from the
@@ -281,7 +329,12 @@ HOSTILE_K7 = [(1, 1, 1, 2, 2, 64, True, False),
               # 128-wide tile), H = K
               (4, 23, 23, 32, 32, 80, True, False),
               (1, 200, 200, 4, 4, 80, True, True),
-              (2, 65, 150, 8, 8, 80, False, False)]
+              (2, 65, 150, 8, 8, 80, False, False),
+              # Whisper's encoder (1 500 frames, longer than any row
+              # above, non-causal: the bf16 body's P·V in three parts) and
+              # its prefill cross attention (23 text rows over the frames)
+              (4, 1500, 1500, 20, 20, 64, False, False),
+              (4, 23, 1500, 20, 20, 64, False, False)]
 # hostile K8 shapes (B, S, H, K, D, lengths, strided): caches of 96 and
 # 2048 rows, lengths 1, S and between, GQA 1, 3 and 4; `strided` caches are
 # views of a longer cache, MISALIGNED ones start one element into it (no
@@ -304,7 +357,9 @@ HOSTILE_K8 = [(1, 96, 8, 8, 128, (1,), False),
               # strided and misaligned caches the others
               (4, 96, 32, 32, 80, (1, 24, 96, 50), False),
               (2, 2048, 4, 4, 80, (2048, 17), True),
-              (3, 300, 8, 8, 80, (300, 1, 129), MISALIGNED)]
+              (3, 300, 8, 8, 80, (300, 1, 129), MISALIGNED),
+              # Whisper's cross cache: every row of 1 500 frames, H = K
+              (4, 1500, 20, 20, 64, (1500,) * 4, False)]
 # test_torch_qconv.py's hostile shapes: odd H/W, 1-lane channels, stride
 # 2, asymmetric pads (H, W, Cin, Cout, k, stride, hpad, wpad; Cout=0 for
 # depthwise)
@@ -405,6 +460,7 @@ def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
 # ring gathers, pushes and concats; not the inputs' upload or the outputs'
 # download)
 COPY = "copy DtoD"
+PROFILE_TRIES = 3
 
 
 def device_time(torch, fn, reps: int = 3, counts=None):
@@ -412,34 +468,42 @@ def device_time(torch, fn, reps: int = 3, counts=None):
     activities ``torch.profiler`` records, with the top names by time and
     the time of every name (a kernel of the port by its ``<name>_kernel``
     function, device-to-device copies as ``COPY``).  ``counts``, a dict,
-    receives the activities of each name per call."""
+    receives the activities of each name per call.  Late in a long run
+    the profiler can return a window without its device records (the
+    host-side launches are there), so a window with none is profiled
+    again, up to ``PROFILE_TRIES`` times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            m = re.search(r"\w+_kernel|Memcpy \w+|Memset", e.name)
-            name = m.group(0) if m else e.name[:40]
-            if "copy_kernel" in e.name or name == "Memcpy DtoD":
-                name = COPY
-            by_name[name] = by_name.get(name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3 / reps
-            if counts is not None:
-                counts[name] = counts.get(name, 0) + 1 / reps
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name, seen = {}, {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                m = re.search(r"\w+_kernel|Memcpy \w+|Memset", e.name)
+                name = m.group(0) if m else e.name[:40]
+                if "copy_kernel" in e.name or name == "Memcpy DtoD":
+                    name = COPY
+                by_name[name] = by_name.get(name, 0.0) + \
+                    e.time_range.elapsed_us() / 1e3 / reps
+                seen[name] = seen.get(name, 0) + 1 / reps
+        if by_name:
+            break
+    if counts is not None:
+        for name, n in seen.items():
+            counts[name] = counts.get(name, 0) + n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return sum(by_name.values()), top, by_name
 
 
 def dev(ms):
     """A profiler device time for a log line; a profile that recorded no
-    device activity (the profiler drops a window now and then) is "not
-    measured", never 0."""
+    device activity in ``PROFILE_TRIES`` windows is "not measured", never
+    0."""
     return f"{ms:.5f}" if ms > 0 else "not measured"
 
 
@@ -1876,6 +1940,25 @@ class AttentionChecks:
                     shape=shape)
 
 
+    def whisper_timings(self, card):
+        """``timing`` at Whisper's own shapes, bf16, as its phase launched
+        them: the encoder, the largest prefill cross attention and a decode
+        step's cross attention over all ``CROSS_WHISPER_FRAMES`` rows."""
+        bf16, Se = self.torch.bfloat16, CROSS_WHISPER_FRAMES
+        enc, cross = [], []
+        for c in self.main_k7:
+            if c[1][1] == Se and c[2] == bf16 and not c[3]:
+                (enc if c[0][1] == Se else cross).append(c)
+        self.timing("flash_attention", card, label="Whisper encoder",
+                    config=enc[0])
+        self.timing("flash_attention", card,
+                    label="Whisper's largest prefill cross attention",
+                    config=max(cross, key=lambda c: c[0][1]))
+        self.timing("decode_attention", card,
+                    label="Whisper decode step's cross attention",
+                    config=next(c for c in self.main_k8
+                                if c[1][1] == Se and c[2] == bf16))
+
     def k8_splits(self, card, config, splits):
         """K8 at ``config`` (one of ``main_k8``) with each cluster size of
         ``splits`` forced through the planner hook ``dec_ops._plan``:
@@ -1915,13 +1998,18 @@ class AttentionChecks:
             f"mismatches {self.mismatches['decode_attention']} [{card}]")
 
 
-def attn_layers(cfg) -> int:
-    """K7 launches per prefill and K8 launches per decode step: one per
-    layer of a uniform stack, one per group of Zamba2 (its shared attention
-    block), none in xLSTM."""
+def attn_launches(cfg):
+    """(K7 launches per prefill, K8 launches per decode step): one each per
+    layer of a uniform stack and per group of Zamba2 (its shared attention
+    block), none in xLSTM; Whisper runs K7 once per encoder layer and twice
+    per decoder layer (self, then cross attention) and K8 twice per
+    decoder layer."""
     from repro_torch.models.model import model_layout
     lay = model_layout(cfg)
-    return {"uniform": cfg.num_layers, "zamba": lay.groups}.get(lay.kind, 0)
+    if lay.kind == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+    n = {"uniform": cfg.num_layers, "zamba": lay.groups}.get(lay.kind, 0)
+    return n, n
 
 
 def tree_map(fn, tree):
@@ -1931,10 +2019,12 @@ def tree_map(fn, tree):
 
 def cut_depth(params, layers):
     """The weights of a model's first ``layers`` layers: a uniform stack's
-    first layers, or for Zamba2 and xLSTM (``layers`` a multiple of 6)
-    the first ``layers // 6`` groups, the shared attention block whole."""
+    first layers (Whisper's: its encoder's first ``layers`` too), or for
+    Zamba2 and xLSTM (``layers`` a multiple of 6) the first ``layers //
+    6`` groups, the shared attention block whole."""
     g = layers // 6
-    keep = {"blocks": layers, "mamba": layers, "mlstm": 5 * g, "slstm": g}
+    keep = {"blocks": layers, "encoder": layers, "mamba": layers,
+            "mlstm": 5 * g, "slstm": g}
     return {k: ({n: t[:keep[k]] for n, t in v.items()} if k in keep else v)
             if isinstance(v, dict) else v for k, v in params.items()}
 
@@ -1943,9 +2033,10 @@ class Llm:
     """An LLM serving path of the port at full width and depth in bf16
     through ``repro_torch.launch.serve``'s engine, K7 on every prefill
     attention, K8 on every decode attention: Llama-3.2-3B (``LLM_ARCH``),
-    the MoE decoder Granite-3.0-1B-A400M (``MOE_ARCH``), or a recurrent
+    the MoE decoder Granite-3.0-1B-A400M (``MOE_ARCH``), a recurrent
     decoder of ``SSM_MIXES`` (Zamba2: one attention a group; xLSTM:
-    none)."""
+    none), or a model of ``CROSS_MIXES`` (Whisper: the encoder and cross
+    attention too; InternVL2: the patch rows in every prefill)."""
 
     def __init__(self, torch, np, device, paths, attn, card, arch=LLM_ARCH,
                  mix=LLM_MIXES[0]):
@@ -1957,7 +2048,7 @@ class Llm:
         self.launch_serve = launch_serve
         t0 = time.perf_counter()
         self.cfg = get_config(arch)
-        self.n_attn = attn_layers(self.cfg)
+        self.n_k7, self.n_k8 = attn_launches(self.cfg)
         lay = model_layout(self.cfg)
         # the launcher's own engine: random bf16 weights drawn on the card
         self.engine = launch_serve.build_engine(
@@ -1968,10 +2059,18 @@ class Llm:
         moe = (f", {self.cfg.num_experts} experts top "
                f"{self.cfg.experts_per_token}, capacity factor "
                f"{self.cfg.capacity_factor}" if self.cfg.is_moe else "")
-        if lay.kind != "uniform":
+        if lay.kind in ("zamba", "xlstm"):
             moe += (f", layout {lay.kind}: {lay.groups} groups of "
-                    f"{lay.per_group}, {self.n_attn} attention "
+                    f"{lay.per_group}, {self.n_k8} attention "
                     f"applications a step")
+        if lay.kind == "encdec":
+            moe += (f", encoder {self.cfg.encoder_layers} layers over "
+                    f"{self.cfg.encoder_seq} frames of "
+                    f"{self.cfg.frontend_dim}, cross attention in every "
+                    f"decoder layer")
+        if self.cfg.num_patch_tokens:
+            moe += (f", {self.cfg.num_patch_tokens} patch rows of "
+                    f"{self.cfg.frontend_dim} before each prompt")
         log(f"phase llm-init: {arch} ({self.cfg.num_layers} layers, d "
             f"{self.cfg.d_model}, {self.cfg.num_heads} heads / "
             f"{self.cfg.num_kv_heads} kv heads of {self.cfg.head_dim_}, "
@@ -1998,11 +2097,12 @@ class Llm:
               block_bytes):
         """One traffic mix through ``ServingEngine.serve``: a warm-up
         batch (which captures the decode step of ``max_batch`` rows), then
-        the counted run (K7 28x per prefill, K8 28x per replayed decode
-        step), then a profiled run for the device's busy time.  Returns
-        (engine, requests, results, profiler busy ms)."""
+        the counted run (``attn_launches``: K7 28x per prefill and K8 28x
+        per replayed decode step for Llama), then a profiled run for the
+        device's busy time.  Returns (engine, requests, results, profiler
+        busy ms)."""
         from repro_torch.serving import ServingEngine
-        torch, np, L = self.torch, self.np, self.n_attn
+        torch, np = self.torch, self.np
         t0 = time.perf_counter()
         eng = ServingEngine(self.cfg, self.params, max_batch=max_batch,
                             cache_len=cache_len, device=self.device)
@@ -2016,8 +2116,8 @@ class Llm:
         launches = self.paths.read()
         batches = [reqs[i:i + max_batch] for i in range(0, n, max_batch)]
         steps = sum(max(r.max_new_tokens for r in b) - 1 for b in batches)
-        want = {"flash_attention": L * len(batches),
-                "decode_attention": L * steps}
+        want = {"flash_attention": self.n_k7 * len(batches),
+                "decode_attention": self.n_k8 * steps}
         assert {k: launches[k] for k in ATTENTION} == want, (launches, want)
         assert all(v == 0 for k, v in launches.items()
                    if k not in ATTENTION), launches
@@ -2039,7 +2139,8 @@ class Llm:
         log(f"phase llm-{label}: {n} requests (prompts "
             f"{sorted({len(r.prompt) for r in reqs})} tokens), {max_new} new "
             f"tokens each, max_batch {max_batch}, cache_len {cache_len}: "
-            f"launches {launches} (K7 {L}/prefill, K8 {L}/decode step); "
+            f"launches {launches} (K7 {self.n_k7}/prefill, K8 "
+            f"{self.n_k8}/decode step); "
             f"per batch prefill_ms/decode_ms "
             + ", ".join(f"{p:.3f}/{d:.3f}" for p, d in per_batch)
             + f"; graphed decode {1e3 * dec_s / steps:.3f} ms/step, "
@@ -2061,10 +2162,9 @@ class Llm:
         ``Model.decode_step``: (tokens per row, decode ms from the first
         argmax to the host's read of the tokens)."""
         torch = self.torch
-        logits, cache = model.prefill(
-            self.params, {"tokens": torch.as_tensor(self._padded(batch),
-                                                    device=self.device)},
-            cache_len=cache_len)
+        logits, cache = model.prefill(self.params,
+                                      self._feed(self._padded(batch)),
+                                      cache_len=cache_len)
         torch.cuda.synchronize()
         max_new = max(r.max_new_tokens for r in batch)
         t0 = time.perf_counter()
@@ -2111,10 +2211,9 @@ class Llm:
         # the captured step, teacher-forced with the eager tokens
         err = scale = 0.0
         for b, want in zip(batches, logits):
-            first, cache = model.prefill(
-                self.params, {"tokens": torch.as_tensor(self._padded(b),
-                                                        device=self.device)},
-                cache_len=cache_len)
+            first, cache = model.prefill(self.params,
+                                         self._feed(self._padded(b)),
+                                         cache_len=cache_len)
             step = eng.decode_step(len(b))
             step.load(cache, torch.argmax(first, -1))
             del cache
@@ -2135,7 +2234,7 @@ class Llm:
             torch, lambda: [self._eager_batch(model, b, cache_len)
                             for b in batches], reps=1)
         k8 = "decode_attention_kernel"
-        assert busy_g > 0 and (by_g.get(k8, 0) > 0) == (self.n_attn > 0), (
+        assert busy_g > 0 and (by_g.get(k8, 0) > 0) == (self.n_k8 > 0), (
             "the profiler saw K8 inside the decode replays, or not, "
             "against the model's attention count", busy_g, sorted(by_g))
         assert abs(busy_g - busy_e) <= 0.1 * busy_e, (busy_g, busy_e)
@@ -2161,6 +2260,27 @@ class Llm:
             f"({time.perf_counter() - t0:.2f} s)")
         assert err <= CONT_TOL * scale, (err, scale)
 
+    def _feed(self, tokens, seed=None, cfg=None, device=None):
+        """A prefill's batch of ``tokens`` [B, S] on ``device`` (default the
+        card) and, for a VLM or Whisper, its patches / frames: the
+        engine's zero stubs (``seed`` None), or the data pipeline's seeded
+        ones, ``SyntheticLMDataset(cfg, B, patch rows + S, seed)
+        .batch(0)``'s."""
+        from repro_torch.data import SyntheticLMDataset
+        from repro_torch.serving.engine import modality_stubs
+        torch = self.torch
+        cfg, device = cfg or self.cfg, device or self.device
+        B, S = tokens.shape
+        if seed is None:
+            feed = modality_stubs(cfg, B, device)
+        else:
+            batch = SyntheticLMDataset(
+                cfg, B, (cfg.num_patch_tokens or 0) + S, seed).batch(0)
+            feed = {n: torch.as_tensor(a, device=device)
+                    for n, a in batch.items() if n != "tokens"}
+        feed["tokens"] = torch.as_tensor(tokens, device=device)
+        return feed
+
     def _padded(self, batch):
         """The batch's prompts left-padded with token 0, as the engine
         pads them."""
@@ -2183,23 +2303,28 @@ class Llm:
         """Decoding token t after a prefill of t-1 tokens gives the logits
         of prefilling t tokens (tests/test_arch_smoke.py:78-93) at full
         width and depth: K7 against K8.  ``cfg``/``params`` replace the
-        served model (the MoE check runs it in float32)."""
+        served model (the MoE check runs it in float32).  A VLM's or
+        Whisper's patches / frames come from the data pipeline (seed 2),
+        the same in both prefills; positions count the patch rows."""
         from repro_torch.models import Model
         torch, np = self.torch, self.np
         t0 = time.perf_counter()
         cfg, params = cfg or self.cfg, params or self.params
         model = Model(cfg)
-        toks = torch.as_tensor(np.random.default_rng(2).integers(
-            0, cfg.vocab_size, (2, CONT_T)), device=self.device)
+        toks = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                                 (2, CONT_T))
+        stubs = self._feed(toks, seed=2, cfg=cfg)
         self.paths.reset()
         with self.attn.record():
-            full, _ = model.prefill(params, {"tokens": toks})
-            _, cache = model.prefill(params, {"tokens": toks[:, :-1]},
-                                     cache_len=CONT_T)
-            dec, _ = model.decode_step(params, cache, toks[:, -1])
+            full, _ = model.prefill(params, stubs)
+            _, cache = model.prefill(
+                params, dict(stubs, tokens=stubs["tokens"][:, :-1]),
+                cache_len=(cfg.num_patch_tokens or 0) + CONT_T)
+            dec, _ = model.decode_step(params, cache, stubs["tokens"][:, -1])
         launches = self.paths.read()
-        assert launches["flash_attention"] == 2 * attn_layers(cfg)
-        assert launches["decode_attention"] == attn_layers(cfg)
+        k7, k8 = attn_launches(cfg)
+        assert launches["flash_attention"] == 2 * k7, launches
+        assert launches["decode_attention"] == k8, launches
         assert torch.isfinite(full).all() and torch.isfinite(dec).all()
         err = float((dec - full).abs().max())
         scale = float(full.abs().max())
@@ -2216,29 +2341,34 @@ class Llm:
         """A ``layers``-layer variant at full width (the first layers'
         weights; whole groups for Zamba2 and xLSTM) on the card and on the
         port's plain CPU path: prefill and teacher-forced decode steps
-        agree.  ``cfg``/``params`` replace the served model (the MoE and
-        recurrent checks run it in float32)."""
+        agree.  ``cfg``/``params`` replace the served model (the MoE,
+        recurrent and cross-attention checks run it in float32).  A VLM's
+        or Whisper's patches / frames come from the data pipeline (seed
+        3), the same on both sides."""
         from repro_torch.models import Model
         torch, np = self.torch, self.np
         t0 = time.perf_counter()
         cfg, params = cfg or self.cfg, params or self.params
-        cfg = cfg.replace(num_layers=layers)
+        cfg = cfg.replace(num_layers=layers, encoder_layers=layers
+                          if cfg.encoder_layers else 0)
         card = cut_depth(params, layers)
         cpu = tree_map(lambda t: t.cpu(), card)
         model = Model(cfg)
         rng = np.random.default_rng(3)
         toks = rng.integers(0, cfg.vocab_size, (2, CPU_S))
         steps = rng.integers(0, cfg.vocab_size, (CPU_STEPS, 2))
+        cache_len = (cfg.num_patch_tokens or 0) + CPU_S + CPU_STEPS
         self.paths.reset()
         with self.attn.record():
-            got = [model.prefill(card, {"tokens": torch.as_tensor(
-                toks, device=self.device)}, cache_len=CPU_S + CPU_STEPS)]
+            got = [model.prefill(card, self._feed(toks, seed=3, cfg=cfg),
+                                 cache_len=cache_len)]
             for t in steps:
                 got.append(model.decode_step(card, got[-1][1],
                                              torch.as_tensor(t)))
         launches = self.paths.read()
-        want = [model.prefill(cpu, {"tokens": torch.as_tensor(toks)},
-                              cache_len=CPU_S + CPU_STEPS)]
+        want = [model.prefill(cpu, self._feed(toks, seed=3, cfg=cfg,
+                                              device=torch.device("cpu")),
+                              cache_len=cache_len)]
         for t in steps:
             want.append(model.decode_step(cpu, want[-1][1],
                                           torch.as_tensor(t)))
@@ -2246,8 +2376,9 @@ class Llm:
         for (g, _), (w, _) in zip(got, want):
             err = float((g.cpu() - w).abs().max())
             ratios.append(err / float(w.abs().max()))
-        assert launches["flash_attention"] == attn_layers(cfg)
-        assert launches["decode_attention"] == attn_layers(cfg) * CPU_STEPS
+        k7, k8 = attn_launches(cfg)
+        assert launches["flash_attention"] == k7, launches
+        assert launches["decode_attention"] == k8 * CPU_STEPS, launches
         log(f"phase {label}-card-vs-cpu: {layers} layers at full width, "
             f"prefill of {CPU_S} tokens + {CPU_STEPS} decode steps, "
             f"{cfg.dtype}: max|card - cpu| / max|cpu logit| per call "
@@ -2267,10 +2398,11 @@ class Llm:
         tensor bit-equal, K8 launched once a layer through the reordered
         module.  Both run the same aten calls and K8 launches on the same
         operands, only the nodes outside the layer operator in another
-        order, so nothing may differ."""
+        order, so nothing may differ.  A VLM's or Whisper's patches /
+        frames come from the data pipeline (seed 4)."""
         from repro_torch.models import Model
         from repro_torch.serving import ServingEngine
-        torch, L = self.torch, self.n_attn
+        torch, L = self.torch, self.n_k8
         stack_ops = (torch.ops.repro_torch.decode_layers.default,
                      torch.ops.repro_torch.decode_recurrent_layers.default)
         t0 = time.perf_counter()
@@ -2292,10 +2424,9 @@ class Llm:
                 first = eng
         model = Model(self.cfg)
         prompts = self._padded(self._requests(REORDER_B, None, 2))
-        logits, cache = model.prefill(
-            self.params, {"tokens": torch.as_tensor(prompts,
-                                                    device=self.device)},
-            cache_len=caches[0])
+        logits, cache = model.prefill(self.params,
+                                      self._feed(prompts, seed=4),
+                                      cache_len=caches[0])
         tok = torch.argmax(logits, -1)
         mine = {n: t.clone() for n, t in cache.items()}
         self.paths.reset()
@@ -2480,6 +2611,21 @@ def main() -> int:
     for mix in LLM_MIXES:
         llm.graphs(mix[0], *llm.serve(*mix))
         n_k7[mix[0]] = len(attn.main_k7)
+    # PERF.md's K7/K8 rows, at the shapes of every earlier run: the long
+    # mix's largest prefill and decode step (Whisper's encoder and cross
+    # cache are larger and get lines of their own), and the short mix's
+    # largest prefill.  Timed here rather than at the end: the profiler
+    # loses more device records the more windows a run has opened
+    # (PERF.md §7)
+    timings.update({
+        "flash_attention": attn.timing(
+            "flash_attention", card, label="long mix's largest",
+            config=attn.largest("flash_attention", n_k7["long"])),
+        "decode_attention": attn.timing(
+            "decode_attention", card, label="long mix's largest",
+            config=attn.largest("decode_attention"))})
+    attn.timing("flash_attention", card, label="short mix's largest prefill",
+                config=attn.largest("flash_attention", n_k7["short"]))
     llm.continuation()
     llm.card_vs_cpu()
     llm.reorder("llm", REORDER_CACHES)
@@ -2511,6 +2657,22 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     log(f"phase llm-ssm: {time.perf_counter() - t0:.2f} s")
+    # the encoder-decoder and the vision-language decoder, one at a time,
+    # the earlier models freed
+    for arch, mix in CROSS_MIXES:
+        t0 = time.perf_counter()
+        m = Llm(torch, np, device, paths, attn, card, arch=arch, mix=mix)
+        m.graphs(mix[0], *m.serve(*mix))
+        if m.cfg.encoder_layers:
+            attn.whisper_timings(card)
+        label = f"llm-{mix[0]}"
+        m.continuation(label, *m.float32(), tol=CROSS_CONT_TOL)
+        m.card_vs_cpu(label, *m.float32(), tol=CROSS_CPU_TOL)
+        m.reorder(label, mix[5:6])
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase {label}: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     n_main = attn.main_path()
     log(f"phase attention-main-path: K7/K8 vs plain at the {n_main} "
@@ -2519,9 +2681,6 @@ def main() -> int:
         f"({time.perf_counter() - t0:.2f} s)")
     assert all(v == 0 for v in attn.mismatches.values()), attn.mismatches
     checks.max_err.update(attn.max_err)
-    timings.update({name: attn.timing(name, card) for name in ATTENTION})
-    attn.timing("flash_attention", card, label="short mix's largest prefill",
-                config=attn.largest("flash_attention", n_k7["short"]))
     launches = paths.launches
     assert all(v > 0 for v in launches.values()), launches
 

@@ -1,10 +1,13 @@
 """End-to-end serving driver on the PyTorch port: batched requests through
-prefill + greedy decode on a small llama-family model, with the paper's
-memory machinery active at both levels — KV-block arena accounting and
-decode-step operator reordering.
+prefill + greedy decode on a small model (a llama-family one unless
+``--arch`` names another), with the paper's memory machinery active at
+both levels — KV-block arena accounting and decode-step operator
+reordering.
 
     PYTHONPATH=src python examples_torch/serve_llm.py               # card
     PYTHONPATH=src python examples_torch/serve_llm.py --device cpu
+    PYTHONPATH=src python examples_torch/serve_llm.py --device cpu \
+        --arch whisper-large-v3@smoke
 """
 import argparse
 import time
@@ -23,10 +26,17 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="where the model runs (default: the card; 'cpu' "
                          "for the plain path)")
+    ap.add_argument("--arch", default="llama3.2-3b@smoke",
+                    help="the model, a smoke variant: llama3.2-3b@smoke, "
+                         "granite-moe-1b-a400m@smoke, zamba2-2.7b@smoke, "
+                         "xlstm-350m@smoke, internvl2-1b@smoke (8 zero "
+                         "patch embeddings before each prompt) or "
+                         "whisper-large-v3@smoke (its encoder over 16 zero "
+                         "frames)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    cfg = get_config("llama3.2-3b@smoke")
+    cfg = get_config(args.arch)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device)
     engine = ServingEngine(cfg, params, max_batch=4, cache_len=96,

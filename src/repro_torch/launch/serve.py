@@ -6,12 +6,22 @@
 The same flags as the reference's ``repro.launch.serve``, plus
 ``--device``: the default runs on the card (and fails without CUDA);
 ``--device cpu`` runs the plain PyTorch path on the host (use a ``@smoke``
-arch there).  Every decoder of the port serves: the dense and MoE ones,
-the Zamba2 hybrid and xLSTM, e.g.
+arch there).  Every model of the port serves: the dense and MoE
+decoders, the Zamba2 hybrid and xLSTM, the vision-language InternVL2-1B
+and the encoder-decoder Whisper-large-v3 (the engine feeds them zero
+patch / frame embeddings, as the reference's does), e.g.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch zamba2-2.7b@smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-large-v3@smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch internvl2-1b --cache-len 320
+
+InternVL2-1B's 256 patch rows take cache positions too: at the default
+``--cache-len`` 96 its prefill keeps only the prompt's last 96 positions,
+as the reference's does.
 
 Weights are random, drawn on the device from a ``torch.Generator`` seeded
 with 0; prompts come from ``np.random.default_rng(0)`` as in the
@@ -58,7 +68,9 @@ def build_engine(arch: str, *, max_batch: int, cache_len: int,
 
 def main(argv: Optional[List[str]] = None) -> ServingEngine:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-3b@smoke")
+    ap.add_argument("--arch", default="llama3.2-3b@smoke",
+                    help="a registered architecture (configs.ARCH_IDS), "
+                         "'@smoke' for its reduced variant")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--max-batch", type=int, default=4)

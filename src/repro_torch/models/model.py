@@ -1,13 +1,21 @@
 """The decoder stacks of ``src/repro/models/model.py`` on PyTorch.
 
-The port builds three of the reference's layouts (``model_layout``), with
+The port builds the reference's four layouts (``model_layout``), with
 the same parameter names, shapes, scales and dtypes, the same decode cache
 and the same prefill / greedy decode contract:
 
-* ``"uniform"`` — dense and MoE decoders (Llama, Qwen2, Phi-3, GLM-4,
-  Granite-MoE, Phi-3.5-MoE): one stack of attention blocks over stacked
-  per-layer parameters ``[L, ...]``, ``moe.moe_ffn`` in place of the
-  SwiGLU FFN for MoE;
+* ``"uniform"`` — dense, MoE and vision-language decoders (Llama, Qwen2,
+  Phi-3, GLM-4, Granite-MoE, Phi-3.5-MoE, InternVL2): one stack of
+  attention blocks over stacked per-layer parameters ``[L, ...]``,
+  ``moe.moe_ffn`` in place of the SwiGLU FFN for MoE; a VLM's patch
+  embeddings (``batch["patches"]`` through ``vis_proj``) come before the
+  token rows and take positions like them;
+* ``"encdec"`` — Whisper: a non-causal encoder stack (``params
+  ["encoder"]``) over the frame embeddings (``batch["frames"]`` through
+  ``frame_proj``), and a decoder stack whose blocks add a cross-attention
+  sub-block over the encoder's keys and values, which prefill computes
+  once per layer into the cache (``ck``/``cv``) and every decode step
+  reads;
 * ``"zamba"`` — the Zamba2 hybrid: groups of Mamba2 layers
   (``params["mamba"]``, stacked ``[groups·per_group, ...]``), each group
   followed by one weight-shared attention block
@@ -15,28 +23,34 @@ and the same prefill / greedy decode contract:
 * ``"xlstm"`` — groups of mLSTM layers closed by one sLSTM layer
   (``params["mlstm"]``, ``params["slstm"]``).
 
-The recurrences are ``ssm.py``'s, in plain PyTorch on either device, as
-the reference computes them in ``jnp``.  The reference's scans over
-layers and groups are loops here; the traced form of the decode step
-wraps the layer stack in one functional operator —
-``torch.ops.repro_torch.decode_layers`` for the uniform stack,
-``torch.ops.repro_torch.decode_recurrent_layers`` for the other two — the
-counterpart of the reference's outer scan equation, so that the paper's
-reordering (``serving.ServingEngine.analyse_decode_schedule``) sees the
-layer stack as one operator, as the reference's jaxpr does.
+The modality front ends are stubs, as in the reference: frames and patches
+arrive as embeddings.  The recurrences are ``ssm.py``'s, in plain PyTorch
+on either device, as the reference computes them in ``jnp``.  The
+reference's scans over layers and groups are loops here; the traced form
+of the decode step wraps the layer stack in one functional operator —
+``torch.ops.repro_torch.decode_layers`` for the uniform and encoder-decoder
+stacks, ``torch.ops.repro_torch.decode_recurrent_layers`` for the other
+two — the counterpart of the reference's outer scan equation, so that the
+paper's reordering (``serving.ServingEngine.analyse_decode_schedule``)
+sees the layer stack as one operator, as the reference's jaxpr does.
 
 The device decides the attention, as it does for the CNN kernels: on CUDA
-tensors prefill runs the flash-attention kernel K7 and each decode step the
-decode-attention kernel K8 (``repro_torch.kernels``); on CPU tensors the
+tensors prefill runs the flash-attention kernel K7 (causal, and
+non-causal for Whisper's encoder and cross attention) and each decode step
+the decode-attention kernel K8 (over the self cache's valid prefix, and
+over all ``encoder_seq`` rows of the cross cache); on CPU tensors the
 same calls go to the plain ``layers.chunked_attention`` /
 ``layers.decode_attention``, as the reference's model does.  The kernels
 are the same computation as the reference's jnp attention
-(``src/repro/models/layers.py:7-9``, ``:135``).
+(``src/repro/models/layers.py:7-9``, ``:135``), but for one reference
+fault the port does not copy: its chunked attention gives weight to the
+zero keys that pad a ragged last chunk when ``causal=False`` (ROADMAP R6;
+Whisper's 1 500 frames in chunks of 512); the port's masks them.
 
-Configurations outside this slice raise ``UnsupportedConfigError`` naming
-the ROADMAP item that brings them: Whisper and the VLM, and a sliding
-window on the card (the CPU path has it).  The mesh and sharding code and
-``loss_fn`` come with training and sharded serving.
+A sliding window runs on the CPU path only; on the card it raises
+``UnsupportedConfigError`` naming the ROADMAP item that brings it.  The
+mesh and sharding code and ``loss_fn`` come with training and sharded
+serving.
 
 One departure from the reference: the decode step updates its cache in
 place — the new token's K/V, ``kv_pos``, ``pos``, each layer's conv
@@ -68,31 +82,24 @@ from .moe import moe_ffn
 
 Params = Dict[str, Any]
 
-# where each configuration outside this slice comes in (ROADMAP.md Queue 1)
-_LATER = {
-    "audio": "ROADMAP Queue 1 item 10 (Whisper and the VLM)",
-    "vlm": "ROADMAP Queue 1 item 10 (Whisper and the VLM)",
-}
 _WINDOW_ON_CARD = "ROADMAP Queue 1 item 16 (sliding-window attention on " \
     "the card)"
+# the reference's architecture kinds (configs/base.py: ModelConfig.arch_type)
+_KINDS = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
 
 class UnsupportedConfigError(ReproError, NotImplementedError):
-    """A model configuration this slice of the port does not build; the
-    message names the ROADMAP item that brings it."""
+    """A model configuration the port does not build: an ``arch_type`` the
+    reference does not have, or a sliding window on the card (the message
+    names the ROADMAP item that brings it)."""
 
 
 def check_config(cfg: ModelConfig) -> None:
-    """Raise ``UnsupportedConfigError`` unless ``cfg`` is a dense, MoE,
-    hybrid (Zamba2) or xLSTM decoder without patch tokens or an
-    encoder."""
-    kind = cfg.arch_type
-    if kind not in ("dense", "moe", "hybrid", "ssm") \
-            or cfg.num_patch_tokens or cfg.encoder_layers:
-        later = _LATER.get(kind, _LATER["vlm"])
+    """Raise ``UnsupportedConfigError`` unless ``cfg``'s ``arch_type`` is
+    one of the reference's."""
+    if cfg.arch_type not in _KINDS:
         raise UnsupportedConfigError(
-            f"{cfg.name}: arch_type {kind!r} is not in the port yet; it "
-            f"comes with {later}")
+            f"{cfg.name}: arch_type {cfg.arch_type!r} is none of {_KINDS}")
 
 
 def _on_card(cfg: ModelConfig, x: torch.Tensor) -> bool:
@@ -140,6 +147,7 @@ def model_layout(cfg: ModelConfig) -> Layout:
 # traced form's operator takes and returns them
 STACK_STATE = {
     "uniform": ("k", "v"),
+    "encdec": ("k", "v"),       # the cross cache ck/cv is read, not updated
     "zamba": ("conv_x", "conv_B", "conv_C", "state", "k", "v"),
     "xlstm": ("mstate", "sc", "sn", "sh", "sm"),
 }
@@ -169,10 +177,11 @@ class _Init:
         return torch.full(shape, value, dtype=dtype, device=self.dev)
 
 
-def _attn_block_params(cfg: ModelConfig, init: _Init,
-                       n_layers: int) -> Params:
+def _attn_block_params(cfg: ModelConfig, init: _Init, n_layers: int,
+                       cross: bool = False) -> Params:
     """An attention block with its FFN (``model.py:82-126``): stacked
-    ``[n_layers, ...]``, or unstacked when ``n_layers`` is 0."""
+    ``[n_layers, ...]``, or unstacked when ``n_layers`` is 0; ``cross``
+    adds Whisper's cross-attention weights, H heads for its K/V too."""
     d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     dt, f32 = init.dt, torch.float32
     L = (n_layers,) if n_layers else ()
@@ -188,6 +197,14 @@ def _attn_block_params(cfg: ModelConfig, init: _Init,
         p["bq"] = init.const(L + (H, hd), 0.0, dt)
         p["bk"] = init.const(L + (K, hd), 0.0, dt)
         p["bv"] = init.const(L + (K, hd), 0.0, dt)
+    if cross:
+        p.update({
+            "ln_x": init.const(L + (d,), 1.0, f32),
+            "wq_x": init.normal(L + (d, H, hd), s_in),
+            "wk_x": init.normal(L + (d, H, hd), s_in),
+            "wv_x": init.normal(L + (d, H, hd), s_in),
+            "wo_x": init.normal(L + (H, hd, d), 1.0 / math.sqrt(H * hd)),
+        })
     ff = cfg.d_ff
     if cfg.is_moe:
         E = cfg.num_experts
@@ -266,7 +283,7 @@ def _xlstm_block_params(cfg: ModelConfig, init: _Init, n_layers: int,
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> Params:
     """Random parameters with the reference's names, shapes, scales and
-    dtypes (``model.py:78-240``, ``:285-317``), drawn on ``device`` (None:
+    dtypes (``model.py:78-240``, ``:285-316``), drawn on ``device`` (None:
     the card; ``"meta"``: shapes only) from ``generator`` (None: a new one
     on that device seeded with 0).  Values differ from the reference's:
     the two packages' generators differ."""
@@ -289,8 +306,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         p["mlstm"] = _xlstm_block_params(
             cfg, init, lay.groups * (lay.per_group - 1), "mlstm")
         p["slstm"] = _xlstm_block_params(cfg, init, lay.groups, "slstm")
+    elif lay.kind == "encdec":
+        p["encoder"] = _attn_block_params(cfg, init, cfg.encoder_layers)
+        p["blocks"] = _attn_block_params(cfg, init, cfg.num_layers,
+                                         cross=True)
     else:
         p["blocks"] = _attn_block_params(cfg, init, cfg.num_layers)
+    fd = cfg.frontend_dim
+    if cfg.num_patch_tokens:
+        p["vis_proj"] = init.normal((fd, d), 1.0 / math.sqrt(fd))
+    if lay.kind == "encdec":
+        p["frame_proj"] = init.normal((fd, d), 1.0 / math.sqrt(fd))
     return p
 
 
@@ -300,7 +326,8 @@ def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
     the card).  ``pos`` (int32 scalar); with attention ``k``/``v``
     [layers, B, Sc, K, hd] (one layer per shared-attention application
     for Zamba2) and ``kv_pos`` ([Sc] int32, -1 = empty), ``Sc`` being
-    ``cache_len`` or the sliding window if smaller; Zamba2's conv windows
+    ``cache_len`` or the sliding window if smaller; Whisper's cross cache
+    ``ck``/``cv`` [L, B, encoder_seq, H, hd]; Zamba2's conv windows
     ``conv_x``/``conv_B``/``conv_C`` [n, B, W-1, C] in the model dtype and
     SSM ``state`` [n, B, H, N, P] float32; xLSTM's ``mstate`` [n, B, H,
     P, P+1] and ``sc``/``sn``/``sh``/``sm`` [groups, B, H, P], float32
@@ -315,13 +342,17 @@ def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     c: Params = {"pos": zeros((), torch.int32)}
-    if lay.kind in ("uniform", "zamba"):
+    if lay.kind in ("uniform", "encdec", "zamba"):
         Sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
             else cache_len
         layers = lay.groups if lay.kind == "zamba" else cfg.num_layers
         shape = (layers, B, Sc, cfg.num_kv_heads, cfg.head_dim_)
         c["k"], c["v"] = zeros(shape, dt), zeros(shape, dt)
         c["kv_pos"] = torch.full((Sc,), -1, dtype=torch.int32, device=dev)
+    if lay.kind == "encdec":
+        shape = (cfg.num_layers, B, cfg.encoder_seq, cfg.num_heads,
+                 cfg.head_dim_)
+        c["ck"], c["cv"] = zeros(shape, dt), zeros(shape, dt)
     if lay.kind == "zamba":
         n = lay.groups * lay.per_group
         H, Ph, N, W = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
@@ -390,23 +421,39 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def attn_mixer_seq(cfg: ModelConfig, p: Params, x: torch.Tensor,
                    rope: Tuple[torch.Tensor, torch.Tensor], *,
+                   causal: bool = True, cross_kv=None,
                    want_kv: bool = False):
-    """Full-sequence causal attention block at positions ``0..S-1``
-    (prefill), ``rope`` the (cos, sin) of those positions.  Returns
-    (x, (k, v) or None).  K7 on the card, the chunked path on the CPU."""
+    """Full-sequence attention block at positions ``0..S-1`` (prefill;
+    Whisper's encoder with ``causal=False``, without a window, as the
+    reference's ``model.py:817``), ``rope`` the (cos, sin) of those
+    positions.  ``cross_kv`` = (ck, cv) [B, Senc, H, hd], the encoder's
+    keys and values of this layer, adds the cross-attention sub-block:
+    non-causal, no RoPE (``model.py:429-435``).  Returns (x, (k, v) or
+    None).  K7 on the card, the chunked path on the CPU."""
     S = x.shape[1]
+    card = _on_card(cfg, x)
     h = rms_norm(x, p["ln1"])
     q, k, v = _proj_qkv(cfg, p, h)
     q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-    if _on_card(cfg, x):
-        out = kernels.flash_attention(q, k, v, causal=True)
+    if card:
+        out = kernels.flash_attention(q, k, v, causal=causal)
     else:
         positions = torch.arange(S, device=x.device)
-        out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+        out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk,
                                 q_positions=positions,
                                 kv_positions=positions,
-                                sliding_window=cfg.sliding_window)
+                                sliding_window=cfg.sliding_window
+                                if causal else 0)
     x = x + _out_proj(out, p["wo"])
+    if cross_kv is not None:
+        ck, cv = cross_kv
+        qx = _proj(rms_norm(x, p["ln_x"]), p["wq_x"])
+        if card:
+            out = kernels.flash_attention(qx, ck, cv, causal=False)
+        else:
+            out = chunked_attention(qx, ck, cv, causal=False,
+                                    chunk=cfg.attn_chunk)
+        x = x + _out_proj(out, p["wo_x"])
     return _ffn(cfg, p, x), ((k, v) if want_kv else None)
 
 
@@ -415,24 +462,36 @@ def attn_mixer_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     slot: torch.Tensor,
                     rope: Tuple[torch.Tensor, torch.Tensor], *,
                     lengths: Optional[torch.Tensor] = None,
-                    length_mask: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    length_mask: Optional[torch.Tensor] = None,
+                    cross_kv=None) -> torch.Tensor:
     """Single-token decode block: x [B,1,d]; caches [B,Sc,K,hd], into whose
     slot ``slot`` (a [1] int64 tensor on their device) this token's K/V are
     written in place.  On the card K8 attends over the first ``lengths[b]``
-    slots; on the CPU the plain path over ``length_mask`` [B,Sc].  Returns
-    the new x."""
+    slots; on the CPU the plain path over ``length_mask`` [B,Sc].
+    ``cross_kv`` = (ck, cv, valid): this layer's encoder keys and values
+    [B,Senc,H,hd], read only, and the rows to attend in the same form —
+    lengths on the card, a mask on the CPU, all ``Senc`` rows
+    (``model.py:557-563``).  Returns the new x."""
+    card = _on_card(cfg, x)
     h = rms_norm(x, p["ln1"])
     q, k, v = _proj_qkv(cfg, p, h)
     q, k = apply_rope(q, *rope), apply_rope(k, *rope)
     k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
     v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
-    if _on_card(cfg, x):
+    if card:
         out = kernels.decode_attention(q[:, 0], k_cache, v_cache,
                                        lengths)[:, None]
     else:
         out = decode_attention(q, k_cache, v_cache, length_mask=length_mask)
     x = x + _out_proj(out, p["wo"])
+    if cross_kv is not None:
+        ck, cv, valid = cross_kv
+        qx = _proj(rms_norm(x, p["ln_x"]), p["wq_x"])
+        if card:
+            out = kernels.decode_attention(qx[:, 0], ck, cv, valid)[:, None]
+        else:
+            out = decode_attention(qx, ck, cv, length_mask=valid)
+        x = x + _out_proj(out, p["wo_x"])
     return _ffn(cfg, p, x)
 
 
@@ -575,14 +634,26 @@ def decode_layers(cfg: ModelConfig, blocks: Params, x: torch.Tensor,
                   k: torch.Tensor, v: torch.Tensor, slot: torch.Tensor,
                   rope: Tuple[torch.Tensor, torch.Tensor],
                   lengths: Optional[torch.Tensor],
-                  mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """The uniform decode step's layer stack: ``attn_mixer_step`` of every
-    layer over the stacked ``blocks`` and caches ``k``/``v`` [L, B, Sc,
-    K, hd], which it updates in place.  Returns the new x."""
+                  mask: Optional[torch.Tensor],
+                  cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> torch.Tensor:
+    """The uniform or encoder-decoder decode step's layer stack:
+    ``attn_mixer_step`` of every layer over the stacked ``blocks`` and
+    caches ``k``/``v`` [L, B, Sc, K, hd], which it updates in place;
+    ``cross`` = (ck, cv) [L, B, Senc, H, hd], Whisper's cross cache, is
+    read whole by every step.  Returns the new x."""
+    valid = None
+    if cross is not None:       # made on the device: a replay copies nothing
+        B, Senc = cross[0].shape[1:3]
+        valid = torch.full((B,), Senc, dtype=torch.int32, device=x.device) \
+            if _on_card(cfg, x) else \
+            torch.ones((B, Senc), dtype=torch.bool, device=x.device)
     for i in range(cfg.num_layers):
+        ckv = None if cross is None else (cross[0][i], cross[1][i], valid)
         try:
             x = attn_mixer_step(cfg, _layer(blocks, i), x, k[i], v[i], slot,
-                                rope, lengths=lengths, length_mask=mask)
+                                rope, lengths=lengths, length_mask=mask,
+                                cross_kv=ckv)
         except Exception as e:
             e.add_note(f"decode layer {i}")
             raise
@@ -658,21 +729,26 @@ def _decode_layers_op(blocks: List[torch.Tensor], x: torch.Tensor,
                       k: torch.Tensor, v: torch.Tensor, slot: torch.Tensor,
                       cos: torch.Tensor, sin: torch.Tensor,
                       lengths: Optional[torch.Tensor],
-                      mask: Optional[torch.Tensor], stack: int
+                      mask: Optional[torch.Tensor],
+                      ck: Optional[torch.Tensor], cv: Optional[torch.Tensor],
+                      stack: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``decode_layers`` as one functional operator (the reference's scan
-    equation, ``model.py:1061-1075``): it updates copies of the caches and
-    returns ``(x, k_new, v_new)``.  ``blocks`` are the stacked block
-    tensors in the order of the names registered under ``stack``."""
+    equation, ``model.py:1061-1077``): it updates copies of the caches and
+    returns ``(x, k_new, v_new)``; Whisper's cross cache ``ck``/``cv``
+    comes in and is not returned, as the reference's scan takes it as
+    ``xs``.  ``blocks`` are the stacked block tensors in the order of the
+    names registered under ``stack``."""
     cfg, names = _STACKS[stack]
     k, v = k.clone(), v.clone()
     x = decode_layers(cfg, dict(zip(names, blocks)), x, k, v, slot,
-                      (cos, sin), lengths, mask)
+                      (cos, sin), lengths, mask,
+                      None if ck is None else (ck, cv))
     return x, k, v
 
 
 @_decode_layers_op.register_fake
-def _(blocks, x, k, v, slot, cos, sin, lengths, mask, stack):
+def _(blocks, x, k, v, slot, cos, sin, lengths, mask, ck, cv, stack):
     return torch.empty_like(x), torch.empty_like(k), torch.empty_like(v)
 
 
@@ -723,9 +799,10 @@ def _unflatten(flat: Dict[str, Any]) -> Params:
 
 # ------------------------------------------------------------------- model
 class Model:
-    """Prefill and greedy-decode entry points of a dense, MoE, Zamba2 or
-    xLSTM decoder.  They take the parameters explicitly and run where the
-    parameters are."""
+    """Prefill and greedy-decode entry points of a dense, MoE,
+    vision-language, encoder-decoder (Whisper), Zamba2 or xLSTM decoder.
+    They take the parameters explicitly and run where the parameters
+    are."""
 
     def __init__(self, cfg: ModelConfig):
         check_config(cfg)
@@ -741,18 +818,64 @@ class Model:
         head = params["embed"].t() if cfg.tie_embeddings else params["head"]
         return (x @ head).float()[:, :cfg.vocab_size]
 
-    def prefill(self, params: Params, batch: Dict[str, Any],
-                cache_len: Optional[int] = None):
-        """Run the prompt ``batch["tokens"]`` [B,S], build the decode cache
-        (``cache_len`` K/V slots, default S), return (last-token logits
-        [B,vocab] float32, cache)."""
-        cfg, lay = self.cfg, self.layout
+    def _embed(self, params: Params, batch: Dict[str, Any]) -> torch.Tensor:
+        """The token rows [B,S,d] of ``batch["tokens"]``, after a VLM's patch
+        rows, ``batch["patches"]`` cast to the model dtype before the
+        product with ``vis_proj`` as the reference casts them
+        (``model.py:798-807``)."""
         embed = params["embed"]
         tokens = torch.as_tensor(batch["tokens"], device=embed.device)
         x = F.embedding(tokens, embed)
+        if self.cfg.num_patch_tokens:
+            patches = torch.as_tensor(batch["patches"], device=embed.device)
+            x = torch.cat([patches.to(x.dtype) @ params["vis_proj"], x], 1)
+        return x
+
+    def _encoder(self, params: Params, frames) -> torch.Tensor:
+        """Whisper's encoder on the stub frame embeddings [B, Senc,
+        frontend_dim] (``model.py:809-823``): ``frame_proj``, then every
+        encoder block non-causal with RoPE at positions ``0..Senc-1``."""
+        cfg = self.cfg
+        w = params["frame_proj"]
+        x = torch.as_tensor(frames, device=w.device).to(w.dtype) @ w
+        rope = rope_angles(torch.arange(x.shape[1], device=x.device),
+                           cfg.head_dim_, cfg.rope_theta)
+        for i in range(cfg.encoder_layers):
+            try:
+                x, _ = attn_mixer_seq(cfg, _layer(params["encoder"], i), x,
+                                      rope, causal=False)
+            except Exception as e:
+                e.add_note(f"encoder layer {i}")
+                raise
+        return x
+
+    def _cross_kv_all(self, params: Params, enc: torch.Tensor,
+                      ck: torch.Tensor, cv: torch.Tensor) -> None:
+        """Every decoder layer's cross K/V of the encoder output ``enc``
+        into ``ck``/``cv`` [L, B, Senc, H, hd] (``model.py:825-830``)."""
+        bl = params["blocks"]
+        for i in range(self.cfg.num_layers):
+            ck[i] = _proj(enc, bl["wk_x"][i])
+            cv[i] = _proj(enc, bl["wv_x"][i])
+
+    def prefill(self, params: Params, batch: Dict[str, Any],
+                cache_len: Optional[int] = None):
+        """Run the prompt ``batch["tokens"]`` [B,S] (after a VLM's
+        ``batch["patches"]``; over Whisper's encoder output of
+        ``batch["frames"]``), build the decode cache (``cache_len`` K/V
+        slots, default S; positions count the patch rows), return
+        (last-token logits [B,vocab] float32, cache)."""
+        cfg, lay = self.cfg, self.layout
+        x = self._embed(params, batch)
         B, S, _ = x.shape
         cache = init_cache(cfg, B, cache_len or S, device=x.device)
         cache["pos"].fill_(S)
+        cross = None
+        if lay.kind == "encdec":             # model.py:999-1003
+            enc = self._encoder(params, batch["frames"])
+            self._cross_kv_all(params, enc, cache["ck"], cache["cv"])
+            cross = (cache["ck"], cache["cv"])
+            del enc
         if "k" in cache:
             Sc = cache["k"].shape[2]
             keep = min(S, Sc)     # S > Sc keeps the last Sc positions
@@ -761,15 +884,18 @@ class Model:
             rope = rope_angles(torch.arange(S, device=x.device),
                                cfg.head_dim_, cfg.rope_theta)
 
-        def attend(p, x, i):
-            x, (k, v) = attn_mixer_seq(cfg, p, x, rope, want_kv=True)
+        def attend(p, x, i, cross_kv=None):
+            x, (k, v) = attn_mixer_seq(cfg, p, x, rope, cross_kv=cross_kv,
+                                       want_kv=True)
             cache["k"][i, :, :keep] = k[:, S - keep:]
             cache["v"][i, :, :keep] = v[:, S - keep:]
             return x
 
-        if lay.kind == "uniform":
+        if lay.kind in ("uniform", "encdec"):
             for i in range(cfg.num_layers):
-                x = attend(_layer(params["blocks"], i), x, i)
+                x = attend(_layer(params["blocks"], i), x, i,
+                           None if cross is None
+                           else (cross[0][i], cross[1][i]))
         elif lay.kind == "zamba":            # model.py:859-889
             for gi in range(lay.groups):
                 for j in range(lay.per_group):
@@ -810,7 +936,8 @@ class Model:
         or ``repro_torch::decode_recurrent_layers`` for Zamba2 and xLSTM),
         and the returned cache is a new dict whose ``stack_state`` tensors
         are that operator's new ones (``kv_pos`` and ``pos`` are still
-        updated in place), as the reference's step returns a new cache."""
+        updated in place), as the reference's step returns a new cache.
+        Whisper's cross cache ``ck``/``cv`` is read, never written."""
         cfg, kind = self.cfg, self.layout.kind
         embed = params["embed"]
         tokens = torch.as_tensor(tokens, device=embed.device)
@@ -835,17 +962,19 @@ class Model:
                 mask = mask1[None].expand(B, Sc)
             rope = rope_angles(pos[None], cfg.head_dim_, cfg.rope_theta)
             attn = (slot, rope, lengths, mask)
-        if kind == "uniform":
+        if kind in ("uniform", "encdec"):
             blocks = params["blocks"]
+            cross = (cache["ck"], cache["cv"]) if kind == "encdec" else None
             if traced:
                 names = tuple(sorted(blocks))
                 x, k, v = torch.ops.repro_torch.decode_layers(
                     [blocks[n] for n in names], x, cache["k"], cache["v"],
-                    slot, *rope, lengths, mask, _stack_key(cfg, names))
+                    slot, *rope, lengths, mask, *(cross or (None, None)),
+                    _stack_key(cfg, names))
                 cache = dict(cache, k=k, v=v)
             else:
                 x = decode_layers(cfg, blocks, x, cache["k"], cache["v"],
-                                  slot, rope, lengths, mask)
+                                  slot, rope, lengths, mask, cross)
         elif traced:
             flat = _flatten(params, _STACK_TREES[kind])
             names = tuple(sorted(flat))

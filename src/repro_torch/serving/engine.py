@@ -14,7 +14,9 @@ requests, and per-request stats never count them.
 ``ServingEngine`` runs prefill + greedy decode over batches of LLM
 requests (the reference's ``serving/engine.py:170-270``), on the card
 unless ``device="cpu"``: prompts of a batch are left-padded with token 0
-to the longest, and each admitted request owns a KV block of
+to the longest, a VLM gets zero patch embeddings and Whisper zero frames
+beside them (``modality_stubs``, as the reference feeds its stubs), and
+each admitted request owns a KV block of
 ``kv_block_bytes`` in an arena kept by the paper's §4 dynamic allocator
 (first-fit + defragment, the L2 level of DESIGN.md §2), so the arena
 statistics come out equal to the reference's.  Prefill runs eagerly.
@@ -157,6 +159,24 @@ def kv_block_bytes(cfg: ModelConfig, cache_len: int) -> int:
     return sum(t.numel() * t.element_size() for t in c.values())
 
 
+def modality_stubs(cfg: ModelConfig, batch: int,
+                   device) -> Dict[str, torch.Tensor]:
+    """The inputs the reference's engine feeds a VLM and Whisper beside
+    the tokens (``serving/engine.py:245-250``): zero ``patches`` [B,
+    num_patch_tokens, frontend_dim] and zero ``frames`` [B, encoder_seq,
+    frontend_dim], float32, made on ``device``."""
+    stubs = {}
+    if cfg.num_patch_tokens:
+        stubs["patches"] = torch.zeros(
+            (batch, cfg.num_patch_tokens, cfg.frontend_dim),
+            dtype=torch.float32, device=device)
+    if cfg.arch_type == "audio":
+        stubs["frames"] = torch.zeros(
+            (batch, cfg.encoder_seq, cfg.frontend_dim), dtype=torch.float32,
+            device=device)
+    return stubs
+
+
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -198,7 +218,8 @@ class DecodeStep:
         return self.graph
 
     def load(self, cache, tok: torch.Tensor) -> None:
-        """Copy a prefill's cache and the first tokens into the buffers."""
+        """Copy a prefill's cache and the first tokens into the buffers
+        (Whisper's cross cache too: 983 MB at B 4 for Whisper-large-v3)."""
         for name, buf in self.cache.items():
             buf.copy_(cache[name])
         self.tok.copy_(tok)
@@ -347,6 +368,7 @@ class ServingEngine:
         for i, r in enumerate(batch):       # left-pad with token 0
             toks[i, S - len(r.prompt):] = r.prompt
         feed = {"tokens": torch.as_tensor(toks, device=self.device)}
+        feed.update(modality_stubs(self.cfg, B, self.device))
         t0 = time.perf_counter()
         logits, cache = self.model.prefill(self.params, feed,
                                            cache_len=self.cache_len)
@@ -373,4 +395,4 @@ class ServingEngine:
 
 __all__ = ["DecodeStep", "GraphServingEngine", "ReorderedStep", "Request",
            "RequestResult", "ServingEngine", "kv_block_bytes",
-           "reorder_decode_step"]
+           "modality_stubs", "reorder_decode_step"]

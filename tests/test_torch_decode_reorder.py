@@ -7,7 +7,9 @@ is the one functional operator ``repro_torch::decode_layers``, with
 ``make_fx(functionalize(...), tracing_mode="fake")``; the reference's step
 scans its layers, so its jaxpr holds the stack as one equation too.  The
 reference's report is computed here with ``jax.make_jaxpr`` over shapes
-and ``reorder_closed_jaxpr``.  Both peaks must agree within 8 KiB: the
+and ``reorder_closed_jaxpr``.  Whisper's step reads its cross cache
+``ck``/``cv`` as inputs of the operator, as the reference's scan takes it
+as ``xs``.  Both peaks must agree within 8 KiB: the
 two traces differ in small tensors only — the port's tokens are int64
 where the reference's are int32, its views and the ``getitem``s of the
 operator's outputs cost nothing where the reference materialises a
@@ -33,6 +35,7 @@ import repro_torch.kernels as kernels
 import repro_torch.models.model as model_mod
 from repro_torch.configs import get_config
 from repro_torch.core.fx_reorder import peak_liveness
+from repro_torch.data import SyntheticLMDataset
 from repro_torch.models import Model, init_params
 from repro_torch.serving import ServingEngine
 from repro_torch.serving.engine import reorder_decode_step
@@ -44,6 +47,9 @@ torch.set_num_threads(1)
 TOLERANCE_B = 8 * 1024
 SMOKE = ("llama3.2-3b@smoke", "granite-moe-1b-a400m@smoke")
 RECURRENT = ("zamba2-2.7b@smoke", "xlstm-350m@smoke")
+# the encoder-decoder (its cross cache an input of the stack operator) and
+# the vision-language decoder (patch rows before the prompt)
+CROSS = ("whisper-large-v3@smoke", "internvl2-1b@smoke")
 STACK_OPS = (torch.ops.repro_torch.decode_layers.default,
              torch.ops.repro_torch.decode_recurrent_layers.default)
 
@@ -67,12 +73,16 @@ def _jax_report(arch, batch, cache_len):
     ("granite-moe-1b-a400m", 4, 96),
     ("zamba2-2.7b@smoke", 4, 96),     # the launcher's, recurrent layouts
     ("xlstm-350m@smoke", 4, 96),
-    ("xlstm-350m", 4, 96)])
+    ("xlstm-350m", 4, 96),
+    ("whisper-large-v3@smoke", 2, 32),
+    ("internvl2-1b@smoke", 2, 64)])
 def test_report_matches_the_reference(arch, batch, cache_len):
     """Smoke configs through the engine on the CPU, full width on meta
     tensors: the layer stack is one operator (``decode_layers``, or
     ``decode_recurrent_layers`` for Zamba2 and xLSTM), the peaks are the
-    reference's within 8 KiB, and reordering never raises the peak."""
+    reference's within 8 KiB, and reordering never raises the peak.  The
+    reference reports 30 equations and ``greedy`` for Whisper and
+    InternVL2 (peaks 8 791 180 and 6 040 844 B)."""
     cfg = get_config(arch)
     if arch.endswith("@smoke"):
         eng = ServingEngine(cfg, init_params(cfg, device="cpu"),
@@ -122,8 +132,18 @@ def test_zamba_full_width_report_counts_no_reshape_copies():
     assert rep.peak_before < want.peak_after - 1_000_000_000, (rep, want)
 
 
+def _batch(cfg, B, n_text, seed):
+    """Seeded prompts of ``n_text`` tokens, with the dataset's frames or
+    patches where the model takes them."""
+    batch = SyntheticLMDataset(cfg, B, n_text + (cfg.num_patch_tokens or 0),
+                               seed).batch(0)
+    batch["tokens"] = np.random.default_rng(seed).integers(
+        0, 500, (B, n_text))
+    return batch
+
+
 @pytest.mark.parametrize("route", ["cpu", "card"])
-@pytest.mark.parametrize("arch", SMOKE + RECURRENT)
+@pytest.mark.parametrize("arch", SMOKE + RECURRENT + CROSS)
 def test_reordered_step_is_bit_equal_to_the_in_place_step(
         arch, route, monkeypatch):
     """The reordered module and ``decode_step`` on copies of one cache:
@@ -136,10 +156,11 @@ def test_reordered_step_is_bit_equal_to_the_in_place_step(
     cfg = get_config(arch)
     params = init_params(cfg, device="cpu")
     model = Model(cfg)
-    eng = ServingEngine(cfg, params, cache_len=12, device="cpu")
+    P = cfg.num_patch_tokens or 0
+    eng = ServingEngine(cfg, params, cache_len=P + 12, device="cpu")
     eng.analyse_decode_schedule(2)
-    toks = torch.as_tensor(np.random.default_rng(0).integers(0, 500, (2, 9)))
-    logits, cache = model.prefill(params, {"tokens": toks}, cache_len=12)
+    logits, cache = model.prefill(params, _batch(cfg, 2, 9, 0),
+                                  cache_len=P + 12)
     mine = {n: t.clone() for n, t in cache.items()}
     tok = torch.argmax(logits, -1)
     for _ in range(5):
@@ -149,22 +170,21 @@ def test_reordered_step_is_bit_equal_to_the_in_place_step(
         for name in cache:
             assert torch.equal(mine[name], cache[name]), name
         tok = torch.argmax(want, -1)
-    assert int(cache["pos"]) == 14
+    assert int(cache["pos"]) == P + 14
 
 
 @pytest.mark.parametrize("route", ["cpu", "card"])
-@pytest.mark.parametrize("arch", SMOKE)
+@pytest.mark.parametrize("arch", SMOKE + CROSS[:1])
 def test_the_operator_fake_outputs_match_the_real_ones(arch, route,
                                                        monkeypatch):
     """``repro_torch::decode_layers`` under fake tensors gives the shapes,
     dtypes and strides its real run gives, and leaves its inputs as they
-    were."""
+    were (Whisper's cross cache, arguments 9 and 10, included)."""
     if route == "card":
         monkeypatch.setattr(model_mod, "_on_card", lambda cfg, x: True)
     cfg = get_config(arch)
     params = init_params(cfg, device="cpu")
-    toks = torch.as_tensor(np.random.default_rng(1).integers(0, 500, (3, 5)))
-    _, cache = Model(cfg).prefill(params, {"tokens": toks}, cache_len=8)
+    _, cache = Model(cfg).prefill(params, _batch(cfg, 3, 5, 1), cache_len=8)
     seen = []
     op = torch.ops.repro_torch.decode_layers
 
@@ -179,6 +199,11 @@ def test_the_operator_fake_outputs_match_the_real_ones(arch, route,
     real = op(*args)
     assert torch.equal(args[2], before["k"]) and \
         torch.equal(args[3], before["v"])
+    if "ck" in cache:
+        assert torch.equal(args[9], before["ck"]) and \
+            torch.equal(args[10], before["cv"])
+    else:
+        assert args[9] is None and args[10] is None
     with FakeTensorMode(allow_non_fake_inputs=True) as mode:
         fake = op(*[[mode.from_tensor(t) for t in a] if isinstance(a, list)
                     else mode.from_tensor(a)

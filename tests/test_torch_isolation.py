@@ -34,7 +34,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def test_import_leaves_jax_and_the_reference_out():
     code = ("import sys, repro_torch, repro_torch.deploy, "
             "repro_torch.mcu.compile, repro_torch.params, "
-            "repro_torch.models, repro_torch.configs, "
+            "repro_torch.models, repro_torch.configs, repro_torch.data, "
             "repro_torch.launch.serve, repro_torch.serving.sharded, "
             "repro_torch.serving.admission, repro_torch.core.fx_reorder, "
             "repro_torch.core.fx_partial\n"

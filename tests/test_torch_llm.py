@@ -22,7 +22,7 @@ from repro.serving import kv_block_bytes as jax_kv_block_bytes
 
 import repro_torch.kernels as kernels
 import repro_torch.models.model as model_mod
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch import serve as launch_serve
@@ -280,15 +280,18 @@ def _shapes(tree, prefix=""):
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-7b",
                                   "granite-moe-1b-a400m",
                                   "phi3.5-moe-42b-a6.6b", "zamba2-2.7b",
-                                  "xlstm-350m"])
+                                  "xlstm-350m", "whisper-large-v3",
+                                  "internvl2-1b"])
 def test_full_width_parameters_and_kv_blocks_match(arch):
     """At full width, without allocating: the port's parameters on the meta
     device have the reference's names, shapes and dtypes (Zamba2's
-    unstacked ``shared_attn`` included), and a request's KV block the
+    unstacked ``shared_attn``, Whisper's encoder and cross weights,
+    InternVL2's ``vis_proj`` included), and a request's KV block the
     reference's bytes (Llama-3.2-3B: k + v = 2·28·Sc·8·128·2, plus pos
     4 B and kv_pos 4·Sc; Zamba2: 9 K/V layers, conv windows and SSM
-    states; xLSTM: its recurrent states only, whatever the cache
-    length)."""
+    states; xLSTM: its recurrent states only, whatever the cache length;
+    Whisper: k + v, and the cross cache ck + cv = 2·32·1500·20·64·2 B
+    whatever the cache length)."""
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     got = _shapes(init_params(cfg, device="meta"))
     want = _shapes(jax.eval_shape(lambda: jax_init_params(
@@ -305,9 +308,16 @@ def test_full_width_parameters_and_kv_blocks_match(arch):
     assert n == {"granite-moe-1b-a400m": 1_385_219_072,
                  "phi3.5-moe-42b-a6.6b": 41_873_051_648,
                  "zamba2-2.7b": 2_422_386_848,
-                 "xlstm-350m": 212_300_880}.get(arch, n)
+                 "xlstm-350m": 212_300_880,
+                 "whisper-large-v3": 2_022_319_360,
+                 "internvl2-1b": 630_626_176}.get(arch, n)
     blocks = {"zamba2-2.7b": (81_326_980, 261_231_108),
-              "xlstm-350m": (21_118_980, 21_118_980)}
+              "xlstm-350m": (21_118_980, 21_118_980),
+              "whisper-large-v3": (261_489_028, 581_312_516),
+              "internvl2-1b": (1_180_036, 25_174_020)}
+    if arch == "internvl2-1b":
+        # its served cache: 256 patch rows + prompt + new tokens fit 320
+        assert kv_block_bytes(cfg, 320) == 3_933_444
     if arch in blocks:
         assert (kv_block_bytes(cfg, 96), kv_block_bytes(cfg, 2048)) == \
             blocks[arch]
@@ -316,17 +326,6 @@ def test_full_width_parameters_and_kv_blocks_match(arch):
         assert kv_block_bytes(cfg, 2048) == 234_889_220
         c = init_cache(cfg, 4, 2048, device="meta")
         assert tuple(c["k"].shape) == (28, 4, 2048, 8, 128)
-
-
-@pytest.mark.parametrize("arch", [
-    a for a in ARCH_IDS
-    if get_config(a).arch_type not in ("dense", "moe", "hybrid", "ssm")])
-def test_configs_outside_the_slice_raise(arch):
-    cfg = get_config(f"{arch}@smoke")
-    with pytest.raises(UnsupportedConfigError, match="ROADMAP Queue 1 item"):
-        Model(cfg)
-    with pytest.raises(UnsupportedConfigError):
-        init_params(cfg, device="meta")
 
 
 def test_sliding_window_is_refused_on_the_card(twins, monkeypatch):
