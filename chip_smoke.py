@@ -91,7 +91,24 @@ after (the launches of the kernel checks above do not count):
   zero frames / patches (``CROSS_MIXES``), ``phase graphs llm-*``, the
   continuation at full depth and card vs CPU at two layers, both in
   float32 on the data pipeline's seeded frames / patches
-  (``CROSS_CONT_TOL``, ``CROSS_CPU_TOL``), and the reordered step.
+  (``CROSS_CONT_TOL``, ``CROSS_CPU_TOL``), and the reordered step;
+* ``phase train``, after every serving model is freed: ``phase
+  train-llama`` runs ``repro_torch.launch.train``'s ``main`` on
+  Llama-3.2-3B at full width and depth (bf16, B 4 x S 1 024, remat, 4
+  steps), each step after the first with its ms, tokens/s, loss,
+  grad_norm and peak memory, then one step under the profiler (busy,
+  idle share, the five largest kernels) beside its bound
+  (``step_bound``); ``phase train-small`` trains
+  ``examples_torch/train_small.py``'s model on the card until its loss
+  falls by more than ``SMALL_DROP``; ``phase train-card-vs-cpu`` takes
+  one ``make_train_step`` step of each registered architecture at full
+  width, cut to 2 layers (one group of Zamba2 / xLSTM), in float32 on
+  the card and on the CPU (loss, grad_norm, every gradient leaf through
+  the first moment, the parameters after the step; ``TRAIN_*_TOL``),
+  and holds Granite's bf16 expert products (``moe._BmmF32``: the card's
+  ``bmm(out_dtype=float32)`` and its backward) to the widened product.
+  Training runs the chunked attention under autograd, as the reference
+  does: K1-K8 launch no time in it.
 
 ``run``, ``serve`` and the decode step run as CUDA graphs (the compiled
 forms ``CompiledExecutor.fn``/``batched_fn`` and ``ServingEngine``'s
@@ -300,6 +317,55 @@ CROSS_MIXES = (("whisper-large-v3",
 # against the chunked path, 1e-3, as SSM_CPU_TOL.
 CROSS_CONT_TOL, CROSS_CPU_TOL = 2e-3, 1e-3
 CROSS_WHISPER_FRAMES = 1500     # encoder_seq: the rows of its cross cache
+# ---- training (phase train), after every serving model is freed.
+# train-llama: Llama-3.2-3B at full width and depth through
+# repro_torch.launch.train's main (bf16 parameters and gradients, float32
+# AdamW moments, one checkpointed body a layer, the chunked attention
+# under autograd as the reference trains — K7 has no backward), B 4 x S
+# 1 024, one microbatch, 4 steps: the first is the warm-up.
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "llama3.2-3b", 4, 1024, 4
+H100_F32_OPS_PER_S, H100_BYTES_PER_S = 67e12, 3.35e12
+# train-small: examples_torch/train_small.py's model (Llama smoke at 4
+# layers, d 256, float32) on the card, 30 steps of B 8 x S 64, peak lr
+# 3e-3, warm-up 5: the mean of the last five losses below the first
+# five's minus 0.25, the reference test's rule (tests/test_training.py:
+# 40-53).
+SMALL_STEPS, SMALL_B, SMALL_S, SMALL_WARMUP, SMALL_DROP = 30, 8, 64, 5, 0.25
+# train-card-vs-cpu: each registered architecture at full width in
+# float32 (TF32 off), its depth cut by cut_depth to 2 layers (Whisper 2
+# encoder + 2 decoder; Zamba2 and xLSTM one group of 6), B 2 x S 64 text
+# tokens (InternVL2's 256 patch rows on top) of the data pipeline with
+# its seeded frames / patches (seed TRAIN_CPU_SEED), one make_train_step
+# step from zero moments on the card and on the CPU.  Granite runs at
+# capacity factor E / k, so that no expert drops a token on either side.
+TRAIN_CPU_ARCHS = ("llama3.2-3b", "granite-moe-1b-a400m", "zamba2-2.7b",
+                   "xlstm-350m", "whisper-large-v3", "internvl2-1b")
+TRAIN_CPU_B, TRAIN_CPU_S, TRAIN_CPU_LR, TRAIN_CPU_SEED = 2, 64, 1e-4, 5
+# The loss: both devices sum the same float32 terms in other orders
+# (cuBLAS against MKL); a logsumexp over V <= 151 655 logits is within
+# ~log2(V) * 2^-24 ~ 1e-6 of either, the few layers' activations within
+# ~1e-6 of their scale: 1e-5 * |loss|.
+TRAIN_LOSS_TOL = 1e-5
+# The gradients, read from the first moment: after one step from zero
+# moments mu = (1 - b1) * s * g with s = min(1, 1 / ||g||), one rounding
+# from the gradient, so mu_card - mu_cpu is 0.1 * s times the gradients'
+# difference.  Each leaf is held to 1e-3 * max|mu| (the card-vs-CPU bound
+# of the serving checks at 2 layers) or, where larger, to twice the
+# gradient's own float32 spread: how far the card's gradient moves when
+# every parameter moves by one float32 rounding (x * (1 + 2^-24 n), n
+# standard normal), measured in the phase and printed.  Zamba2's and
+# xLSTM's gradients are that ill-conditioned: at smoke width one
+# rounding moves them by up to ~1e-3 / ~5e-5 of max|g| in both packages
+# (tests/test_torch_training.py), so neither device can pin them closer.
+# grad_norm, a sum over every leaf: 1e-3 relative.
+TRAIN_GRAD_TOL = 1e-3
+# The parameters after the step: AdamW's first step moves an element by
+# lr * (g / (|g| + 1e-8) + 0.1 p), about +-lr, so where a gradient lies
+# within the two devices' difference of 0 (the embedding's and head's
+# rows of tokens the batch barely touches) the two moves may differ by up
+# to 2 lr, elsewhere by far less: |p_card - p_cpu| <= 2 lr + 2^-22 *
+# max|p| (the rounding of p), with the elements apart by more than lr / 2
+# counted on the line.
 # K7/K8 against their plain versions.  float32: |got - want| <= F32_ATTN *
 # max|want| (the JAX package's own kernel tests use 2e-5); bf16: within one
 # bf16 ulp of want plus 1e-6 * max|want| — both compute in float32 from the
@@ -2463,6 +2529,349 @@ class Llm:
         assert equal and len(same) == len(cache), (equal, same)
 
 
+def train_phase(torch, np, device, paths, card):
+    """``phase train``: a full-width training run of Llama-3.2-3B through
+    the launcher, the example's model learning on the card, and one step
+    of every architecture on the card against the CPU.  No K1-K8 launch
+    in any of it: training runs the chunked attention under autograd, as
+    the reference does."""
+    t0 = time.perf_counter()
+    train_llama(torch, np, device, paths, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_small(torch, paths, card)
+    train_card_vs_cpu(torch, np, device, paths)
+    log(f"phase train: {time.perf_counter() - t0:.2f} s")
+
+
+def no_launches(launches, where):
+    assert all(v == 0 for v in launches.values()), (where, launches)
+
+
+def step_bound(cfg, B, S):
+    """(seconds, derivation) of the least time one remat step could take:
+    6 x the weights' FLOPs (every weight but the embedding lookup) plus
+    the remat forward of the layers, bf16 on the tensor cores; the chunked
+    attention's float32 products over every chunk (forward, recomputed
+    forward, backward = 2 forwards) on the CUDA cores; AdamW's bytes
+    (read p, g, both moments and g again for the norm, write p and both
+    moments).  Summed, as the three run one after another."""
+    from repro_torch.models.model import init_params
+    meta = init_params(cfg, device="meta")
+    n_all = sum(t.numel() for t in Llm._leaves(meta))
+    n_layers = sum(t.numel() for t in meta["blocks"].values())
+    rows = B * S
+    mm = (6 * (n_all - meta["embed"].numel()) + 2 * n_layers) * rows
+    skv = -(-S // cfg.attn_chunk) * cfg.attn_chunk
+    attn = 4 * (4 * B * cfg.num_heads * S * skv * cfg.head_dim_) \
+        * cfg.num_layers
+    adam = n_all * (2 + 2 + 4 + 4 + 2 + 2 + 4 + 4)
+    parts = (mm / H100_BF16_OPS_PER_S, attn / H100_F32_OPS_PER_S,
+             adam / H100_BYTES_PER_S)
+    return sum(parts), (f"matmuls {mm / 1e12:.2f} TFLOP bf16 "
+                        f"{parts[0]:.4f} s + attention {attn / 1e12:.2f} "
+                        f"TFLOP f32 {parts[1]:.4f} s + AdamW "
+                        f"{adam / 1e9:.1f} GB {parts[2]:.4f} s")
+
+
+def train_llama(torch, np, device, paths, card):
+    """``phase train-llama``: ``repro_torch.launch.train.main`` at
+    ``TRAIN_ARCH``'s full width and depth; each step after the warm-up
+    with its ms, tokens/s, loss, grad_norm and the peak of
+    ``max_memory_allocated``; then one more step under the profiler:
+    device busy, idle share against the steps' median wall time, the
+    five largest kernels.  K7/K8 launch no time."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    paths.reset()
+    run = launch_train.main(["--arch", TRAIN_ARCH, "--steps",
+                             str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+                             "--seq", str(TRAIN_S), "--microbatches", "1"])
+    launches = paths.read()
+    no_launches(launches, "train-llama")
+    tokens, walls = TRAIN_B * TRAIN_S, []
+    for i, rec in enumerate(run.steps[1:], 1):
+        loss = float(rec["metrics"]["loss"])
+        gnorm = float(rec["metrics"]["grad_norm"])
+        assert math.isfinite(loss) and math.isfinite(gnorm), (loss, gnorm)
+        walls.append(rec["seconds"])
+        log(f"phase train-llama step {i}: {rec['seconds'] * 1e3:.3f} ms, "
+            f"{tokens / rec['seconds']:.2f} tokens/s, loss {loss:.5f}, "
+            f"grad_norm {gnorm:.5f}, max_memory_allocated "
+            f"{rec['peak_bytes']} B [{card}]")
+    batch = launch_train.device_batch(run.dataset.batch(TRAIN_STEPS), device)
+    state = [run.state]
+
+    def step():
+        state[0], _ = run.step_fn(state[0], batch)
+
+    paths.reset()
+    busy, _, by_name = device_time(torch, step, reps=1)
+    no_launches(paths.read(), "train-llama profile")
+    wall = statistics.median(walls) * 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    cfg = get_config(TRAIN_ARCH)
+    bound, how = step_bound(cfg, TRAIN_B, TRAIN_S)
+    parts = step_parts(torch, cfg, state[0], batch, device)
+    log(f"phase train-llama profile: B {TRAIN_B} x S {TRAIN_S}, one step "
+        f"busy {dev(busy)} ms against the steps' median wall {wall:.3f} "
+        f"ms: idle share "
+        + (f"{1 - busy / wall:.3f}" if busy > 0 else "not measured")
+        + f"; bound {bound * 1e3:.1f} "
+        f"ms ({how}); largest: "
+        + ", ".join(f"{n} {t:.3f} ms" for n, t in top)
+        + f"; by events: {parts}; peak max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B; K7/K8 launches "
+        f"{launches['flash_attention']}/{launches['decode_attention']} "
+        f"[{card}] ({time.perf_counter() - t0:.2f} s)")
+    del run, state, batch
+
+
+def step_parts(torch, cfg, state, batch, device):
+    """Where a training step's time goes, by CUDA events: the loss and its
+    gradients (``loss_fn`` and ``torch.autograd.grad``), the chunked
+    attention of one layer forward and backward at the step's shapes
+    (a step runs it forward twice a layer with remat, backward once),
+    and ``adamw_update`` with those gradients (it updates ``state``)."""
+    from repro_torch.models.layers import chunked_attention
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import adamw_update, tree_leaves
+    model, params, held = Model(cfg), state.params, {}
+
+    def loss_and_grads():
+        held.clear()
+        loss, _ = model.loss_fn(params, batch)
+        held["g"] = torch.autograd.grad(loss, tree_leaves(params))
+
+    grads_ms = time_ms(torch, loss_and_grads, iters=2, warmup=1)
+    gen = torch.Generator(device=device).manual_seed(9)
+    B, S, H, K, D = TRAIN_B, TRAIN_S, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim_
+    q, k, v = (torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.bfloat16).requires_grad_()
+               for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+    pos = torch.arange(S, device=device)
+
+    def attend():
+        return chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+                                 q_positions=pos, kv_positions=pos)
+
+    fwd_ms = time_ms(torch, attend, iters=5, warmup=1)
+    g = torch.randn((B, S, H, D), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    both_ms = time_ms(torch, lambda: torch.autograd.grad(attend(), (q, k, v),
+                                                         g),
+                      iters=5, warmup=1)
+    lr = torch.tensor(1e-6, device=device)
+    adam_ms = time_ms(torch, lambda: adamw_update(
+        params, held["g"], state.opt, lr=lr), iters=2, warmup=1)
+    return (f"loss + gradients {grads_ms:.3f} ms, of which the chunked "
+            f"attention ~{cfg.num_layers * (fwd_ms + both_ms):.3f} ms "
+            f"({cfg.num_layers} layers x (forward {fwd_ms:.3f} + forward "
+            f"and backward {both_ms:.3f} ms)); adamw_update {adam_ms:.3f} "
+            f"ms")
+
+
+def train_small(torch, paths, card):
+    """``phase train-small``: ``examples_torch/train_small.py``'s ``main``
+    on the card for ``SMALL_STEPS`` steps; its loss must fall by more
+    than ``SMALL_DROP``."""
+    import runpy
+    import tempfile
+    t0 = time.perf_counter()
+    main = runpy.run_path(str(ROOT / "examples_torch" /
+                              "train_small.py"))["main"]
+    paths.reset()
+    with tempfile.TemporaryDirectory() as d:
+        losses = main(["--steps", str(SMALL_STEPS), "--batch", str(SMALL_B),
+                       "--seq", str(SMALL_S), "--warmup", str(SMALL_WARMUP),
+                       "--ckpt-dir", d])
+    no_launches(paths.read(), "train-small")
+    first = statistics.mean(losses[:5])
+    last = statistics.mean(losses[-5:])
+    log(f"phase train-small: {SMALL_STEPS} steps, B {SMALL_B} x S "
+        f"{SMALL_S}: mean loss of the first five {first:.5f}, of the last "
+        f"five {last:.5f} (must fall by > {SMALL_DROP}) [{card}] "
+        f"({time.perf_counter() - t0:.2f} s)")
+    assert last < first - SMALL_DROP, (first, last)
+
+
+def moe_bf16_check(torch, cfg, params, device):
+    """The MoE's expert products in bf16 under autograd on the card: one
+    ``loss_fn`` and backward of ``cfg`` (bf16) through
+    ``moe._BmmF32`` — cuBLAS's ``bmm(out_dtype=float32)`` forward and the
+    Function's float32 backward — with every call's operands recorded;
+    then at each recorded shape the Function's forward and gradients
+    against autograd of the widened product ``bmm(a.float(),
+    b.float())`` on the same operands and a seeded output gradient.  Both
+    sum exact float32 products of K terms in other orders: each result is
+    within K * 2^-24 * (|a| @ |b|) of the exact sum, so the two forwards
+    within twice that, and a gradient, rounded to bf16 after that sum,
+    within one bf16 ulp (2^-7 relative) more."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import tree_leaves
+    t0 = time.perf_counter()
+    apply, seen = moe._BmmF32.apply, {}
+
+    def record(a, b):
+        seen.setdefault((tuple(a.shape), tuple(b.shape)),
+                        (a.detach(), b.detach()))
+        record.calls += 1
+        return apply(a, b)
+
+    record.calls = 0
+    params = tree_map(lambda t: t.detach().requires_grad_(), params)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in
+             SyntheticLMDataset(cfg, TRAIN_CPU_B, TRAIN_CPU_S,
+                                TRAIN_CPU_SEED).batch(0).items()}
+    moe._BmmF32.apply = record
+    try:
+        loss, _ = Model(cfg).loss_fn(params, batch, remat=False)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+    finally:
+        del moe._BmmF32.apply           # the inherited Function.apply
+    assert record.calls == 3 * cfg.num_layers, record.calls
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all()
+                                        for g in grads)
+    gen = torch.Generator(device=device).manual_seed(8)
+
+    def bound(x, y):            # K * 2^-24 * (|x| @ |y|), K = x.shape[-1]
+        return x.shape[-1] * 2.0 ** -24 * torch.bmm(x.float().abs(),
+                                                    y.float().abs())
+
+    worst = 0.0
+    for (sa, sb), (a, b) in seen.items():
+        a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
+        a2, b2 = a.float().requires_grad_(), b.float().requires_grad_()
+        y1, y2 = apply(a1, b1), torch.bmm(a2, b2)
+        g = torch.randn(y1.shape, generator=gen, device=device)
+        got = torch.autograd.grad(y1, (a1, b1), g)
+        want = [w.to(torch.bfloat16)
+                for w in torch.autograd.grad(y2, (a2, b2), g)]
+        checks = [(y1, y2, bound(a, b)),
+                  (got[0], want[0], bound(g, b.transpose(1, 2))),
+                  (got[1], want[1], bound(a.transpose(1, 2), g))]
+        for x, w, bd in checks:
+            excess = (x.float() - w.float()).abs() - (
+                2 * bd + (2.0 ** -7 * w.float().abs()
+                          if x.dtype == torch.bfloat16 else 0))
+            worst = max(worst, float(excess.max()))
+            assert float(excess.max()) <= 0, ((sa, sb), float(excess.max()))
+    log(f"phase train-card-vs-cpu {cfg.name} bf16 experts: "
+        f"{record.calls} bmm(out_dtype=float32) calls in one loss "
+        f"(3 a layer), backward through _BmmF32; at shapes "
+        f"{sorted(seen)} forward and gradients against the widened "
+        f"product within the float32 sum bound (+ one bf16 ulp): largest "
+        f"excess {worst:.3e} <= 0; loss {float(loss):.5f} "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+
+def train_card_vs_cpu(torch, np, device, paths):
+    """``phase train-card-vs-cpu``: for each of ``TRAIN_CPU_ARCHS`` one
+    ``make_train_step`` step from the same float32 parameters and zero
+    moments on the card and on the CPU: loss, grad_norm, every gradient
+    leaf (through the first moment) and every parameter after the step,
+    each within its tolerance above."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models.model import Model, init_params, model_layout
+    from repro_torch.training import TrainState, adamw_init, make_train_step
+    from repro_torch.training.optimizer import tree_items, tree_leaves
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cpu = torch.device("cpu")
+    t_all = time.perf_counter()
+    for arch in TRAIN_CPU_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        layers = 6 if model_layout(cfg).kind in ("zamba", "xlstm") else 2
+        full = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device)
+        changes = dict(num_layers=layers,
+                       encoder_layers=layers if cfg.encoder_layers else 0)
+        if cfg.is_moe:
+            changes["capacity_factor"] = cfg.num_experts / \
+                cfg.experts_per_token
+            moe_bf16_check(torch, cfg.replace(**changes),
+                           cut_depth(full, layers), device)
+        card = tree_map(lambda t: t.float(), cut_depth(full, layers))
+        del full
+        cfg = cfg.replace(dtype="float32", **changes)
+        model = Model(cfg)
+        batch = SyntheticLMDataset(
+            cfg, TRAIN_CPU_B, (cfg.num_patch_tokens or 0) + TRAIN_CPU_S,
+            TRAIN_CPU_SEED).batch(0)
+        on_card = {k: torch.as_tensor(v, device=device)
+                   for k, v in batch.items()}
+
+        def grads(params):
+            params = tree_map(lambda t: t.detach().requires_grad_(), params)
+            loss, _ = model.loss_fn(params, on_card)
+            return torch.autograd.grad(loss, tree_leaves(params))
+
+        # the gradients' own float32 spread, on the card
+        gen = torch.Generator(device=device).manual_seed(7)
+        paths.reset()
+        spread = [float((a - b).abs().max()) for a, b in zip(
+            grads(card), grads(tree_map(lambda t: t * (1 + 2.0 ** -24 * (
+                torch.randn(t.shape, generator=gen, device=device))),
+                card)))]
+        host = tree_map(lambda t: t.to(cpu, copy=True).requires_grad_(),
+                        card)
+        card = tree_map(lambda t: t.requires_grad_(), card)
+        step = make_train_step(model, peak_lr=TRAIN_CPU_LR, warmup=0,
+                               total_steps=10)
+        got, mc = step(TrainState(card, adamw_init(card)), on_card)
+        no_launches(paths.read(), f"train-card-vs-cpu {arch}")
+        want, mp = step(TrainState(host, adamw_init(host)), batch)
+        lc, lp = float(mc["loss"]), float(mp["loss"])
+        nc, npu = float(mc["grad_norm"]), float(mp["grad_norm"])
+        lr = float(mp["lr"])
+        s = min(1.0, 1.0 / npu)
+        worst_mu, spread_mu, worst_p, apart, n = (0.0, ""), 0.0, 0.0, 0, 0
+        for (key, mu_c), mu_p, sp in zip(tree_items(got.opt.mu),
+                                         tree_leaves(want.opt.mu), spread):
+            err = float((mu_c.cpu() - mu_p).abs().max())
+            scale = max(float(mu_p.abs().max()), 1e-30)
+            sp = (1 - 0.9) * s * sp         # the spread of mu
+            tol = max(TRAIN_GRAD_TOL * scale, 2 * sp)
+            assert err <= tol, (arch, key, err, tol)
+            worst_mu = max(worst_mu, (err / scale, key))
+            spread_mu = max(spread_mu, sp / scale)
+        for (key, p_c), p_p in zip(tree_items(got.params),
+                                   tree_leaves(want.params)):
+            diff = (p_c.detach().cpu() - p_p.detach()).abs()
+            err = float(diff.max())
+            assert err <= 2 * lr + 2.0 ** -22 * float(
+                p_p.detach().abs().max()), \
+                (arch, key, err, lr)
+            worst_p = max(worst_p, err)
+            apart += int((diff > lr / 2).sum())
+            n += diff.numel()
+        log(f"phase train-card-vs-cpu {arch}: {layers} layers at full "
+            f"width, float32, B {TRAIN_CPU_B} x S {TRAIN_CPU_S}: loss card "
+            f"{lc:.7f} cpu {lp:.7f} (|d|/|loss| {abs(lc - lp) / abs(lp):.3e}"
+            f", tolerance {TRAIN_LOSS_TOL}); grad_norm card {nc:.7f} cpu "
+            f"{npu:.7f} (|d|/norm {abs(nc - npu) / npu:.3e}, tolerance "
+            f"{TRAIN_GRAD_TOL}); worst max|d mu| / max|mu| {worst_mu[0]:.3e} "
+            f"({worst_mu[1]}), largest float32 spread / max|mu| "
+            f"{spread_mu:.3e}; parameters after the step: max|d| "
+            f"{worst_p:.3e} = "
+            f"{worst_p / lr:.3f} lr, {apart} of {n} elements apart by > "
+            f"lr/2; K1-K8 launches 0 ({time.perf_counter() - t0:.2f} s)")
+        assert abs(lc - lp) <= TRAIN_LOSS_TOL * abs(lp), (arch, lc, lp)
+        assert abs(nc - npu) <= TRAIN_GRAD_TOL * npu, (arch, nc, npu)
+        del card, host, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase train-card-vs-cpu: {len(TRAIN_CPU_ARCHS)} architectures "
+        f"({time.perf_counter() - t_all:.2f} s)")
+
+
 def main() -> int:
     t_all = time.perf_counter()
     if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
@@ -2673,6 +3082,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         log(f"phase {label}: {time.perf_counter() - t0:.2f} s")
+    train_phase(torch, np, device, paths, card)
     t0 = time.perf_counter()
     n_main = attn.main_path()
     log(f"phase attention-main-path: K7/K8 vs plain at the {n_main} "

@@ -1,0 +1,111 @@
+"""Training launcher.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
+        --steps 50 --batch 4 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch llama3.2-3b@smoke --steps 50 --batch 8 --seq 128 --device cpu
+
+The same flags and print lines as the reference's
+``repro.launch.train``, plus ``--device``: the default trains on the card
+(and fails without CUDA); ``--device cpu`` runs the plain PyTorch path on
+the host (use a ``@smoke`` arch there).  Every registered architecture
+trains; the attention of training is the chunked path on either device,
+as in the reference (K7 has no backward).  Weights are random, drawn on
+the device from a ``torch.Generator`` seeded with 0, and batches come
+from ``repro_torch.data.SyntheticLMDataset(seed=0)``, copied to the
+device before each step.
+
+There is one device: ``--production-mesh`` (the reference's 16×16 TPU
+mesh) raises ``UnsupportedConfigError``; the mesh comes with ROADMAP
+Queue 1 item 14.  ``main`` returns a ``TrainRun``: the final state, the
+step function, the dataset and each step's wall seconds (the card
+synchronised before and after the step), metrics and, on the card,
+``torch.cuda.max_memory_allocated`` after it.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.data import SyntheticLMDataset
+from repro_torch.device import resolve_device
+from repro_torch.models.model import Model, UnsupportedConfigError
+from repro_torch.training import (TrainState, make_train_step,
+                                  train_state_init)
+from repro_torch.training.checkpoint import save_checkpoint
+from repro_torch.training.optimizer import tree_leaves
+
+
+class TrainRun(NamedTuple):
+    state: TrainState
+    step_fn: Callable[..., Any]
+    dataset: SyntheticLMDataset
+    steps: List[Dict[str, Any]]     # seconds, metrics, peak_bytes
+
+
+def device_batch(batch, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv: Optional[List[str]] = None) -> TrainRun:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-3b@smoke")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="build the 16x16 mesh (requires 256 devices)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu (the plain path)")
+    args = ap.parse_args(argv)
+    if args.production_mesh:
+        raise UnsupportedConfigError(
+            "--production-mesh: the port runs on one device; the mesh "
+            "comes with ROADMAP Queue 1 item 14 (launch/: mesh.py, "
+            "dryrun.py, shapes.py and the sharded model code)")
+    dev = resolve_device(args.device)
+
+    cfg = get_config(args.arch)
+    model = Model(cfg)
+    state = train_state_init(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    n = sum(t.numel() for t in tree_leaves(state.params))
+    print(f"arch={cfg.name} params={n/1e6:.1f}M mesh=None")
+
+    ds = SyntheticLMDataset(cfg, args.batch, args.seq, seed=0)
+    step_fn = make_train_step(
+        model, peak_lr=args.lr, warmup=max(args.steps // 10, 1),
+        total_steps=args.steps, microbatches=args.microbatches)
+    steps = []
+    for i in range(args.steps):
+        batch = device_batch(ds.batch(i), dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        _sync(dev)
+        steps.append({"seconds": time.perf_counter() - t0, "metrics": m,
+                      "peak_bytes": torch.cuda.max_memory_allocated(dev)
+                      if dev.type == "cuda" else None})
+        if i % 10 == 0 or i == args.steps - 1:
+            print(f"step {i:4d} loss={float(m['loss']):.3f} "
+                  f"gnorm={float(m['grad_norm']):.2f}", flush=True)
+    if args.ckpt_dir:
+        print("saved:", save_checkpoint(args.ckpt_dir, state.params,
+                                        args.steps))
+    return TrainRun(state, step_fn, ds, steps)
+
+
+if __name__ == "__main__":
+    main()

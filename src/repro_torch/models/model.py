@@ -49,8 +49,17 @@ Whisper's 1 500 frames in chunks of 512); the port's masks them.
 
 A sliding window runs on the CPU path only; on the card it raises
 ``UnsupportedConfigError`` naming the ROADMAP item that brings it.  The
-mesh and sharding code and ``loss_fn`` come with training and sharded
-serving.
+mesh and sharding code come with sharded serving.
+
+Training (``Model.loss_fn``, reference ``model.py:924-985``) runs the
+whole depth through ``layers.chunked_attention`` on either device, with
+the configured sliding window, as the reference trains through its jnp
+chunked attention (``src/repro/models/layers.py:1-9``): K7 has no
+backward, in the reference or here.  Its layer stack (``_seq_stack``)
+takes no cache, checkpoints one layer (one group for Zamba2 and xLSTM) a
+body with ``remat``, and indexes the stacked parameters by one
+``unbind`` each: under autograd an index ``t[i]`` a layer would give
+every layer's backward a zero tensor of the whole stack.
 
 One departure from the reference: the decode step updates its cache in
 place — the new token's K/V, ``kv_pos``, ``pos``, each layer's conv
@@ -69,6 +78,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
@@ -76,8 +86,8 @@ from repro_torch.device import resolve_device
 from repro_torch.errors import ReproError
 
 from . import ssm
-from .layers import (apply_rope, chunked_attention, decode_attention,
-                     rms_norm, rope_angles, swiglu)
+from .layers import (NEG, apply_rope, chunked_attention,
+                     decode_attention, rms_norm, rope_angles, swiglu)
 from .moe import moe_ffn
 
 Params = Dict[str, Any]
@@ -385,6 +395,14 @@ def _layer(blocks: Params, i: int) -> Params:
     return {name: t[i] for name, t in blocks.items()}
 
 
+def _layers(blocks: Params) -> List[Params]:
+    """Every layer's parameters of the stacked ``blocks``, one ``unbind``
+    a tensor (the views of ``_layer`` without its per-layer backward)."""
+    names = list(blocks)
+    return [dict(zip(names, ts))
+            for ts in zip(*(blocks[n].unbind(0) for n in names))]
+
+
 def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """h [..., d] @ w [d, *out] -> [..., *out] (the reference's
     ``einsum("bsd,d...->bs...")``)."""
@@ -406,32 +424,38 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.reshape(lead + (-1,)) @ wo.reshape(-1, wo.shape[-1])
 
 
-def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    if cfg.is_moe:      # the load-balance loss matters only to training
+def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """The FFN sub-block (``model.py:441-454``): returns (x, aux), the MoE
+    load-balance loss (a float32 0-d tensor) or 0.0 without experts.
+    Only training reads aux."""
+    aux = 0.0
+    if cfg.is_moe:
         h = rms_norm(x, p["ln2"])
-        y, _ = moe_ffn(h, p["router"], p["we_g"], p["we_u"], p["we_d"],
-                       k=cfg.experts_per_token,
-                       capacity_factor=cfg.capacity_factor)
+        y, aux = moe_ffn(h, p["router"], p["we_g"], p["we_u"], p["we_d"],
+                         k=cfg.experts_per_token,
+                         capacity_factor=cfg.capacity_factor)
         x = x + y
     elif cfg.d_ff:
         h = rms_norm(x, p["ln2"])
         x = x + swiglu(h, p["wg"], p["wu"], p["wdn"])
-    return x
+    return x, aux
 
 
 def attn_mixer_seq(cfg: ModelConfig, p: Params, x: torch.Tensor,
                    rope: Tuple[torch.Tensor, torch.Tensor], *,
                    causal: bool = True, cross_kv=None,
-                   want_kv: bool = False):
-    """Full-sequence attention block at positions ``0..S-1`` (prefill;
-    Whisper's encoder with ``causal=False``, without a window, as the
-    reference's ``model.py:817``), ``rope`` the (cos, sin) of those
+                   want_kv: bool = False, train: bool = False):
+    """Full-sequence attention block at positions ``0..S-1`` (prefill and
+    training; Whisper's encoder with ``causal=False``, without a window,
+    as the reference's ``model.py:817``), ``rope`` the (cos, sin) of those
     positions.  ``cross_kv`` = (ck, cv) [B, Senc, H, hd], the encoder's
     keys and values of this layer, adds the cross-attention sub-block:
     non-causal, no RoPE (``model.py:429-435``).  Returns (x, (k, v) or
-    None).  K7 on the card, the chunked path on the CPU."""
+    None, aux of ``_ffn``).  K7 on the card, the chunked path on the CPU;
+    ``train=True`` takes the chunked path on either device, with the
+    window (``model.py:425-427``)."""
     S = x.shape[1]
-    card = _on_card(cfg, x)
+    card = not train and _on_card(cfg, x)
     h = rms_norm(x, p["ln1"])
     q, k, v = _proj_qkv(cfg, p, h)
     q, k = apply_rope(q, *rope), apply_rope(k, *rope)
@@ -454,7 +478,8 @@ def attn_mixer_seq(cfg: ModelConfig, p: Params, x: torch.Tensor,
             out = chunked_attention(qx, ck, cv, causal=False,
                                     chunk=cfg.attn_chunk)
         x = x + _out_proj(out, p["wo_x"])
-    return _ffn(cfg, p, x), ((k, v) if want_kv else None)
+    x, aux = _ffn(cfg, p, x)
+    return x, ((k, v) if want_kv else None), aux
 
 
 def attn_mixer_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -492,7 +517,7 @@ def attn_mixer_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
         else:
             out = decode_attention(qx, ck, cv, length_mask=valid)
         x = x + _out_proj(out, p["wo_x"])
-    return _ffn(cfg, p, x)
+    return _ffn(cfg, p, x)[0]
 
 
 def _head_rms(y: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -831,19 +856,23 @@ class Model:
             x = torch.cat([patches.to(x.dtype) @ params["vis_proj"], x], 1)
         return x
 
-    def _encoder(self, params: Params, frames) -> torch.Tensor:
+    def _encoder(self, params: Params, frames,
+                 train: bool = False) -> torch.Tensor:
         """Whisper's encoder on the stub frame embeddings [B, Senc,
         frontend_dim] (``model.py:809-823``): ``frame_proj``, then every
-        encoder block non-causal with RoPE at positions ``0..Senc-1``."""
+        encoder block non-causal with RoPE at positions ``0..Senc-1``
+        (``train``: ``attn_mixer_seq``'s training route; not checkpointed,
+        as the reference's is not)."""
         cfg = self.cfg
         w = params["frame_proj"]
         x = torch.as_tensor(frames, device=w.device).to(w.dtype) @ w
         rope = rope_angles(torch.arange(x.shape[1], device=x.device),
                            cfg.head_dim_, cfg.rope_theta)
-        for i in range(cfg.encoder_layers):
+        for i, p in enumerate(_layers(params["encoder"])
+                              [:cfg.encoder_layers]):
             try:
-                x, _ = attn_mixer_seq(cfg, _layer(params["encoder"], i), x,
-                                      rope, causal=False)
+                x, _, _ = attn_mixer_seq(cfg, p, x, rope, causal=False,
+                                         train=train)
             except Exception as e:
                 e.add_note(f"encoder layer {i}")
                 raise
@@ -857,6 +886,132 @@ class Model:
         for i in range(self.cfg.num_layers):
             ck[i] = _proj(enc, bl["wk_x"][i])
             cv[i] = _proj(enc, bl["wv_x"][i])
+
+    def _cross_kv_stack(self, params: Params, enc: torch.Tensor):
+        """Every decoder layer's cross K/V of the encoder output ``enc`` as
+        new tensors (ck, cv) [L, B, Senc, H, hd], through which gradients
+        pass (``model.py:825-830``; prefill writes them into its cache
+        instead, ``_cross_kv_all``)."""
+        bl = params["blocks"]
+        return tuple(torch.stack([_proj(enc, w) for w in bl[n].unbind(0)])
+                     for n in ("wk_x", "wv_x"))
+
+    def _seq_stack(self, params: Params, x: torch.Tensor,
+                   rope: Tuple[torch.Tensor, torch.Tensor], *,
+                   cross_kv=None, remat: bool = False):
+        """The whole depth on a full sequence, without a cache
+        (``model.py:832-921``): the uniform and encoder-decoder stacks one
+        body a layer (``cross_kv`` = (ck, cv) of ``_cross_kv_stack``),
+        Zamba2 one body a group (its Mamba2 layers, then the shared
+        attention block), xLSTM one body a group (its mLSTM layers, then
+        the sLSTM).  ``remat`` checkpoints each body
+        (``torch.utils.checkpoint``, non-reentrant): its activations are
+        recomputed by the backward, on the same route.  Returns (x, aux):
+        the MoE load-balance losses summed over the layers in order, a
+        float32 0-d tensor."""
+        cfg, lay = self.cfg, self.layout
+        aux = x.new_zeros((), dtype=torch.float32)
+
+        def run(body, *args):
+            if remat:
+                return checkpoint(body, *args, use_reentrant=False)
+            return body(*args)
+
+        def attend(p, x, ckv=None):
+            x, _, a = attn_mixer_seq(cfg, p, x, rope, cross_kv=ckv,
+                                     train=True)
+            return x, a
+
+        if lay.kind in ("uniform", "encdec"):
+            blocks = _layers(params["blocks"])[:cfg.num_layers]
+            cross = [None] * len(blocks) if cross_kv is None else \
+                list(zip(cross_kv[0].unbind(0), cross_kv[1].unbind(0)))
+            for p, ckv in zip(blocks, cross):
+                x, a = run(attend, p, x, ckv)
+                aux = aux + a
+            return x, aux
+        per = lay.per_group - (lay.kind == "xlstm")
+        if lay.kind == "zamba":
+            inner, mix = _layers(params["mamba"]), mamba_mixer_seq
+            closing, close = [params["shared_attn"]] * lay.groups, attend
+        else:
+            inner, mix = _layers(params["mlstm"]), mlstm_mixer_seq
+            closing = _layers(params["slstm"])
+
+            def close(p, x):
+                return slstm_mixer_seq(cfg, p, x)[0], 0.0
+
+        def group(ps, pc, x):
+            for p in ps:
+                x, _ = mix(cfg, p, x)
+            return close(pc, x)
+
+        for gi in range(lay.groups):
+            x, a = run(group, inner[gi * per:(gi + 1) * per], closing[gi], x)
+            aux = aux + a
+        return x, aux
+
+    def _chunked_ce(self, params: Params, x: torch.Tensor,
+                    labels: torch.Tensor, mask: torch.Tensor,
+                    chunk: int = 1024) -> torch.Tensor:
+        """Mean masked cross-entropy of ``x`` [B,S,d] against ``labels``
+        [B,S] without the [B,S,V] logits (``model.py:924-959``): S padded
+        to whole chunks of ``chunk`` rows, each chunk's logits the product
+        in the model dtype, widened to float32, the padded vocab rows
+        ``-1e30``, ``logsumexp - gold``, masked.  Each chunk is
+        checkpointed, so one chunk's float32 logits are live at a time,
+        in the backward too.  Chunk sums and the count add in chunk order,
+        as the reference's scan adds them."""
+        cfg = self.cfg
+        head = params["embed"].t() if cfg.tie_embeddings else params["head"]
+        S = x.shape[1]
+        n = -(-S // chunk)
+        pad = n * chunk - S
+        if pad:
+            x = F.pad(x, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad))
+            mask = F.pad(mask, (0, pad))
+        vmask = torch.arange(cfg.padded_vocab, device=x.device) \
+            >= cfg.vocab_size
+
+        def nll(xi, li, mi, head):
+            logits = (xi @ head).float().masked_fill(vmask, NEG)
+            gold = logits.gather(-1, li[..., None].long())[..., 0]
+            return ((torch.logsumexp(logits, -1) - gold) * mi).sum()
+
+        tot = cnt = x.new_zeros((), dtype=torch.float32)
+        for c in range(n):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            tot = tot + checkpoint(nll, x[:, sl], labels[:, sl],
+                                   mask[:, sl], head, use_reentrant=False)
+            cnt = cnt + mask[:, sl].sum()
+        return tot / torch.clamp_min(cnt, 1.0)
+
+    def loss_fn(self, params: Params, batch: Dict[str, Any],
+                remat: bool = True):
+        """Next-token LM loss plus 0.01 × the MoE load-balance loss
+        (``model.py:962-985``) of ``batch["tokens"]`` [B,S] (after a VLM's
+        ``patches``; over Whisper's encoder output of ``frames``): the
+        patch rows are not predicted, the last token predicts nothing.
+        Returns (loss, {"ce", "aux"}), float32 0-d tensors; every step
+        from the embedding to the loss is differentiable."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        rope = rope_angles(torch.arange(x.shape[1], device=x.device),
+                           cfg.head_dim_, cfg.rope_theta)
+        cross = None
+        if self.layout.kind == "encdec":
+            enc = self._encoder(params, batch["frames"], train=True)
+            cross = self._cross_kv_stack(params, enc)
+        x, aux = self._seq_stack(params, x, rope, cross_kv=cross,
+                                 remat=remat)
+        x = rms_norm(x, params["final_norm"])
+        tokens = torch.as_tensor(batch["tokens"], device=x.device)
+        x_text = x[:, -tokens.shape[1]:]          # skip the patch rows
+        labels = tokens[:, 1:]
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+        ce = self._chunked_ce(params, x_text[:, :-1], labels, mask)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params: Params, batch: Dict[str, Any],
                 cache_len: Optional[int] = None):
@@ -885,8 +1040,8 @@ class Model:
                                cfg.head_dim_, cfg.rope_theta)
 
         def attend(p, x, i, cross_kv=None):
-            x, (k, v) = attn_mixer_seq(cfg, p, x, rope, cross_kv=cross_kv,
-                                       want_kv=True)
+            x, (k, v), _ = attn_mixer_seq(cfg, p, x, rope, cross_kv=cross_kv,
+                                          want_kv=True)
             cache["k"][i, :, :keep] = k[:, S - keep:]
             cache["v"][i, :, :keep] = v[:, S - keep:]
             return x

@@ -58,14 +58,47 @@ def dispatch(top_i: torch.Tensor, num_experts: int, capacity: int
     return torch.where(kept, pos, capacity), kept
 
 
+class _BmmF32(torch.autograd.Function):
+    """``torch.bmm(a, b, out_dtype=torch.float32)`` with its derivative,
+    which PyTorch does not define for ``out_dtype``: the reference's
+    ``preferred_element_type=f32`` einsums (``moe.py:72-78``) transposed
+    as JAX transposes them, ``grad_a = g @ bᵀ`` and ``grad_b = aᵀ @ g``
+    formed in float32 and returned in the operands' dtype.  On the card
+    the forward is cuBLAS on the operands as they are; on the CPU, which
+    has no ``out_dtype`` product, its plain stand-in widens them to at
+    least float32 first (float64 stays float64, for ``gradcheck``)."""
+
+    @staticmethod
+    def forward(a, b):
+        if a.is_cuda:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        acc = torch.promote_types(a.dtype, torch.float32)
+        return torch.bmm(a.to(acc), b.to(acc))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.to(g.dtype).transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.to(g.dtype).transpose(1, 2), g).to(b.dtype)
+        return ga, gb
+
+
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [E,m,n] @ b [E,n,p] with float32 accumulation and result: bf16
     products are exact in float32, so only the order of the sums can
     differ from the reference's einsums.  On the card cuBLAS takes the
-    bf16 operands as they are; on the CPU they are widened first."""
+    bf16 operands as they are (``_BmmF32``, differentiable); on the CPU
+    they are widened first."""
     if a.dtype == torch.float32 or not a.is_cuda:
         return torch.bmm(a.float(), b.float())
-    return torch.bmm(a, b, out_dtype=torch.float32)
+    return _BmmF32.apply(a, b)
 
 
 def expert_pass(x_flat: torch.Tensor, top_p: torch.Tensor,

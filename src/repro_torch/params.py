@@ -14,7 +14,9 @@ checkpoint — hands the values over explicitly:
   as ``quantize_graph`` but without calibrating;
 * ``llm_params_from_numpy`` turns an LLM parameter tree of numpy arrays
   (the reference's ``init_params`` pytree, or a checkpoint) into the
-  port's ``models.init_params`` layout, checked name by name.
+  port's ``models.init_params`` layout, checked name by name;
+  ``adamw_state_from_numpy`` the optimizer's moments and step beside
+  them.
 """
 from __future__ import annotations
 
@@ -77,6 +79,27 @@ def llm_params_from_numpy(cfg, tree: Mapping[str, Any],
     them), cast to its dtype (bfloat16 arrays arrive through float32,
     exactly) and put on ``device``.  Raises on a missing or extra name or
     a shape that differs."""
+    return _llm_tree_from_numpy(cfg, tree, device)
+
+
+def adamw_state_from_numpy(cfg, mu: Mapping[str, Any],
+                           nu: Mapping[str, Any], step, device="cpu"):
+    """The port's ``training.AdamWState`` from the reference's: the float32
+    moment trees ``mu``/``nu`` of numpy arrays in the parameters' layout
+    (checked as ``llm_params_from_numpy`` checks it) and the int32
+    ``step``, all on ``device``."""
+    from repro_torch.training.optimizer import AdamWState
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=device),
+        mu=_llm_tree_from_numpy(cfg, mu, device, torch.float32),
+        nu=_llm_tree_from_numpy(cfg, nu, device, torch.float32))
+
+
+def _llm_tree_from_numpy(cfg, tree, device, dtype=None) -> dict:
+    """``tree`` checked against ``models.init_params(cfg)``'s names and
+    shapes, each leaf as a tensor of the parameter's dtype (or
+    ``dtype``) on ``device``."""
     from repro_torch.models.model import init_params
     want = init_params(cfg, device="meta")
 
@@ -92,12 +115,13 @@ def llm_params_from_numpy(cfg, tree: Mapping[str, Any],
         if arr.shape != tuple(spec.shape):
             raise ValueError(f"{path}: shape {arr.shape} != "
                              f"{tuple(spec.shape)}")
+        dt = dtype or spec.dtype
         t = torch.from_numpy(np.array(
-            arr, dtype=np.float32 if spec.dtype == torch.bfloat16 else None))
-        return t.to(device=device, dtype=spec.dtype)
+            arr, dtype=np.float32 if dt == torch.bfloat16 else None))
+        return t.to(device=device, dtype=dt)
 
     return convert(want, tree, "")
 
 
-__all__ = ["apply_params", "llm_params_from_numpy",
+__all__ = ["adamw_state_from_numpy", "apply_params", "llm_params_from_numpy",
            "quantized_model_from_qparams"]

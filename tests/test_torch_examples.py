@@ -4,17 +4,25 @@ CPU path (``--device cpu``) and print what their reference twins in
 lowers the branchy program's peak; SwiftNet's int8 deployment that fits
 312 KB only when reordered, bit-identical across schedules and through
 the deploy facade, and the 243 KB MobileNet cascade; LLM serving with
-its KV arena and the reordering of the decode step."""
+its KV arena and the reordering of the decode step; training with
+AdamW, remat and a checkpoint, through the example and through
+``python -m repro_torch.launch.train``."""
+import os
+import re
 import runpy
+import subprocess
+import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # One intra-op thread: the suite runs in several worker processes at
 # once, and idle OpenMP threads spinning in each would starve the rest.
 torch.set_num_threads(1)
 
-EXAMPLES = Path(__file__).resolve().parents[1] / "examples_torch"
+ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = ROOT / "examples_torch"
 
 
 def _run(name, capsys):
@@ -56,3 +64,44 @@ def test_serve_llm_on_the_cpu(capsys):
     line = next(ln for ln in out.splitlines()
                 if ln.strip().startswith("fx reorder:"))
     assert "25 ops, peak 6,829,804 -> 6,829,804 B" in line
+
+
+def test_train_small_on_the_cpu(capsys, tmp_path):
+    """Three steps of the reference example's model (Llama smoke at 4
+    layers, d 256): its lines — parameters, steps 0 and 2 with loss,
+    learning rate and gradient norm — and its checkpoint at step 3."""
+    main = runpy.run_path(str(EXAMPLES / "train_small.py"))["main"]
+    losses = main(["--device", "cpu", "--steps", "3", "--ckpt-dir",
+                   str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "arch=llama3.2-3b@smoke  params=2.6M" in out
+    steps = re.findall(r"step +(\d+)  loss=([\d.]+)  lr=([\d.e+-]+)  "
+                       r"gnorm=([\d.]+)", out)
+    assert [int(s[0]) for s in steps] == [0, 2]
+    assert float(steps[0][2]) == 0.0           # warm-up from lr 0
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    f = tmp_path / "ckpt_00000003.npz"
+    assert f"checkpoint: {f}" in out
+    with np.load(f) as data:
+        assert data["blocks/wq"].shape == (4, 256, 4, 64)
+
+
+def test_the_training_launcher_on_the_cpu(tmp_path):
+    """``python -m repro_torch.launch.train --device cpu``: the reference
+    launcher's lines (``arch=... params=...M mesh=None``, steps 0 and 2
+    with loss and gradient norm, ``saved:``) and the checkpoint it
+    names."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "llama3.2-3b@smoke", "--steps", "3", "--device", "cpu",
+         "--ckpt-dir", str(tmp_path)], env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == "arch=llama3.2-3b@smoke params=1.4M mesh=None"
+    assert [ln.split()[1] for ln in lines[1:3]] == ["0", "2"]
+    assert all(re.fullmatch(r"step +\d+ loss=[\d.]+ gnorm=[\d.]+", ln)
+               for ln in lines[1:3])
+    f = tmp_path / "ckpt_00000003.npz"
+    assert lines[3] == f"saved: {f}" and f.exists()

@@ -17,11 +17,13 @@ from repro_torch.configs import get_config
 from repro_torch.errors import DeviceInitError
 from repro_torch.graphs import mobilenet_v1_graph, quantize_graph
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.mcu import MicroInterpreter
 from repro_torch.mcu.compile import compile_schedule
 from repro_torch.models import init_params
 from repro_torch.serving import (GraphServingEngine, ServingEngine,
                                  ShardedServingEngine)
+from repro_torch.training import train_state_init
 
 # One intra-op thread: the suite runs in several worker processes at
 # once, and idle OpenMP threads spinning in each would starve the rest.
@@ -35,11 +37,13 @@ def test_import_leaves_jax_and_the_reference_out():
     code = ("import sys, repro_torch, repro_torch.deploy, "
             "repro_torch.mcu.compile, repro_torch.params, "
             "repro_torch.models, repro_torch.configs, repro_torch.data, "
-            "repro_torch.launch.serve, repro_torch.serving.sharded, "
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.training, repro_torch.training.checkpoint, "
+            "repro_torch.serving.sharded, "
             "repro_torch.serving.admission, repro_torch.core.fx_reorder, "
             "repro_torch.core.fx_partial\n"
             f"sys.path.insert(0, {str(ROOT / 'examples_torch')!r})\n"
-            "import quickstart, mcu_deploy, serve_llm\n"
+            "import quickstart, mcu_deploy, serve_llm, train_small\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -64,7 +68,7 @@ def test_no_source_imports_jax_or_the_reference():
     files.append(ROOT / "chip_smoke.py")
     examples = sorted((ROOT / "examples_torch").glob("*.py"))
     assert {f.name for f in examples} >= {"quickstart.py", "mcu_deploy.py",
-                                          "serve_llm.py"}
+                                          "serve_llm.py", "train_small.py"}
     files += examples
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
@@ -97,7 +101,11 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         launch_serve.main(["--arch", "llama3.2-3b@smoke", "--requests", "1"])
     with pytest.raises(DeviceInitError, match="device='cpu'"):
         ShardedServingEngine(g)
-    for example in ("quickstart", "mcu_deploy", "serve_llm"):
+    with pytest.raises(DeviceInitError, match="device='cpu'"):
+        launch_train.main(["--arch", "llama3.2-3b@smoke", "--steps", "1"])
+    with pytest.raises(DeviceInitError, match="device='cpu'"):
+        train_state_init(cfg)
+    for example in ("quickstart", "mcu_deploy", "serve_llm", "train_small"):
         main = runpy.run_path(str(ROOT / "examples_torch" / f"{example}.py"))
         with pytest.raises(DeviceInitError, match="device='cpu'"):
             main["main"]([])

@@ -232,3 +232,32 @@ def test_moe_decode_step_makes_no_host_read(route, monkeypatch):
         assert out is cache
         assert {n: t.data_ptr() for n, t in cache.items()} == ptrs
     assert torch.isfinite(logits).all()
+
+
+def test_the_cards_bf16_expert_product_has_the_widened_products_gradient():
+    """The card's expert product ``_BmmF32`` (``bmm(out_dtype=float32)``,
+    which has no derivative of its own) is differentiable: its backward
+    passes ``gradcheck`` in float64 through its plain CPU stand-in, and on
+    bf16 operands it gives autograd's gradients of the widened product
+    ``bmm(a.float(), b.float())`` — formed in float32, returned in bf16,
+    as JAX transposes the reference's ``preferred_element_type`` einsums.
+    On the CPU its forward is the widened product itself."""
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(3, 5, 4, generator=gen, dtype=torch.float64,
+                    requires_grad=True)
+    b = torch.randn(3, 4, 6, generator=gen, dtype=torch.float64,
+                    requires_grad=True)
+    assert torch.autograd.gradcheck(moe._BmmF32.apply, (a, b))
+    a16 = a.detach().to(torch.bfloat16).requires_grad_()
+    b16 = b.detach().to(torch.bfloat16).requires_grad_()
+    g = torch.randn(3, 5, 6, generator=gen)
+    y = moe._BmmF32.apply(a16, b16)
+    assert y.dtype == torch.float32
+    got = torch.autograd.grad(y, (a16, b16), g)
+    a32, b32 = (t.detach().float().requires_grad_() for t in (a16, b16))
+    y32 = torch.bmm(a32, b32)
+    want = torch.autograd.grad(y32, (a32, b32), g)
+    assert torch.equal(y, y32)
+    for x, w in zip(got, want):
+        assert x.dtype == torch.bfloat16
+        assert torch.equal(x, w.to(torch.bfloat16))
