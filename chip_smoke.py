@@ -63,6 +63,24 @@ after (the launches of the kernel checks above do not count):
   seconds of trace and schedule, then the reordered step against the
   eager ``decode_step`` after a prefill: logits and every cache tensor
   bit-equal, K8 28× through the reordered module;
+* ``phase llm-window``: sliding-window attention on the card.  K7 with a
+  window against its plain version at ``HOSTILE_K7_WINDOW`` (float32 and
+  bf16; a window over every key bit for bit causal's), then Llama-3.2-3B
+  at full width and depth, bf16, weights from ``WINDOW_SEED``, at
+  ``launch/shapes.py``'s ``long_500k`` config (window 8 192) and cache
+  (524 288 positions, a ring of 8 192 slots: ``block_bytes`` 939 556 868)
+  through ``ServingEngine`` with the captured step, one request a batch:
+  a 12 000-token prompt (longer than the ring and not a multiple of it,
+  ROADMAP R8's case; 16 new tokens) and an 8 180-token one whose 13th
+  step wraps the ring (24 new) — K7 28× per prefill with the window, K8
+  28× per step; K7 at the 12 000-row prefill against its plain version
+  ``WINDOW_BLOCK`` query rows at a time, and timed there with and
+  without the window beside its bound and SDPA with a boolean window
+  mask; ``phase graphs llm-window``; decode(t) vs a windowed prefill of
+  t+1 tokens at the first step, the wrap and the last (``CONT_TOL``);
+  card vs CPU at 2 layers with a window of 512 over a 1 300-token prompt
+  (``WINDOW_CPU``); prefill and step times beside their
+  ``analysis.roofline.roofline_report(..., hw=H100)`` bounds;
 * ``phase llm-moe``: the MoE decoder Granite-3.0-1B-A400M at full width
   and depth (24 layers, 32 experts top 8, bf16) through the launcher's
   engine with the short mix — K7 24× per prefill, K8 24× per decode step
@@ -196,7 +214,8 @@ F32_TOL = dict(rtol=1e-4, atol_frac=1e-5)     # atol = atol_frac * max|cpu|
 # dot product of Cin terms plus the bias add, for any summation order
 F32_BOUND = 2 * 2.0 ** -24
 DEVICE = "cuda:0"
-H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
+# the card's peaks (H100 SXM data sheet): the HBM3 rate and the dense bf16
+# tensor-core rate are repro_torch.analysis.roofline.H100's (h100() below)
 H100_INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak
 H100_F32_OPS_PER_S = 67e12          # float32 without tensor cores
 # What each kernel replaces: the TPU kernel's function, file:line
@@ -220,7 +239,6 @@ ATTENTION = ("flash_attention", "decode_attention")
 PTXAS_KERNELS = ("qconv1x1", "qdwconv", "qconv", "qconv1x1_add",
                  "qconv_add", "conv1x1", "flash_attention",
                  "decode_attention")
-H100_BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 # ---- the LLM serving phases: Llama-3.2-3B at full width and depth, bf16,
 # random weights drawn on the card by the launcher (torch.Generator seed 0)
 LLM_ARCH = "llama3.2-3b"
@@ -317,6 +335,24 @@ CROSS_MIXES = (("whisper-large-v3",
 # against the chunked path, 1e-3, as SSM_CPU_TOL.
 CROSS_CONT_TOL, CROSS_CPU_TOL = 2e-3, 1e-3
 CROSS_WHISPER_FRAMES = 1500     # encoder_seq: the rows of its cross cache
+# ---- sliding-window attention (phase llm-window), after Llama's phases:
+# Llama-3.2-3B at full width and depth, bf16, random weights drawn on the
+# card from WINDOW_SEED, at launch/shapes.py's long_500k config (window
+# 8 192) and cache (524 288 positions: a ring of 8 192 slots, the
+# reference's kv_block_bytes 8 192 * 114 688 + 32 768 + 4 B), one request a
+# batch (the shape's global batch): a prompt longer than the ring and not a
+# multiple of it (12 000 % 8 192 = 3 808, the case of ROADMAP R8) and one
+# whose 13th decode step writes position 8 192 at slot 0 (the ring wraps).
+# Continuation and graphs checks as Llama's mixes (CONT_TOL).
+WINDOW_SHAPE, WINDOW_SEED = "long_500k", 7
+WINDOW_MIX = ("window", 2, (12_000, 8_180), (16, 24), 1, 524_288,
+              939_556_868)
+# card vs CPU (CPU_TOL, 2 layers) at a window of 512, so that the CPU side
+# stays short: a prompt of 1 300 tokens (1 300 % 512 = 276), 8 steps
+WINDOW_CPU = (512, 1300, 8)
+# K7 is held against its plain version a block of this many query rows at
+# a time over long prefills (12 000 rows: no 12 000^2 score matrix)
+WINDOW_BLOCK = 1024
 # ---- training (phase train), after every serving model is freed.
 # train-llama: Llama-3.2-3B at full width and depth through
 # repro_torch.launch.train's main (bf16 parameters and gradients, float32
@@ -324,7 +360,6 @@ CROSS_WHISPER_FRAMES = 1500     # encoder_seq: the rows of its cross cache
 # under autograd as the reference trains — K7 has no backward), B 4 x S
 # 1 024, one microbatch, 4 steps: the first is the warm-up.
 TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "llama3.2-3b", 4, 1024, 4
-H100_F32_OPS_PER_S, H100_BYTES_PER_S = 67e12, 3.35e12
 # train-small: examples_torch/train_small.py's model (Llama smoke at 4
 # layers, d 256, float32) on the card, 30 steps of B 8 x S 64, peak lr
 # 3e-3, warm-up 5: the mean of the last five losses below the first
@@ -401,6 +436,22 @@ HOSTILE_K7 = [(1, 1, 1, 2, 2, 64, True, False),
               # its prefill cross attention (23 text rows over the frames)
               (4, 1500, 1500, 20, 20, 64, False, False),
               (4, 23, 1500, 20, 20, 64, False, False)]
+# hostile windowed K7 shapes (B, Sq, Skv, H, K, D, window, packed), causal:
+# W 1; W below one key tile (both of a row's edges in one tile); W one
+# tile and one tile and a bit; W = S (bit for bit causal's) and W > S;
+# Sq < Skv; D 40 / 64 / 80 / 128; several query blocks; Llama's heads at
+# the card-vs-CPU window
+HOSTILE_K7_WINDOW = [(1, 17, 17, 2, 2, 64, 1, False),
+                     (2, 200, 200, 6, 2, 128, 5, False),
+                     (1, 300, 300, 4, 4, 80, 64, True),
+                     (1, 300, 300, 4, 2, 64, 70, False),
+                     (2, 200, 200, 6, 2, 128, 200, False),
+                     (1, 129, 129, 8, 2, 128, 500, True),
+                     (1, 70, 333, 6, 3, 128, 50, False),
+                     (2, 333, 1000, 8, 8, 80, 129, False),
+                     (1, 256, 256, 4, 2, 40, 63, False),
+                     (1, 1000, 1000, 14, 2, 64, 300, False),
+                     (1, 2048, 2048, 24, 8, 128, 512, True)]
 # hostile K8 shapes (B, S, H, K, D, lengths, strided): caches of 96 and
 # 2048 rows, lengths 1, S and between, GQA 1, 3 and 4; `strided` caches are
 # views of a longer cache, MISALIGNED ones start one element into it (no
@@ -486,6 +537,13 @@ HOSTILE_F32 = [(1, 1, 1, 1, False, True, 2), (1, 1, 16, 2, True, True, 2),
                (6, 6, 1030, 65, True, True, 3),
                (7, 9, 1, 65, False, True, 3),
                (12, 12, 512, 512, True, True, 3)]
+
+
+def h100():
+    """The card's spec of the port's roofline (``repro_torch.analysis.
+    roofline.H100``): ``hbm_bw`` bytes/s, ``peak_flops`` dense bf16."""
+    from repro_torch.analysis.roofline import H100
+    return H100
 
 
 def log(msg: str) -> None:
@@ -976,7 +1034,7 @@ class Checks:
         if lib is not None:
             with self.pw_ref.full_f32_matmul():
                 library_ms = time_ms(torch, lib)
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_bytes = nbytes / h100().hbm_bw * 1e3
         t_ops = 2 * macs / peak * 1e3
         rel = (f", max_rel_err {self.max_rel:.3e} (of max|want|), within "
                f"the f32 bound" if name == "conv1x1" else "")
@@ -1074,7 +1132,7 @@ class Checks:
                 nbytes = h * w * cin + wt.numel() + oh * ow * co + extra
                 macs = oh * ow * co * k * k * (1 if kind == "qdwconv"
                                                 else cin)
-                bound = max(nbytes / H100_BYTES_PER_S,
+                bound = max(nbytes / h100().hbm_bw,
                             2 * macs / H100_INT8_OPS_PER_S) * 1e3
                 parts.append(f"{name} kernel_ms {ev:.5f}, device_ms "
                              f"{dev(dv)}, bound_ms {bound:.7f}")
@@ -1143,7 +1201,7 @@ class Checks:
                     self.ops._plan = planner
             assert torch.equal(run(), want), (h, w, cin, cout)
             nbytes = h * w * cin + cin * cout + h * w * cout
-            bound = max(nbytes / H100_BYTES_PER_S,
+            bound = max(nbytes / h100().hbm_bw,
                         2 * h * w * cin * cout / H100_INT8_OPS_PER_S) * 1e3
             log(f"kernels qconv1x1 shape {h}x{w}x{cin}->{cout}: kernel_ms "
                 f"{kernel_ms:.5f}, library_ms {library_ms:.5f} "
@@ -1212,7 +1270,7 @@ class Checks:
                         pw._plan = hook
             m = lanes * h * w
             nbytes = 4 * (m * cin + cin * cout + cout + m * cout)
-            bound = max(nbytes / H100_BYTES_PER_S,
+            bound = max(nbytes / h100().hbm_bw,
                         2 * m * cin * cout / H100_F32_OPS_PER_S) * 1e3
             log(f"kernels conv1x1 shape {lanes}x{h}x{w}x{cin}->{cout}: "
                 f"kernel_ms "
@@ -1814,11 +1872,11 @@ class AttentionChecks:
         fa, dec = kernels.flash_attention, kernels.decode_attention
         capturing = self.torch.cuda.is_current_stream_capturing
 
-        def flash(q, k, v, *, causal=True):
+        def flash(q, k, v, *, causal=True, window=0):
             if not capturing():
                 self.main_k7.append((tuple(q.shape), tuple(k.shape),
-                                     q.dtype, causal))
-            return fa(q, k, v, causal=causal)
+                                     q.dtype, causal, window))
+            return fa(q, k, v, causal=causal, window=window)
 
         def decode(q, k_cache, v_cache, lengths):
             if not capturing():
@@ -1854,8 +1912,9 @@ class AttentionChecks:
                                  float(diff.max()) / max(wmax, 1e-30))
         self.checked[name] += 1
 
-    def k7(self, B, Sq, Skv, H, K, D, dtype, causal, packed=False):
-        key = ("k7", B, Sq, Skv, H, K, D, dtype, causal, packed)
+    def k7(self, B, Sq, Skv, H, K, D, dtype, causal, packed=False,
+           window=0):
+        key = ("k7", B, Sq, Skv, H, K, D, dtype, causal, packed, window)
         if key in self.seen:
             return
         self.seen.add(key)
@@ -1867,9 +1926,34 @@ class AttentionChecks:
             q = self._randn((B, Sq, H, D), dtype)
             k = self._randn((B, Skv, K, D), dtype)
             v = self._randn((B, Skv, K, D), dtype)
-        got = self.fa_ops.flash_attention(q, k, v, causal=causal)
-        want = self.fa_ref.attention_ref(q, k, v, causal=causal)
-        self._compare("flash_attention", got, want)
+        got = self.fa_ops.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+        if window >= Skv:   # a window over every key is causal, bit for bit
+            causal_out = self.fa_ops.flash_attention(q, k, v, causal=True)
+            self.torch.cuda.synchronize()
+            if not self.torch.equal(got, causal_out):
+                self.mismatches["flash_attention"] += 1
+        self._compare("flash_attention", got,
+                      self.plain_k7(q, k, v, causal, window))
+
+    def plain_k7(self, q, k, v, causal, window):
+        """K7's plain version, a block of ``WINDOW_BLOCK`` query rows at a
+        time over the keys up to the block's last row (its query offset:
+        no Sq x Skv score matrix of a long prefill), all keys without
+        ``causal``."""
+        torch = self.torch
+        Sq, Skv = q.shape[1], k.shape[1]
+        if Sq * Skv <= WINDOW_BLOCK * WINDOW_BLOCK * 16:
+            return self.fa_ref.attention_ref(q, k, v, causal=causal,
+                                             window=window)
+        out = []
+        for r0 in range(0, Sq, WINDOW_BLOCK):
+            r1 = min(Sq, r0 + WINDOW_BLOCK)
+            end = Skv - Sq + r1 if causal else Skv
+            out.append(self.fa_ref.attention_ref(
+                q[:, r0:r1], k[:, :end], v[:, :end], causal=causal,
+                window=window))
+        return torch.cat(out, 1)
 
     def k8(self, B, S, H, K, D, dtype, lengths, strided=False):
         key = ("k8", B, S, H, K, D, dtype, tuple(lengths), strided)
@@ -1902,9 +1986,10 @@ class AttentionChecks:
     def main_path(self):
         """Every distinct configuration the recorded phases launched."""
         n = len(self.seen)
-        for (qs, ks, dtype, causal) in self.main_k7:
+        for (qs, ks, dtype, causal, window) in self.main_k7:
             B, Sq, H, D = qs
-            self.k7(B, Sq, ks[1], H, ks[2], D, dtype, causal)
+            self.k7(B, Sq, ks[1], H, ks[2], D, dtype, causal,
+                    window=window)
         for (qs, ks, dtype, lengths) in self.main_k8:
             B, H, D = qs
             self.k8(B, ks[1], H, ks[2], D, dtype, tuple(lengths.tolist()))
@@ -1927,29 +2012,41 @@ class AttentionChecks:
         torch = self.torch
         import torch.nn.functional as F
         if name == "flash_attention":
-            (B, Sq, H, D), ks, dtype, causal = config or self.largest(name)
+            (B, Sq, H, D), ks, dtype, causal, window = \
+                config or self.largest(name)
             Skv, K = ks[1], ks[2]
             q = self._randn((B, Sq, H, D), dtype)
             k = self._randn((B, Skv, K, D), dtype)
             v = self._randn((B, Skv, K, D), dtype)
             run = lambda: self.fa_ops.flash_attention(  # noqa: E731
-                q, k, v, causal=causal)
-            plain = lambda: self.fa_ref.attention_ref(  # noqa: E731
-                q, k, v, causal=causal)
+                q, k, v, causal=causal, window=window)
+            plain = lambda: self.plain_k7(  # noqa: E731
+                q, k, v, causal, window)
+            off = Skv - Sq
+            mask = None
+            if window:      # keep j <= i + off and j > i + off - window
+                i = torch.arange(Sq, device=self.device)[:, None] + off
+                j = torch.arange(Skv, device=self.device)[None]
+                mask = (j <= i) & (j > i - window)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=causal, enable_gqa=True)
-            # query-key pairs the causal mask keeps (queries are the last
-            # Sq positions): each costs 2·D flops in q·k and 2·D in p·v
-            off = Skv - Sq
-            pairs = sum(min(Skv, max(0, off + i + 1)) for i in range(Sq)) \
-                if causal else Sq * Skv
+                attn_mask=mask, is_causal=causal and not window,
+                enable_gqa=True)
+            # query-key pairs the mask keeps (queries are the last Sq
+            # positions): each costs 2·D flops in q·k and 2·D in p·v
+            pairs = sum(min(Skv, max(0, off + i + 1))
+                        - (max(0, off + i - window + 1) if window else 0)
+                        for i in range(Sq)) if causal else Sq * Skv
             flops = 4 * B * H * D * pairs
             nbytes = (2 * q.numel() + k.numel() + v.numel()) \
                 * q.element_size()
             shape = (f"B{B} Sq{Sq} Skv{Skv} H{H}/K{K} D{D} {dtype} "
-                     f"causal={causal}")
-            lib_name = "F.scaled_dot_product_attention(is_causal, enable_gqa)"
+                     f"causal={causal} window={window}, {pairs} "
+                     f"(query, key) pairs")
+            lib_name = ("F.scaled_dot_product_attention(bool window mask, "
+                        "enable_gqa)" if window else
+                        "F.scaled_dot_product_attention(is_causal, "
+                        "enable_gqa)")
         else:
             (B, H, D), ks, dtype, lengths = config or self.largest(name)
             S, K = ks[1], ks[2]
@@ -1981,14 +2078,14 @@ class AttentionChecks:
                      f"{sorted(set(lengths.tolist()))}")
             lib_name = (f"F.scaled_dot_product_attention(bool mask, "
                         f"enable_gqa); {K8_CACHES} caches in turn, cold in L2")
-        peak = H100_BF16_OPS_PER_S if dtype == torch.bfloat16 \
+        peak = h100().peak_flops if dtype == torch.bfloat16 \
             else H100_F32_OPS_PER_S
         kernel_ms = time_ms(torch, run)
         plain_ms = time_ms(torch, plain, iters=10, warmup=2)
         library_ms = time_ms(torch, lib)
         dev_ms, lib_dev_ms = (device_time(torch, f, reps=12)[0]
                               for f in (run, lib))
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_bytes = nbytes / h100().hbm_bw * 1e3
         t_ops = flops / peak * 1e3
         log(f"kernels {name}: {self.checked[name]} configs, "
             f"{self.mismatches[name]} mismatches, max_abs_err "
@@ -2105,21 +2202,29 @@ class Llm:
     attention too; InternVL2: the patch rows in every prefill)."""
 
     def __init__(self, torch, np, device, paths, attn, card, arch=LLM_ARCH,
-                 mix=LLM_MIXES[0]):
+                 mix=LLM_MIXES[0], shape=None, seed=0):
         from repro_torch.configs import get_config
         from repro_torch.launch import serve as launch_serve
-        from repro_torch.models.model import model_layout
+        from repro_torch.launch.shapes import config_for_shape
+        from repro_torch.models.model import init_params, model_layout
         self.torch, self.np, self.device = torch, np, device
         self.paths, self.attn, self.card = paths, attn, card
         self.launch_serve = launch_serve
         t0 = time.perf_counter()
         self.cfg = get_config(arch)
+        if shape is None:
+            # the launcher's own engine: random bf16 weights drawn on the
+            # card (seed 0)
+            self.params = launch_serve.build_engine(
+                arch, max_batch=mix[4], cache_len=mix[5],
+                device=device).params
+        else:       # the shape's config, weights drawn from ``seed``
+            self.cfg = config_for_shape(self.cfg, shape)
+            self.params = init_params(
+                self.cfg, torch.Generator(device=device).manual_seed(seed),
+                device)
         self.n_k7, self.n_k8 = attn_launches(self.cfg)
         lay = model_layout(self.cfg)
-        # the launcher's own engine: random bf16 weights drawn on the card
-        self.engine = launch_serve.build_engine(
-            arch, max_batch=mix[4], cache_len=mix[5], device=device)
-        self.params = self.engine.params
         torch.cuda.synchronize()
         n = sum(t.numel() for t in self._leaves(self.params))
         moe = (f", {self.cfg.num_experts} experts top "
@@ -2137,6 +2242,9 @@ class Llm:
         if self.cfg.num_patch_tokens:
             moe += (f", {self.cfg.num_patch_tokens} patch rows of "
                     f"{self.cfg.frontend_dim} before each prompt")
+        if self.cfg.sliding_window:
+            moe += (f", {shape}'s sliding window {self.cfg.sliding_window}, "
+                    f"weights seed {seed}")
         log(f"phase llm-init: {arch} ({self.cfg.num_layers} layers, d "
             f"{self.cfg.d_model}, {self.cfg.num_heads} heads / "
             f"{self.cfg.num_kv_heads} kv heads of {self.cfg.head_dim_}, "
@@ -2151,13 +2259,19 @@ class Llm:
             yield from (Llm._leaves(v) if isinstance(v, dict) else (v,))
 
     def _requests(self, n, prompt, max_new):
+        """``n`` requests: the reference launcher's traffic (``prompt``
+        None), or random prompts of ``prompt`` tokens and ``max_new`` new
+        ones, each an int or a tuple of one per request."""
         from repro_torch.serving import Request
         if prompt is None:      # the reference launcher's traffic
             return self.launch_serve.make_requests(self.cfg, n, max_new)
+        def each(x):
+            return x if isinstance(x, tuple) else (x,) * n
         rng = self.np.random.default_rng(1)
         return [Request(rid=i, prompt=rng.integers(
-            0, self.cfg.vocab_size, prompt).astype(self.np.int32),
-            max_new_tokens=max_new) for i in range(n)]
+            0, self.cfg.vocab_size, p).astype(self.np.int32),
+            max_new_tokens=m)
+            for i, (p, m) in enumerate(zip(each(prompt), each(max_new)))]
 
     def serve(self, label, n, prompt, max_new, max_batch, cache_len,
               block_bytes):
@@ -2403,7 +2517,7 @@ class Llm:
         assert err <= tol * scale, (err, scale)
 
     def card_vs_cpu(self, label="llm", cfg=None, params=None, tol=CPU_TOL,
-                    layers=CPU_LAYERS):
+                    layers=CPU_LAYERS, prompt=CPU_S, n_steps=CPU_STEPS):
         """A ``layers``-layer variant at full width (the first layers'
         weights; whole groups for Zamba2 and xLSTM) on the card and on the
         port's plain CPU path: prefill and teacher-forced decode steps
@@ -2421,9 +2535,9 @@ class Llm:
         cpu = tree_map(lambda t: t.cpu(), card)
         model = Model(cfg)
         rng = np.random.default_rng(3)
-        toks = rng.integers(0, cfg.vocab_size, (2, CPU_S))
-        steps = rng.integers(0, cfg.vocab_size, (CPU_STEPS, 2))
-        cache_len = (cfg.num_patch_tokens or 0) + CPU_S + CPU_STEPS
+        toks = rng.integers(0, cfg.vocab_size, (2, prompt))
+        steps = rng.integers(0, cfg.vocab_size, (n_steps, 2))
+        cache_len = (cfg.num_patch_tokens or 0) + prompt + n_steps
         self.paths.reset()
         with self.attn.record():
             got = [model.prefill(card, self._feed(toks, seed=3, cfg=cfg),
@@ -2444,14 +2558,105 @@ class Llm:
             ratios.append(err / float(w.abs().max()))
         k7, k8 = attn_launches(cfg)
         assert launches["flash_attention"] == k7, launches
-        assert launches["decode_attention"] == k8 * CPU_STEPS, launches
+        assert launches["decode_attention"] == k8 * n_steps, launches
         log(f"phase {label}-card-vs-cpu: {layers} layers at full width, "
-            f"prefill of {CPU_S} tokens + {CPU_STEPS} decode steps, "
+            f"prefill of {prompt} tokens + {n_steps} decode steps"
+            + (f", window {cfg.sliding_window}" if cfg.sliding_window
+               else "") + ", "
             f"{cfg.dtype}: max|card - cpu| / max|cpu logit| per call "
             + ", ".join(f"{r:.3e}" for r in ratios)
             + f" (tolerance {tol}); launches {launches} "
             f"({time.perf_counter() - t0:.2f} s)")
         assert max(ratios) <= tol, ratios
+
+    def window_continuation(self, eng, reqs, results):
+        """ROADMAP R8's check on the card: each served request's prompt
+        prefilled into the engine's ring, then an eager ``decode_step``
+        loop fed its served tokens, against a windowed prefill of the
+        prompt and the tokens so far (``decode(t)`` vs ``prefill(t+1)``)
+        at the first step, the step that writes slot 0 of the ring and the
+        last: within ``CONT_TOL`` of max|logit|."""
+        from repro_torch.models import Model
+        torch, np = self.torch, self.np
+        t0 = time.perf_counter()
+        model, W = Model(self.cfg), self.cfg.sliding_window
+        parts = []
+        for r, res in zip(reqs, results):
+            S, n = len(r.prompt), len(res.tokens)
+            toks = np.concatenate([r.prompt, res.tokens]).astype(np.int64)
+            # step i feeds served token i-1 at position S + i - 1
+            wraps = [i for i in range(1, n) if (S + i - 1) % W == 0]
+            check = sorted({1, n - 1, *wraps[:1]})
+            _, cache = model.prefill(self.params,
+                                     self._feed(toks[None, :S]),
+                                     cache_len=eng.cache_len)
+            assert cache["k"].shape[2] == W
+            errs = []
+            for i in range(1, n):
+                tok = torch.as_tensor(toks[S + i - 1:S + i],
+                                      device=self.device)
+                logits, cache = model.decode_step(self.params, cache, tok)
+                if i in check:
+                    full, _ = model.prefill(self.params,
+                                            self._feed(toks[None, :S + i]))
+                    assert torch.isfinite(logits).all()
+                    err = float((logits - full).abs().max())
+                    scale = float(full.abs().max())
+                    errs.append((i, S + i - 1, (S + i - 1) % W, err, scale))
+            del cache
+            parts.append((S, errs))
+        log(f"phase llm-window-continuation: B 1, {self.cfg.dtype}, window "
+            f"{W}, decode(t) vs windowed prefill(t+1), max|delta logit| / "
+            f"max|logit| (tolerance {CONT_TOL}): " + "; ".join(
+                f"prompt {S} ({S} % {W} = {S % W}): " + ", ".join(
+                    f"step {i} (pos {p}, slot {sl}) {e / sc:.3e}"
+                    for i, p, sl, e, sc in errs) for S, errs in parts)
+            + f" ({time.perf_counter() - t0:.2f} s)")
+        assert all(e <= CONT_TOL * sc for _, errs in parts
+                   for *_, e, sc in errs), parts
+
+    def window_bounds(self, reqs, results):
+        """Each served request's prefill ms and graphed decode ms/step
+        beside ``roofline_report(..., hw=H100)`` of the work: the weights'
+        bf16 products over the prompt (the head over its last row) plus
+        the windowed attention's 4·H·D flops a (query, key) pair, and the
+        weights read once plus the K/V rows the ring keeps; a step, the
+        weights and the ``min(pos + 1, W)`` rows it reads."""
+        from repro_torch.analysis.roofline import H100, roofline_report
+        from repro_torch.models.model import init_params
+        cfg, W = self.cfg, self.cfg.sliding_window
+        meta = init_params(cfg, device="meta")
+        L, H, K, D = (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.head_dim_)
+        blocks = sum(t.numel() for t in meta["blocks"].values())
+        head = cfg.padded_vocab * cfg.d_model
+        wbytes = sum(t.numel() * t.element_size()
+                     for t in self._leaves(meta))
+        if not cfg.tie_embeddings:      # the lookup reads a row a token
+            wbytes -= meta["embed"].numel() * meta["embed"].element_size()
+        kv_row = 2 * L * K * D * meta["embed"].element_size()
+        lines = []
+        for r, res in zip(reqs, results):
+            S, n = len(r.prompt), len(res.tokens)
+            pairs = sum(min(i + 1, W) for i in range(S))
+            pre = roofline_report(
+                flops=2 * blocks * S + 2 * head + 4 * H * D * pairs * L,
+                bytes_accessed=wbytes + min(S, W) * kv_row,
+                collective_bytes=0.0, hw=H100)
+            rows = min(S + n - 1, W)        # the last step's
+            step = roofline_report(
+                flops=2 * blocks + 2 * head + 4 * H * D * rows * L,
+                bytes_accessed=wbytes + rows * kv_row,
+                collective_bytes=0.0, hw=H100)
+            lines.append(
+                f"prompt {S}: prefill {res.prefill_ms:.3f} ms, bound "
+                f"{pre['step_time_lb_s'] * 1e3:.4f} ms "
+                f"({pre['dominant']}); graphed decode "
+                f"{res.decode_ms / (n - 1):.3f} ms/step, bound "
+                f"{step['step_time_lb_s'] * 1e3:.4f} ms ({step['dominant']}, "
+                f"{rows} rows)")
+        log(f"phase llm-window bounds (roofline_report, {H100.name}): "
+            + "; ".join(lines) + f" [{self.card}]")
 
     def reorder(self, label, caches):
         """``phase llm-reorder``: ``ServingEngine.analyse_decode_schedule
@@ -2529,6 +2734,71 @@ class Llm:
         assert equal and len(same) == len(cache), (equal, same)
 
 
+def window_phase(torch, np, device, paths, attn, card):
+    """``phase llm-window``: sliding-window attention on the card.  K7 with
+    a window against its plain version at ``HOSTILE_K7_WINDOW``; then
+    Llama-3.2-3B at ``WINDOW_SHAPE``'s config and cache through
+    ``ServingEngine`` with the captured decode step (``WINDOW_MIX``:
+    ``block_bytes``, K7 28x a prefill with the window, K8 28x a step over
+    the ring); K7 at the 12 000-row prefill against its plain version
+    (``WINDOW_BLOCK`` rows at a time) and timed there with and without the
+    window beside its bound and SDPA's; ``phase graphs llm-window``; the
+    continuation at the first step, the step that writes slot 0 and the
+    last; card vs CPU at ``WINDOW_CPU``; the bounds of a prefill and a
+    decode step from ``repro_torch.analysis.roofline`` beside their
+    times."""
+    from repro_torch.launch.shapes import SHAPES
+    t0 = time.perf_counter()
+    n0 = attn.checked["flash_attention"]
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, Sq, Skv, H, K, D, window, packed) in HOSTILE_K7_WINDOW:
+            attn.k7(B, Sq, Skv, H, K, D, dtype, True, packed, window)
+    log(f"phase llm-window hostile: K7 with a window vs plain at "
+        f"{attn.checked['flash_attention'] - n0} windowed configurations "
+        f"(W 1 to W > S, Sq < Skv, D 40-128, float32 and bf16; W >= Skv "
+        f"bit for bit causal's), mismatches {attn.mismatches} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    assert all(v == 0 for v in attn.mismatches.values()), attn.mismatches
+    assert WINDOW_MIX[5] == SHAPES[WINDOW_SHAPE].seq_len
+    win = Llm(torch, np, device, paths, attn, card, arch=LLM_ARCH,
+              mix=WINDOW_MIX, shape=WINDOW_SHAPE, seed=WINDOW_SEED)
+    W = win.cfg.sliding_window
+    n_rec = len(attn.main_k7)
+    eng, reqs, results, busy, by_name, wall = win.serve(*WINDOW_MIX)
+    assert eng.decode_step(1).cache["k"].shape[2] == W
+    served = attn.main_k7[n_rec:]
+    assert len(served) == win.n_k7 * len(reqs) and all(
+        c[4] == W and c[3] for c in served), served
+    # K7 at the longest prefill's own shape against its plain version, and
+    # timed there with the window and without it
+    big = max(served, key=lambda c: c[0][1])
+    (B, Sq, H, D), (_, Skv, K, _), dtype = big[0], big[1], big[2]
+    t1 = time.perf_counter()
+    attn.k7(B, Sq, Skv, H, K, D, dtype, True, window=W)
+    log(f"phase llm-window K7 at B{B} Sq{Sq} H{H}/K{K} D{D} {dtype} window "
+        f"{W} vs plain ({WINDOW_BLOCK} query rows at a time): mismatches "
+        f"{attn.mismatches['flash_attention']}, max_abs_err "
+        f"{attn.max_err['flash_attention']:.3e} "
+        f"({time.perf_counter() - t1:.2f} s)")
+    assert attn.mismatches["flash_attention"] == 0
+    k7w = attn.timing("flash_attention", card, config=big,
+                      label=f"{WINDOW_SHAPE} prefill, windowed")
+    k7c = attn.timing("flash_attention", card,
+                      config=big[:4] + (0,),
+                      label=f"{WINDOW_SHAPE} prefill, causal, no window")
+    log(f"phase llm-window K7 {Sq} rows: windowed {k7w['ms']:.5f} ms "
+        f"(bound {k7w['bound_ms']:.5f}), causal without the window "
+        f"{k7c['ms']:.5f} ms (bound {k7c['bound_ms']:.5f}); SDPA "
+        f"{k7w['library_ms']:.5f} / {k7c['library_ms']:.5f} ms [{card}]")
+    win.graphs(WINDOW_MIX[0], eng, reqs, results, busy, by_name, wall)
+    win.window_continuation(eng, reqs, results)
+    cpu_w, cpu_s, cpu_n = WINDOW_CPU
+    win.card_vs_cpu("llm-window", win.cfg.with_sliding_window(cpu_w),
+                    win.params, prompt=cpu_s, n_steps=cpu_n)
+    win.window_bounds(reqs, results)
+    log(f"phase llm-window: {time.perf_counter() - t0:.2f} s")
+
+
 def train_phase(torch, np, device, paths, card):
     """``phase train``: a full-width training run of Llama-3.2-3B through
     the launcher, the example's model learning on the card, and one step
@@ -2566,8 +2836,8 @@ def step_bound(cfg, B, S):
     attn = 4 * (4 * B * cfg.num_heads * S * skv * cfg.head_dim_) \
         * cfg.num_layers
     adam = n_all * (2 + 2 + 4 + 4 + 2 + 2 + 4 + 4)
-    parts = (mm / H100_BF16_OPS_PER_S, attn / H100_F32_OPS_PER_S,
-             adam / H100_BYTES_PER_S)
+    parts = (mm / h100().peak_flops, attn / H100_F32_OPS_PER_S,
+             adam / h100().hbm_bw)
     return sum(parts), (f"matmuls {mm / 1e12:.2f} TFLOP bf16 "
                         f"{parts[0]:.4f} s + attention {attn / 1e12:.2f} "
                         f"TFLOP f32 {parts[1]:.4f} s + AdamW "
@@ -3038,6 +3308,9 @@ def main() -> int:
     llm.continuation()
     llm.card_vs_cpu()
     llm.reorder("llm", REORDER_CACHES)
+    window_phase(torch, np, device, paths, attn, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     # the MoE decoder: Granite-MoE at full width beside Llama's weights
     t0 = time.perf_counter()
     moe = Llm(torch, np, device, paths, attn, card, arch=MOE_ARCH,

@@ -13,10 +13,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 
 FLASH_ATTENTION = KernelSet(Path(__file__).resolve().parent / "csrc", {
     # q, k, v, out, B, H, K, Sq, Skv, D, q/k/v (batch, seq, head) strides
-    # in elements, scale, causal, dtype, device, stream
+    # in elements, scale, causal, window, dtype, device, stream
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                        _F, _I, _I, _I, _P],
+                        _F, _I, _I, _I, _I, _P],
 })
 
 __all__ = ["FLASH_ATTENTION"]

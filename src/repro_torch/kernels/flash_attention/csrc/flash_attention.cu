@@ -3,9 +3,12 @@
 // Replaces repro/kernels/flash_attention/kernel.py:flash_attention_pallas
 // (body _flash_kernel): q [B,Sq,H,D], k/v [B,Skv,K,D] with H % K == 0 and
 // kv head = h / (H/K) (GQA); scores scale * (q . k) in float32; with
-// `causal`, key j is masked for query row i when j > i + (Skv - Sq), to
-// -1e30; running max m, denominator l and accumulator acc in float32;
-// out = acc / max(l, 1e-30) in q's type (float32 or bf16).
+// `causal`, key j is masked for query row i when j > i + (Skv - Sq), and
+// with a sliding `window` W > 0 (causal only) also when j <= i + (Skv -
+// Sq) - W, to -1e30 (the model's window, repro/models/layers.py:108-109,
+// under the same query offset); running max m, denominator l and
+// accumulator acc in float32; out = acc / max(l, 1e-30) in q's type
+// (float32 or bf16).
 //
 // What bounds it on the H100: at the prefill of Llama-3.2-3B (B 4, S 1024,
 // 24 heads of 128, causal) a call does ~25.8 GFLOP of products on ~67 MB,
@@ -57,14 +60,25 @@
 //     the end of the keys.  Blocks are launched heaviest query tile first
 //     (the query tile is blockIdx.y reversed, the slowest grid axis), so
 //     the short tiles fill the tail.
+//   - Window: the block's key loop starts at the tile of its first row's
+//     oldest key, max(0, q0 + off - W + 1) rounded down to a key tile;
+//     tiles below it are neither loaded nor multiplied.  A warpgroup skips
+//     a tile wholly below its 64 rows' windows, and a warp masks a tile
+//     that reaches into its 16 rows' windows from below, so with a short
+//     window both edges can fall in one tile.  A row meets tiles of
+//     masked keys before its own keys (the rows after the block's first):
+//     their p = 1 terms are wiped by alpha = exp2(-1e30 - m) = 0 at its
+//     first unmasked key, which every row has (its own).  With W >= Skv
+//     the loop and the unmasked scores are causal's, bit for bit.
 //   Registers and spills: `-Xptxas -v`, printed by chip_smoke.py's build
 //   phase and recorded in PERF.md.
 //
 // * float32 (reached only by tests and the hostile checks): the first,
-//   CUDA-core body of the port, unchanged.  One block of 256 threads per
-//   (64 query rows, batch x head), 32-key tiles staged in shared memory as
-//   float32, (q * scale) . k with fmaf, online softmax in registers.  It
-//   holds the 2e-5 * max bound; a 3xTF32 tensor-core body is later work.
+//   CUDA-core body of the port.  One block of 256 threads per (64 query
+//   rows, batch x head), 32-key tiles staged in shared memory as float32,
+//   (q * scale) . k with fmaf, online softmax in registers; the window's
+//   key range and mask as in the bf16 body.  It holds the 2e-5 * max
+//   bound; a 3xTF32 tensor-core body is later work.
 //
 // Rows without any valid key (only with `causal` and Sq > Skv) are outside
 // the contract: the reference's plain version gives NaN there.
@@ -109,7 +123,7 @@ kernel(const float* __restrict__ q, const float* __restrict__ k,
        int groups, int Sq, int Skv, int D, long long q_bs, long long q_ss,
        long long q_hs, long long k_bs, long long k_ss, long long k_hs,
        long long v_bs, long long v_ss, long long v_hs, float scale,
-       int causal) {
+       int causal, int window) {
   constexpr int DM = 16 * DJ;        // head dims this instantiation holds
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -147,7 +161,10 @@ kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int last_row = q_offset + min(q0 + BQ, Sq) - 1;
     kv_end = min(Skv, last_row + 1);
   }
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
+  // keys below the first row's window are masked in every row
+  const int kv_begin =
+      window > 0 ? max(0, q_offset + q0 - window + 1) / BK * BK : 0;
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BK) {
     __syncthreads();   // Q staged; the previous tile's Ps/Vs fully read
     for (int e = tid; e < BK * D; e += THREADS) {
       const int c = e / D, d = e % D;
@@ -180,7 +197,7 @@ kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int col = kv0 + 2 * tx + j;
         if (col >= Skv)
           s[i][j] = -INFINITY;       // not a key: p = 0
-        else if (causal && col > row)
+        else if ((causal && col > row) || (window > 0 && col <= row - window))
           s[i][j] = MASKED;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -244,7 +261,7 @@ kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int DJ>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int K, int Sq, int Skv, int D, const long long* st,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, int window, cudaStream_t stream) {
   const size_t smem = smem_floats<DJ>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel<DJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -253,7 +270,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   kernel<DJ><<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, H,
       H / K, Sq, Skv, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], scale, causal);
+      st[7], st[8], scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -438,7 +455,8 @@ kernel(const T* __restrict__ q, const T* __restrict__ k,
        const T* __restrict__ v, T* __restrict__ out, int H, int groups,
        int Sq, int Skv, int D, long long q_bs, long long q_ss, long long q_hs,
        long long k_bs, long long k_ss, long long k_hs, long long v_bs,
-       long long v_ss, long long v_hs, float scale, int causal, int vec) {
+       long long v_ss, long long v_hs, float scale, int causal, int window,
+       int vec) {
   using L = Layout<DP>;
   constexpr int KSTEPS = DP / 16, NS = BKV / 8, NO = DP / 8;
   extern __shared__ unsigned char smem_raw[];
@@ -463,12 +481,17 @@ kernel(const T* __restrict__ q, const T* __restrict__ k,
     zero_pad(Qs, BQ, D, DP);
     for (int i = 0; i < 4; ++i) zero_pad(Ks + i * L::KV, BKV, D, DP);
   }
+  // the key tiles some row of the block sees: from the tile of the first
+  // row's oldest key (window) to the last row's newest (causal)
   const int kv_end = causal ? min(Skv, off + min(q0 + BQ, Sq)) : Skv;
-  const int n_tiles = kv_end > 0 ? (kv_end + BKV - 1) / BKV : 0;
+  const int kv_begin =
+      window > 0 ? max(0, q0 + off - window + 1) / BKV * BKV : 0;
+  const int n_tiles =
+      kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
   load_rows(Qs, qb, q_ss, q0, BQ, Sq, D, vec);
   if (n_tiles > 0) {
-    load_rows(Ks, kb, k_ss, 0, BKV, Skv, D, vec);
-    load_rows(Vs, vb, v_ss, 0, BKV, Skv, D, vec);
+    load_rows(Ks, kb, k_ss, kv_begin, BKV, Skv, D, vec);
+    load_rows(Vs, vb, v_ss, kv_begin, BKV, Skv, D, vec);
   }
   cp_async_commit();
   cp_async_wait_all();
@@ -482,7 +505,7 @@ kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[2] = {MASKED, MASKED}, l[2] = {0.0f, 0.0f};   // rows g, g + 8
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * BKV;
+    const int kv0 = kv_begin + j * BKV;
     if (j + 1 < n_tiles) {
       const int nxt = (j + 1) & 1;
       load_rows(Ks + nxt * L::KV, kb, k_ss, kv0 + BKV, BKV, Skv, D, vec);
@@ -491,9 +514,11 @@ kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     const uint32_t k_addr = smem_addr(Ks + (j & 1) * L::KV);
     const uint32_t v_addr = smem_addr(Vs + (j & 1) * L::KV);
-    // the warpgroup's 64 rows all past Sq, or all above the tile's first
-    // key: nothing to add (uniform over the warpgroup, as wgmma needs)
-    const bool active = g0 < Sq && !(causal && kv0 > off + g0 + 63);
+    // the warpgroup's 64 rows all past Sq, all above the tile's first key,
+    // or the tile's last key below all their windows: nothing to add
+    // (uniform over the warpgroup, as wgmma needs)
+    const bool active = g0 < Sq && !(causal && kv0 > off + g0 + 63) &&
+                        !(window > 0 && kv0 + BKV - 1 <= off + g0 - window);
     if (active) {
       // S = Q K^T: 64 x 64 per warpgroup, K-steps of 16 head dims.  Step
       // kk starts 32 bytes into 64-dim column block kk / 4 (the hardware
@@ -511,7 +536,8 @@ kernel(const T* __restrict__ q, const T* __restrict__ k,
       fence_regs(s);
 
       const bool edge = kv0 + BKV > Skv ||
-                        (causal && kv0 + BKV - 1 > off + w0);
+                        (causal && kv0 + BKV - 1 > off + w0) ||
+                        (window > 0 && kv0 <= off + w0 + 15 - window);
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
@@ -523,7 +549,8 @@ kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int row = w0 + g + (e >> 1) * 8;
             if (col >= Skv)
               x = -INFINITY;
-            else if (causal && col > row + off)
+            else if ((causal && col > row + off) ||
+                     (window > 0 && col <= row + off - window))
               x = MASKED;
           }
           s[4 * n + e] = x;
@@ -629,7 +656,7 @@ kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int DP>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int K, int Sq, int Skv, int D, const long long* st,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, int window, cudaStream_t stream) {
   const size_t smem = Layout<DP>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -643,7 +670,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   kernel<DP><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, H, H / K, Sq, Skv, D,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
-      causal, (int)vec);
+      causal, window, (int)vec);
   return (int)cudaGetLastError();
 }
 
@@ -653,14 +680,16 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // dtype: 0 float32, 1 bfloat16.  Strides are in elements; the head
 // dimension is contiguous.  out is a contiguous [B, Sq, H, D] array.
-// Returns a cudaError_t (cudaErrorInvalidValue for D outside 1..128).
+// window: 0 for none, else W > 0 with causal.  Returns a cudaError_t
+// (cudaErrorInvalidValue for D outside 1..128 or a window without causal).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int K, int Sq, int Skv, int D, long long q_bs, long long q_ss,
     long long q_hs, long long k_bs, long long k_ss, long long k_hs,
     long long v_bs, long long v_ss, long long v_hs, float scale, int causal,
-    int dtype, int device, void* stream) {
-  if (D < 1 || D > 128 || K < 1 || H % K != 0 || B * H > 65535)
+    int window, int dtype, int device, void* stream) {
+  if (D < 1 || D > 128 || K < 1 || H % K != 0 || B * H > 65535 ||
+      window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -669,13 +698,13 @@ extern "C" int flash_attention_launch(
                            v_bs, v_ss, v_hs};
   if (dtype == 0)
     return D <= 64 ? f32::launch<4>(q, k, v, out, B, H, K, Sq, Skv, D, st,
-                                    scale, causal, s)
+                                    scale, causal, window, s)
                    : f32::launch<8>(q, k, v, out, B, H, K, Sq, Skv, D, st,
-                                    scale, causal, s);
+                                    scale, causal, window, s);
   if (dtype == 1)
     return D <= 64 ? bf16::launch<64>(q, k, v, out, B, H, K, Sq, Skv, D, st,
-                                      scale, causal, s)
+                                      scale, causal, window, s)
                    : bf16::launch<128>(q, k, v, out, B, H, K, Sq, Skv, D, st,
-                                       scale, causal, s);
+                                       scale, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }

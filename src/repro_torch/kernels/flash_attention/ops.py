@@ -7,9 +7,11 @@ kernel or raises; on CPU tensors it runs the plain version in ``ref.py``.
 No path falls back from a failed build or launch to the plain version.
 
 q [B,Sq,H,D], k and v [B,Skv,K,D] in float32 or bfloat16, H % K == 0,
-D <= 128, any Sq and Skv.  The kernel reads the three in place through
-their strides (only the head dimension must be contiguous) and writes a
-new contiguous [B,Sq,H,D] tensor.  ``flash_attention.launches`` counts
+D <= 128, any Sq and Skv; with ``causal``, an optional sliding window (a
+plain launch argument: the wrapper reads nothing back from the device).
+The kernel reads the three in place through their strides (only the head
+dimension must be contiguous) and writes a new contiguous [B,Sq,H,D]
+tensor.  ``flash_attention.launches`` counts
 kernel launches and nothing else.
 """
 from __future__ import annotations
@@ -48,10 +50,14 @@ def cuda_operands(kernel: str, named: Sequence) -> int:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
+                    causal: bool = True, window: int = 0,
                     softmax_scale: Optional[float] = None) -> torch.Tensor:
-    """K7: softmax((q · scale) kᵀ, causal mask offset Skv - Sq) v, per query
-    head h over kv head h // (H/K).  Returns [B,Sq,H,D] in q's dtype."""
+    """K7: softmax((q · scale) kᵀ, mask) v, per query head h over kv head
+    h // (H/K).  The mask keeps key j for query row i when ``j <= i + off``
+    (``causal``; off = Skv - Sq, the queries being the last Sq positions)
+    and, with ``window`` W > 0, when also ``j > i + off - W`` (the
+    reference model's sliding window, ``repro/models/layers.py:108-109``).
+    Returns [B,Sq,H,D] in q's dtype."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B,S,heads,D]")
     B, Sq, H, D = q.shape
@@ -62,9 +68,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if H % K:
         raise ValueError(f"flash_attention: {H} query heads are not a "
                          f"multiple of {K} kv heads")
+    window = int(window)
+    if window < 0 or (window and not causal):
+        raise ValueError(f"flash_attention: window={window}; a window is "
+                         f"0 (none) or > 0 with causal=True")
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, softmax_scale=scale)
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 softmax_scale=scale)
     dtype = cuda_operands("flash_attention", (("q", q), ("k", k), ("v", v)))
     if D > 128 or B * H > 65535:
         raise ValueError(f"flash_attention: the kernel takes D <= 128 and "
@@ -80,7 +91,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ctypes.c_void_p(k.data_ptr()), ctypes.c_void_p(v.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), B, H, K, Sq, Skv, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], scale,
-        int(causal), dtype, q.device.index or 0, ctypes.c_void_p(stream))
+        int(causal), window, dtype, q.device.index or 0,
+        ctypes.c_void_p(stream))
     flash_attention.launches += 1
     return out
 

@@ -47,9 +47,19 @@ fault the port does not copy: its chunked attention gives weight to the
 zero keys that pad a ragged last chunk when ``causal=False`` (ROADMAP R6;
 Whisper's 1 500 frames in chunks of 512); the port's masks them.
 
-A sliding window runs on the CPU path only; on the card it raises
-``UnsupportedConfigError`` naming the ROADMAP item that brings it.  The
-mesh and sharding code come with sharded serving.
+A sliding window ``W`` runs on both routes: K7 takes it as a launch
+argument for causal self-attention (not for Whisper's encoder or cross
+attention, as the CPU path), and the decode cache is a ring of ``Sc =
+min(cache_len, W)`` slots holding position ``p`` at slot ``p % Sc``, so
+the valid slots for the token at ``pos`` are always the prefix ``0 ..
+min(pos + 1, Sc) - 1`` that K8 takes as its lengths.  Here the port
+departs from the reference (ROADMAP R8): the reference's prefill keeps a
+prompt longer than the ring at slots ``0 .. Sc-1`` in order while its
+decode step writes ``pos % Sc``, so for ``S > Sc`` with ``S % Sc != 0``
+the step overwrites a position still inside the window; the port's
+prefill writes the ring rule, and its decode steps equal the reference's
+own windowed prefill.  The mesh and sharding code come with sharded
+serving.
 
 Training (``Model.loss_fn``, reference ``model.py:924-985``) runs the
 whole depth through ``layers.chunked_attention`` on either device, with
@@ -92,16 +102,13 @@ from .moe import moe_ffn
 
 Params = Dict[str, Any]
 
-_WINDOW_ON_CARD = "ROADMAP Queue 1 item 16 (sliding-window attention on " \
-    "the card)"
 # the reference's architecture kinds (configs/base.py: ModelConfig.arch_type)
 _KINDS = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
 
 class UnsupportedConfigError(ReproError, NotImplementedError):
     """A model configuration the port does not build: an ``arch_type`` the
-    reference does not have, or a sliding window on the card (the message
-    names the ROADMAP item that brings it)."""
+    reference does not have."""
 
 
 def check_config(cfg: ModelConfig) -> None:
@@ -113,14 +120,9 @@ def check_config(cfg: ModelConfig) -> None:
 
 
 def _on_card(cfg: ModelConfig, x: torch.Tensor) -> bool:
-    if not x.is_cuda:
-        return False
-    if cfg.sliding_window:
-        raise UnsupportedConfigError(
-            f"{cfg.name}: sliding_window={cfg.sliding_window} runs only on "
-            f"the CPU path so far; on the card it comes with "
-            f"{_WINDOW_ON_CARD}")
-    return True
+    """Whether ``x``'s layer runs the kernels K7/K8 (CUDA tensors) or the
+    plain attention (CPU tensors)."""
+    return x.is_cuda
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -381,11 +383,14 @@ def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
 
 
 def decode_lengths(pos: int, cache_slots: int) -> int:
-    """The valid prefix of the cache for the token at ``pos``, without a
-    sliding window: slots ``0 .. min(pos, Sc-1)`` hold positions ``<= pos``
+    """The valid prefix of the cache for the token at ``pos``.  Without a
+    sliding window slots ``0 .. min(pos, Sc-1)`` hold positions ``<= pos``
     (the prompt from slot 0, then one slot per step, the last slot
     overwritten once the cache is full), which is exactly the reference's
     mask ``(kv_pos >= 0) & (kv_pos <= pos)`` (``model.py:1043-1049``).
+    With a window W the ring of ``Sc = min(cache_len, W)`` slots holds
+    position ``p`` at slot ``p % Sc`` (prefill and decode alike), so the
+    same prefix is exactly the windowed mask ``... & (kv_pos > pos - W)``.
     ``decode_step`` computes the same on the device from a tensor ``pos``."""
     return min(pos + 1, cache_slots)
 
@@ -450,24 +455,25 @@ def attn_mixer_seq(cfg: ModelConfig, p: Params, x: torch.Tensor,
     as the reference's ``model.py:817``), ``rope`` the (cos, sin) of those
     positions.  ``cross_kv`` = (ck, cv) [B, Senc, H, hd], the encoder's
     keys and values of this layer, adds the cross-attention sub-block:
-    non-causal, no RoPE (``model.py:429-435``).  Returns (x, (k, v) or
-    None, aux of ``_ffn``).  K7 on the card, the chunked path on the CPU;
-    ``train=True`` takes the chunked path on either device, with the
-    window (``model.py:425-427``)."""
+    non-causal, no RoPE (``model.py:429-435``).  The configured sliding
+    window bounds the causal self-attention only (``model.py:425-427``).
+    Returns (x, (k, v) or None, aux of ``_ffn``).  K7 on the card, the
+    chunked path on the CPU; ``train=True`` takes the chunked path on
+    either device."""
     S = x.shape[1]
     card = not train and _on_card(cfg, x)
+    window = cfg.sliding_window if causal else 0
     h = rms_norm(x, p["ln1"])
     q, k, v = _proj_qkv(cfg, p, h)
     q, k = apply_rope(q, *rope), apply_rope(k, *rope)
     if card:
-        out = kernels.flash_attention(q, k, v, causal=causal)
+        out = kernels.flash_attention(q, k, v, causal=causal, window=window)
     else:
         positions = torch.arange(S, device=x.device)
         out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk,
                                 q_positions=positions,
                                 kv_positions=positions,
-                                sliding_window=cfg.sliding_window
-                                if causal else 0)
+                                sliding_window=window)
     x = x + _out_proj(out, p["wo"])
     if cross_kv is not None:
         ck, cv = cross_kv
@@ -1019,7 +1025,12 @@ class Model:
         ``batch["patches"]``; over Whisper's encoder output of
         ``batch["frames"]``), build the decode cache (``cache_len`` K/V
         slots, default S; positions count the patch rows), return
-        (last-token logits [B,vocab] float32, cache)."""
+        (last-token logits [B,vocab] float32, cache).  A prompt longer
+        than the cache's ``Sc`` slots keeps its last ``Sc`` positions:
+        with a sliding window at slot ``p % Sc``, the ring rule of the
+        decode step (ROADMAP R8: the reference writes them at ``0 ..
+        Sc-1``, which its step's ring then contradicts), without one in
+        order from slot 0, as the reference."""
         cfg, lay = self.cfg, self.layout
         x = self._embed(params, batch)
         B, S, _ = x.shape
@@ -1034,16 +1045,18 @@ class Model:
         if "k" in cache:
             Sc = cache["k"].shape[2]
             keep = min(S, Sc)     # S > Sc keeps the last Sc positions
-            cache["kv_pos"][:keep] = torch.arange(
-                S - keep, S, dtype=torch.int32, device=x.device)
+            kept = torch.arange(S - keep, S, device=x.device)
+            slots = kept % Sc if cfg.sliding_window else kept - (S - keep)
+            cache["kv_pos"].index_copy_(0, slots, kept.to(torch.int32))
             rope = rope_angles(torch.arange(S, device=x.device),
                                cfg.head_dim_, cfg.rope_theta)
 
         def attend(p, x, i, cross_kv=None):
             x, (k, v), _ = attn_mixer_seq(cfg, p, x, rope, cross_kv=cross_kv,
                                           want_kv=True)
-            cache["k"][i, :, :keep] = k[:, S - keep:]
-            cache["v"][i, :, :keep] = v[:, S - keep:]
+            for name, t in (("k", k), ("v", v)):
+                cache[name][i].index_copy_(
+                    1, slots, t[:, S - keep:].to(cache[name].dtype))
             return x
 
         if lay.kind in ("uniform", "encdec"):
@@ -1112,8 +1125,8 @@ class Model:
                 lengths = (pos + 1).clamp(max=Sc).expand(B).contiguous()
             else:
                 mask1 = (kv_pos >= 0) & (kv_pos <= pos)
-                if cfg.sliding_window:
-                    mask1 &= kv_pos > pos - cfg.sliding_window
+                if cfg.sliding_window:    # not &=: functionalize refuses it
+                    mask1 = mask1 & (kv_pos > pos - cfg.sliding_window)
                 mask = mask1[None].expand(B, Sc)
             rope = rope_angles(pos[None], cfg.head_dim_, cfg.rope_theta)
             attn = (slot, rope, lengths, mask)

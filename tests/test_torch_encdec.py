@@ -179,9 +179,10 @@ def test_the_encoder_masks_the_pad_keys_of_a_ragged_chunk(monkeypatch):
     assert err > 1e-2 * float(np.abs(np.asarray(jcache["ck"])).max())
     calls = []
 
-    def flash(q, k, v, *, causal):
+    def flash(q, k, v, *, causal, window=0):
         calls.append(causal)
-        return flash_ops.flash_attention(q, k, v, causal=causal)
+        return flash_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window)
     monkeypatch.setattr(kernels, "flash_attention", flash)
     monkeypatch.setattr(model_mod, "_on_card", lambda cfg, x: True)
     plain_log, plain = model.prefill(params, batch, cache_len=12)
@@ -211,9 +212,10 @@ def test_the_card_path_calls_k7_and_k8_with_the_models_arguments(
                                       torch.tensor([t, t + 1])))
     calls = {"flash": [], "decode": []}
 
-    def flash(q, k, v, *, causal):
+    def flash(q, k, v, *, causal, window=0):
         calls["flash"].append((tuple(q.shape), tuple(k.shape), causal))
-        return flash_ops.flash_attention(q, k, v, causal=causal)
+        return flash_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window)
 
     def decode(q, k_cache, v_cache, lengths):
         calls["decode"].append((tuple(q.shape), tuple(k_cache.shape),

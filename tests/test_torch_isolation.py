@@ -38,6 +38,7 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.mcu.compile, repro_torch.params, "
             "repro_torch.models, repro_torch.configs, repro_torch.data, "
             "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.launch.shapes, repro_torch.analysis.roofline, "
             "repro_torch.training, repro_torch.training.checkpoint, "
             "repro_torch.serving.sharded, "
             "repro_torch.serving.admission, repro_torch.core.fx_reorder, "

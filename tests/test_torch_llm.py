@@ -26,7 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models import Model, UnsupportedConfigError, init_params
+from repro_torch.models import Model, init_params
 from repro_torch.models.model import decode_lengths, init_cache
 from repro_torch.params import llm_params_from_numpy
 from repro_torch.serving import Request, ServingEngine, kv_block_bytes
@@ -116,22 +116,25 @@ def test_prefill_and_decode_match_the_reference(twins, cache_len):
 
 
 def test_sliding_window_on_the_cpu_path(twins):
-    """A sliding window runs on the CPU path (rolling cache, windowed mask)
-    and matches the reference; on the card it is refused (see below)."""
+    """A sliding window on the CPU path (ring cache, windowed mask): the
+    prefill's logits are the reference's, and each decode step's are the
+    reference's own windowed prefill of the tokens so far.  The prompt of
+    12 is longer than the ring of 8 and not a multiple of it, where the
+    reference's decode step departs from its prefill (ROADMAP R8) and the
+    port's does not (tests/test_torch_window.py has the cases)."""
     cfg, params, jcfg, jparams = twins
     cfg, jcfg = cfg.with_sliding_window(8), jcfg.with_sliding_window(8)
     jmodel, model = JaxModel(jcfg), Model(cfg)
     toks = _prompt(1, 12, seed=2)
-    jlog, jcache = jax.jit(jmodel.prefill)(jparams,
-                                           {"tokens": jnp.asarray(toks)})
+    prefill = jax.jit(jmodel.prefill)
+    jlog, _ = prefill(jparams, {"tokens": jnp.asarray(toks)})
     log, cache = model.prefill(params, {"tokens": torch.as_tensor(toks)})
     _close(log.numpy(), jlog)
     assert cache["k"].shape[2] == 8
-    step = jax.jit(jmodel.decode_step)
     for t in (3, 7, 11):
-        tok = np.array([t], np.int32)
-        jlog, jcache = step(jparams, jcache, jnp.asarray(tok))
-        log, cache = model.decode_step(params, cache, torch.as_tensor(tok))
+        toks = np.concatenate([toks, [[t]]], 1).astype(np.int32)
+        jlog, _ = prefill(jparams, {"tokens": jnp.asarray(toks)})
+        log, cache = model.decode_step(params, cache, torch.tensor([t]))
         _close(log.numpy(), jlog)
 
 
@@ -159,9 +162,10 @@ def test_the_card_path_calls_k7_and_k8_with_the_models_arguments(
                                       torch.tensor([t, t + 1])))
         cache = want[-1][1]
 
-    def flash(q, k, v, *, causal):
+    def flash(q, k, v, *, causal, window=0):
         calls["flash"].append((tuple(q.shape), tuple(k.shape), causal))
-        return flash_ops.flash_attention(q, k, v, causal=causal)
+        return flash_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window)
 
     def decode(q, k_cache, v_cache, lengths):
         calls["decode"].append((tuple(q.shape), tuple(k_cache.shape),
@@ -328,9 +332,35 @@ def test_full_width_parameters_and_kv_blocks_match(arch):
         assert tuple(c["k"].shape) == (28, 4, 2048, 8, 128)
 
 
-def test_sliding_window_is_refused_on_the_card(twins, monkeypatch):
+def test_sliding_window_runs_on_the_card_route(twins, monkeypatch):
+    """A windowed model on the card's route (CUDA tensors faked, so the
+    kernels' wrappers run their plain versions on the CPU data) no longer
+    raises: prefill hands K7 the window, each decode step hands K8 the
+    ring's prefix, and the logits are the CPU route's."""
     cfg, params, _, _ = twins
+    model = Model(cfg.with_sliding_window(8))
+    toks = {"tokens": torch.as_tensor(_prompt(1, 12, seed=2))}
+    want = [model.prefill(params, toks)]
+    for t in (3, 7, 11):
+        want.append(model.decode_step(params, want[-1][1], torch.tensor([t])))
+    windows, lengths = [], []
+
+    def flash(q, k, v, *, causal, window=0):
+        windows.append(window)
+        return flash_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+
+    def decode(q, k_cache, v_cache, lens):
+        lengths.append(lens.tolist())
+        return decode_ops.decode_attention(q, k_cache, v_cache, lens)
+    monkeypatch.setattr(kernels, "flash_attention", flash)
+    monkeypatch.setattr(kernels, "decode_attention", decode)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    with pytest.raises(UnsupportedConfigError, match="item 16"):
-        Model(cfg.with_sliding_window(8)).prefill(
-            params, {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
+    got = [model.prefill(params, toks)]
+    for t in (3, 7, 11):
+        got.append(model.decode_step(params, got[-1][1], torch.tensor([t])))
+    monkeypatch.undo()
+    assert windows == [8] * cfg.num_layers
+    assert lengths == [[8]] * (3 * cfg.num_layers)
+    for (g, _), (w, _) in zip(got, want):
+        _close(g.numpy(), w.numpy())

@@ -267,9 +267,10 @@ def test_the_card_path_calls_k7_and_k8_once_a_group(arch, per_prefill,
                                       torch.tensor([t, t + 1])))
     calls = {"flash": [], "decode": []}
 
-    def flash(q, k, v, *, causal):
+    def flash(q, k, v, *, causal, window=0):
         calls["flash"].append((tuple(q.shape), tuple(k.shape), causal))
-        return flash_ops.flash_attention(q, k, v, causal=causal)
+        return flash_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window)
 
     def decode(q, k_cache, v_cache, lengths):
         calls["decode"].append((tuple(q.shape), tuple(k_cache.shape),
