@@ -88,6 +88,16 @@ after (the launches of the kernel checks above do not count):
   continuation and a 2-layer card vs CPU comparison in float32
   (``MOE_CONT_TOL``, ``MOE_CPU_TOL``: the routing's near-ties are why), and
   its reordered step as above at cache 96;
+* ``phase llm-mesh``, with Llama's and Granite's weights still on the
+  card: two ranks on the one card (gloo, a (1, 2) ("data", "model")
+  mesh) serve ``MESH_JOBS`` through ``ServingEngine(mesh=)`` at full
+  width and depth — Llama-3.2-3B heads-sharded, sequence-sharded and
+  context-parallel, Granite expert-parallel — each held against this
+  process's single-process run (``MESH_TOL``, ``MESH_MOE_TOL``), two
+  planted faults beyond the bound (``MESH_FAULTS``), K7/K8 held against
+  their plain versions at every configuration the ranks launched, bytes a
+  rank the even split; ``phase dryrun``'s two records
+  (``launch/dryrun.py`` on a fake world of 256) run beside it;
 * ``phase llm-ssm``: the recurrent decoders at full width and depth, bf16,
   after the earlier models' weights are freed — Zamba2-2.7B (54 Mamba2
   layers in 9 groups, each closed by one weight-shared attention block of
@@ -189,6 +199,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -368,14 +379,15 @@ TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "llama3.2-3b", 4, 1024, 4
 SMALL_STEPS, SMALL_B, SMALL_S, SMALL_WARMUP, SMALL_DROP = 30, 8, 64, 5, 0.25
 # train-card-vs-cpu: each registered architecture at full width in
 # float32 (TF32 off), its depth cut by cut_depth to 2 layers (Whisper 2
-# encoder + 2 decoder; Zamba2 and xLSTM one group of 6), B 2 x S 64 text
-# tokens (InternVL2's 256 patch rows on top) of the data pipeline with
+# encoder + 2 decoder; Zamba2 and xLSTM one group of 6), B 2 x S 16 text
+# tokens (InternVL2's 256 patch rows on top; S sets the CE's rows, its
+# cost on the CPU) of the data pipeline with
 # its seeded frames / patches (seed TRAIN_CPU_SEED), one make_train_step
 # step from zero moments on the card and on the CPU.  Granite runs at
 # capacity factor E / k, so that no expert drops a token on either side.
 TRAIN_CPU_ARCHS = ("llama3.2-3b", "granite-moe-1b-a400m", "zamba2-2.7b",
                    "xlstm-350m", "whisper-large-v3", "internvl2-1b")
-TRAIN_CPU_B, TRAIN_CPU_S, TRAIN_CPU_LR, TRAIN_CPU_SEED = 2, 64, 1e-4, 5
+TRAIN_CPU_B, TRAIN_CPU_S, TRAIN_CPU_LR, TRAIN_CPU_SEED = 2, 16, 1e-4, 5
 # The loss: both devices sum the same float32 terms in other orders
 # (cuBLAS against MKL); a logsumexp over V <= 151 655 logits is within
 # ~log2(V) * 2^-24 ~ 1e-6 of either, the few layers' activations within
@@ -593,15 +605,17 @@ def device_time(torch, fn, reps: int = 3, counts=None):
     the time of every name (a kernel of the port by its ``<name>_kernel``
     function, device-to-device copies as ``COPY``).  ``counts``, a dict,
     receives the activities of each name per call.  Late in a long run
-    the profiler can return a window without its device records (the
-    host-side launches are there), so a window with none is profiled
-    again, up to ``PROFILE_TRIES`` times."""
+    the profiler can return a window without its device records, so a
+    window with none is profiled again, up to ``PROFILE_TRIES`` times.
+    Only the card's activities are recorded: nothing here reads the
+    host's, and ``prof.events()`` builds a tree of all of them, which
+    for an eager Zamba2 serve took longer than the serve (the busy times
+    read the same without them)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -1841,6 +1855,35 @@ def fx_phase(torch, np, device, card, d):
         f"{time.perf_counter() - t_all:.2f} s")
 
 
+@contextlib.contextmanager
+def recording(torch, k7s, k8s):
+    """Record every K7/K8 launch configuration of the model while the
+    block runs eagerly, in ``k7s`` and ``k8s`` (the wrappers' counts are
+    untouched; a call that a CUDA graph is capturing is not recorded: its
+    lengths exist only at replay)."""
+    import repro_torch.kernels as kernels
+    fa, dec = kernels.flash_attention, kernels.decode_attention
+    capturing = torch.cuda.is_current_stream_capturing
+
+    def flash(q, k, v, *, causal=True, window=0):
+        if not capturing():
+            k7s.append((tuple(q.shape), tuple(k.shape), q.dtype, causal,
+                        window))
+        return fa(q, k, v, causal=causal, window=window)
+
+    def decode(q, k_cache, v_cache, lengths):
+        if not capturing():
+            k8s.append((tuple(q.shape), tuple(k_cache.shape), q.dtype,
+                        lengths.clone()))
+        return dec(q, k_cache, v_cache, lengths)
+
+    kernels.flash_attention, kernels.decode_attention = flash, decode
+    try:
+        yield
+    finally:
+        kernels.flash_attention, kernels.decode_attention = fa, dec
+
+
 class AttentionChecks:
     """K7 and K8 held against their plain versions on the card, once per
     launch configuration; ``record`` wraps the model's calls of the two
@@ -1862,33 +1905,20 @@ class AttentionChecks:
         self.max_rel = {n: 0.0 for n in ATTENTION}
         self.main_k7, self.main_k8 = [], []    # configs the paths launched
 
-    @contextlib.contextmanager
     def record(self):
-        """Record every K7/K8 launch configuration of the model while the
-        block runs eagerly (the wrappers' counts are untouched; a call
-        that a CUDA graph is capturing is not recorded: its lengths exist
-        only at replay)."""
-        import repro_torch.kernels as kernels
-        fa, dec = kernels.flash_attention, kernels.decode_attention
-        capturing = self.torch.cuda.is_current_stream_capturing
+        """``recording`` into ``main_k7`` / ``main_k8``."""
+        return recording(self.torch, self.main_k7, self.main_k8)
 
-        def flash(q, k, v, *, causal=True, window=0):
-            if not capturing():
-                self.main_k7.append((tuple(q.shape), tuple(k.shape),
-                                     q.dtype, causal, window))
-            return fa(q, k, v, causal=causal, window=window)
-
-        def decode(q, k_cache, v_cache, lengths):
-            if not capturing():
-                self.main_k8.append((tuple(q.shape), tuple(k_cache.shape),
-                                     q.dtype, lengths.clone()))
-            return dec(q, k_cache, v_cache, lengths)
-
-        kernels.flash_attention, kernels.decode_attention = flash, decode
-        try:
-            yield
-        finally:
-            kernels.flash_attention, kernels.decode_attention = fa, dec
+    def add_configs(self, k7s, k8s):
+        """Hold K7/K8 at configurations another process launched
+        (``recording``'s, lengths as tuples) against their plain
+        versions; returns how many were new."""
+        n = len(self.seen)
+        for (B, Sq, H, D), ks, dtype, causal, window in k7s:
+            self.k7(B, Sq, ks[1], H, ks[2], D, dtype, causal, window=window)
+        for (B, H, D), ks, dtype, lengths in k8s:
+            self.k8(B, ks[1], H, ks[2], D, dtype, lengths)
+        return len(self.seen) - n
 
     def _randn(self, shape, dtype):
         return self.torch.randn(shape, generator=self.gen,
@@ -1985,15 +2015,9 @@ class AttentionChecks:
 
     def main_path(self):
         """Every distinct configuration the recorded phases launched."""
-        n = len(self.seen)
-        for (qs, ks, dtype, causal, window) in self.main_k7:
-            B, Sq, H, D = qs
-            self.k7(B, Sq, ks[1], H, ks[2], D, dtype, causal,
-                    window=window)
-        for (qs, ks, dtype, lengths) in self.main_k8:
-            B, H, D = qs
-            self.k8(B, ks[1], H, ks[2], D, dtype, tuple(lengths.tolist()))
-        return len(self.seen) - n
+        return self.add_configs(self.main_k7, [
+            (qs, ks, dtype, tuple(lengths.tolist()))
+            for qs, ks, dtype, lengths in self.main_k8])
 
     def largest(self, name, first=None):
         """The main-path configuration of the most work: K7 by query x key
@@ -2259,19 +2283,7 @@ class Llm:
             yield from (Llm._leaves(v) if isinstance(v, dict) else (v,))
 
     def _requests(self, n, prompt, max_new):
-        """``n`` requests: the reference launcher's traffic (``prompt``
-        None), or random prompts of ``prompt`` tokens and ``max_new`` new
-        ones, each an int or a tuple of one per request."""
-        from repro_torch.serving import Request
-        if prompt is None:      # the reference launcher's traffic
-            return self.launch_serve.make_requests(self.cfg, n, max_new)
-        def each(x):
-            return x if isinstance(x, tuple) else (x,) * n
-        rng = self.np.random.default_rng(1)
-        return [Request(rid=i, prompt=rng.integers(
-            0, self.cfg.vocab_size, p).astype(self.np.int32),
-            max_new_tokens=m)
-            for i, (p, m) in enumerate(zip(each(prompt), each(max_new)))]
+        return requests_for(self.np, self.cfg, n, prompt, max_new)
 
     def serve(self, label, n, prompt, max_new, max_batch, cache_len,
               block_bytes):
@@ -2462,14 +2474,7 @@ class Llm:
         return feed
 
     def _padded(self, batch):
-        """The batch's prompts left-padded with token 0, as the engine
-        pads them."""
-        np = self.np
-        S = max(len(r.prompt) for r in batch)
-        toks = np.zeros((len(batch), S), np.int64)
-        for i, r in enumerate(batch):
-            toks[i, S - len(r.prompt):] = r.prompt
-        return toks
+        return padded(self.np, batch)
 
     def float32(self, **changes):
         """(config, parameters) of this model in float32 — the same
@@ -2797,6 +2802,600 @@ def window_phase(torch, np, device, paths, attn, card):
                     win.params, prompt=cpu_s, n_steps=cpu_n)
     win.window_bounds(reqs, results)
     log(f"phase llm-window: {time.perf_counter() - t0:.2f} s")
+
+
+# ---- the mesh (phase llm-mesh), after the MoE phase with Llama's and
+# Granite's weights still on the card: two ranks on the one card, each on
+# cuda:0, over a (1, 2) ("data", "model") mesh (make_local_mesh(2)), gloo
+# (NCCL refuses two ranks on one device) on a free port, weights drawn by
+# each rank from the launcher's seed 0 and kept as its pieces.  Each job:
+# (label, arch, config changes, mix): Llama-3.2-3B's short mix with its
+# cache over the KV heads (4 of 8 a rank, 12 of 24 query heads: K7 and K8
+# on them), its long mix with the cache over the rows (1 024 of 2 048 a
+# rank: the sequence-sharded decode attention), its short mix context
+# parallel (act_shard="cp": each rank's prefill rows through K7 over the
+# keys up to its last row, the weights whole on each rank), Granite's
+# short mix expert-parallel (16 of 32 experts a rank; with "data" 1 its
+# capacity is the single-process run's).
+MESH_RANKS, MESH_TIMEOUT = 2, 600
+MESH_JOBS = (("llama-heads", LLM_ARCH, {"kv_mode": "heads"}, LLM_MIXES[0]),
+             ("llama-sequence", LLM_ARCH, {"kv_mode": "sequence"},
+              LLM_MIXES[1]),
+             ("llama-cp", LLM_ARCH, {"act_shard": "cp"}, LLM_MIXES[0]),
+             ("granite-ep", MOE_ARCH, {}, MOE_MIX))
+# The sharded logits against the single-process run's at the same tokens
+# (the single-process greedy tokens fed to both), at every step of every
+# batch: bf16, full depth.  Per layer the sharded run rounds each rank's
+# half of the wo and wdn products to bf16 before the all-reduce adds the
+# halves, and sums the rest in another order: the continuation check's
+# one-ulp-a-layer argument twice over predicted ~1 % of max|logit|; the
+# readings are 2 %, and context parallel, whose weights are whole on each
+# rank, reads the same, so it is the bf16 noise of two differently
+# ordered runs rather than the half-sums alone.  The bound sits between
+# the readings (PERF.md §5): the sound runs' largest, over every step of
+# every batch, 0.0225 of max|logit| (context parallel; heads 0.0221,
+# sequence 0.0220; the first five steps read 0.0195-0.0220 in earlier
+# runs), and the planted faults' smallest (MESH_FAULTS), 0.0711 (the
+# sequence merge without its correction; wo unreduced 1.2036): 3e-2 is
+# 1.33x the one and 1/2.37 of the other.  Each fault must land beyond it.
+MESH_TOL = 3e-2
+# Granite in bf16 flips MoE routing at near-ties (see MOE_CONT_TOL), so
+# its logits are held in float32 (TF32 off): the same float32 products
+# summed in another order (a rank's 16 experts, then the all-reduce),
+# ~1e-7 relative a layer, 1e-3 * max|logit| as MOE_CPU_TOL; its bf16
+# served tokens are printed beside the single process's, not held.
+MESH_MOE_TOL = 1e-3
+# The served tokens equal the single-process run's up to a request's
+# first difference.  There the two runs read the same tokens, so the
+# single-process logits' margin of its token over the sharded run's can
+# be no more than the two logits' deltas at that step: held as at most
+# twice that step's measured max|delta| of the request's row.
+# Planted faults (job, fault): the wo product's partial sums left
+# unreduced (each rank keeps its own heads' half), and the sequence
+# merge's correction dropped (each rank's partial softmax scaled by its
+# own max, pmax skipped); each reruns the job's first batch over this many
+# decode steps and must fail MESH_TOL.
+MESH_FAULTS = (("llama-heads", "wo-unreduced"),
+               ("llama-sequence", "corr-dropped"))
+MESH_FAULT_STEPS = 4
+# phase dryrun: the reference's slow-test combo (rolled) and Llama's
+# decode_32k with the unrolled analysis pass, each in its own process
+DRYRUN_COMBOS = (("xlstm-350m", "decode_32k", ["--no-unroll"]),
+                 ("llama3.2-3b", "decode_32k", []))
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _local_bytes(tree):
+    from repro_torch.models.sharding import local
+    from repro_torch.training.optimizer import tree_leaves
+    return sum(local(t).numel() * local(t).element_size()
+               for t in tree_leaves(tree))
+
+
+def _split_bytes(tree, specs, sizes):
+    """The bytes each rank must hold of ``tree`` placed by ``specs``: each
+    leaf's whole divided by the sizes of the mesh axes its spec names."""
+    from repro_torch.training.optimizer import tree_leaves
+    total = 0
+    for t, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+        div = 1
+        for e in spec:
+            for a in ((e,) if isinstance(e, str) else (e or ())):
+                div *= sizes[a]
+        total += t.numel() * t.element_size() // div
+    return total
+
+
+def requests_for(np, cfg, n, prompt, max_new):
+    """``n`` requests: the reference launcher's traffic (``prompt``
+    None), or random prompts of ``prompt`` tokens and ``max_new`` new
+    ones, each an int or a tuple of one per request."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serving import Request
+    if prompt is None:      # the reference launcher's traffic
+        return launch_serve.make_requests(cfg, n, max_new)
+
+    def each(x):
+        return x if isinstance(x, tuple) else (x,) * n
+    rng = np.random.default_rng(1)
+    return [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, p).astype(np.int32), max_new_tokens=m)
+        for i, (p, m) in enumerate(zip(each(prompt), each(max_new)))]
+
+
+def padded(np, batch):
+    """The batch's prompts left-padded with token 0, as the engine pads
+    them."""
+    S = max(len(r.prompt) for r in batch)
+    toks = np.zeros((len(batch), S), np.int64)
+    for i, r in enumerate(batch):
+        toks[i, S - len(r.prompt):] = r.prompt
+    return toks
+
+
+def forced_logits(torch, model, params, toks, tokens, cache_len, device):
+    """Prefill ``toks`` and decode feeding ``tokens`` [B, T] (token t is
+    fed at step t + 1): the logits of every step on the host, [T, B,
+    vocab], and the decode seconds a step."""
+    from repro_torch.models.sharding import full
+    feed = {"tokens": torch.as_tensor(toks, device=device)}
+    logits, cache = model.prefill(params, feed, cache_len=cache_len)
+    out = [full(logits).cpu()]
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    for t in range(1, tokens.shape[1]):
+        logits, cache = model.decode_step(
+            params, cache, torch.as_tensor(tokens[:, t - 1], device=device))
+        out.append(full(logits).cpu())
+    _sync(torch, device)
+    return torch.stack(out), (time.perf_counter() - t0) / max(
+        tokens.shape[1] - 1, 1)
+
+
+def greedy(torch, model, params, toks, max_new, cache_len, device):
+    """The single-process run's tokens [B, max_new] and logits
+    [max_new, B, vocab] (host, float32) of one batch, greedy."""
+    feed = {"tokens": torch.as_tensor(toks, device=device)}
+    logits, cache = model.prefill(params, feed, cache_len=cache_len)
+    tok = torch.argmax(logits, -1)
+    toks_out, logs = [tok], [logits.float().cpu()]
+    for _ in range(1, max_new):
+        logits, cache = model.decode_step(params, cache, tok)
+        tok = torch.argmax(logits, -1)
+        toks_out.append(tok)
+        logs.append(logits.float().cpu())
+    return torch.stack(toks_out, 1).cpu().numpy(), torch.stack(logs)
+
+
+# the registrations of use_c10d_collectives, kept alive for the process
+_C10D_LIBS: list = []
+
+
+def use_c10d_collectives() -> None:
+    """Route the functional collectives of CUDA tensors (the ops DTensor's
+    redistributions and the mapped bodies issue) through the c10d
+    collectives of their process group, synchronously.  Under gloo on an
+    H100 the c10d collectives of CUDA tensors complete while a
+    functional one (``all_gather_into_tensor`` waited on) never returns;
+    this registers CUDA kernels of ``_c10d_functional``'s ops that call
+    c10d instead (``wait_tensor`` then has nothing to wait for).  Gloo
+    has no average: "avg" is a sum divided by the group's size.  Once a
+    process, in each rank before its mesh is made; the package's mesh
+    code keeps torch's own collectives (NCCL on several cards)."""
+    if _C10D_LIBS:
+        return
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def group(name):
+        return name if isinstance(name, dist.ProcessGroup) \
+            else _resolve_process_group(name)
+
+    def reduce(t, op, pg):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "avg"
+                        else getattr(dist.ReduceOp, op.upper()), group=pg)
+        if op == "avg":
+            t.div_(dist.get_world_size(pg))
+        return t
+
+    def all_reduce(input, reduce_op, group_name):
+        return reduce(input.clone(), reduce_op, group(group_name))
+
+    def all_reduce_(input, reduce_op, group_name):
+        return reduce(input, reduce_op, group(group_name))
+
+    def all_gather_into_tensor(input, group_size, group_name):
+        out = input.new_empty((input.shape[0] * group_size,)
+                              + input.shape[1:])
+        dist.all_gather_into_tensor(out, input.contiguous(),
+                                    group=group(group_name))
+        return out
+
+    def reduce_scatter_tensor(input, reduce_op, group_size, group_name):
+        full = reduce(input.clone(), reduce_op, group(group_name))
+        rank = dist.get_rank(group(group_name))
+        n = input.shape[0] // group_size
+        return full[rank * n:(rank + 1) * n].clone()
+
+    def all_to_all_single(input, output_split_sizes, input_split_sizes,
+                          group_name):
+        rows = sum(output_split_sizes) if output_split_sizes \
+            else input.shape[0]
+        out = input.new_empty((rows,) + input.shape[1:])
+        dist.all_to_all_single(out, input.contiguous(),
+                               list(output_split_sizes) or None,
+                               list(input_split_sizes) or None,
+                               group=group(group_name))
+        return out
+
+    def wait_tensor(tensor):
+        return tensor
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for name, fn in (("all_reduce", all_reduce), ("all_reduce_", all_reduce_),
+                     ("all_gather_into_tensor", all_gather_into_tensor),
+                     ("reduce_scatter_tensor", reduce_scatter_tensor),
+                     ("all_to_all_single", all_to_all_single),
+                     ("wait_tensor", wait_tensor)):
+        lib.impl(name, fn, "CUDA")
+    _C10D_LIBS.append(lib)
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """One of ``MESH_FAULTS`` planted in the model's mesh code while the
+    block runs (this process only)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from repro_torch.models import model as mm
+    name = {"wo-unreduced": "_out_proj", "corr-dropped": "all_reduce"}[fault]
+    orig = getattr(mm, name)
+
+    def unreduced(out, wo):     # each rank's half taken for the sum
+        y = orig(out, wo)
+        return DTensor.from_local(
+            y.to_local(), y.device_mesh,
+            [Replicate() if isinstance(p, Partial) else p
+             for p in y.placements], run_check=False, shape=y.shape,
+            stride=y.stride())
+
+    def no_pmax(t, op, mesh, axis):     # corr = 1 on every rank
+        return t if op == "max" else orig(t, op, mesh, axis)
+    setattr(mm, name, unreduced if fault == "wo-unreduced" else no_pmax)
+    try:
+        yield
+    finally:
+        setattr(mm, name, orig)
+
+
+def mesh_rank(rank, world, port, jobs, refs, device, queue):
+    """One rank of ``phase llm-mesh`` (a process of its own, on cuda:0):
+    each job served through ``ServingEngine(..., mesh=)`` over the rank's
+    pieces, its K7/K8 launches and their configurations, bytes,
+    collectives a decode step and forced logits put on ``queue``; an
+    error puts its traceback there and fails the process."""
+    import traceback
+    try:
+        queue.put((rank, "ok", _mesh_rank(rank, world, port, jobs, refs,
+                                            device)))
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def _mesh_rank(rank, world, port, jobs, refs, device):
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import (Model, cache_specs, init_params,
+                                          param_specs, shard_params)
+    from repro_torch.serving import ServingEngine
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    wrappers = {**fa_ops.KERNEL_WRAPPERS, **dec_ops.KERNEL_WRAPPERS}
+    k7s, k8s = [], []
+    try:
+        if device.type == "cuda":
+            use_c10d_collectives()
+        mesh = make_local_mesh(world, device=device)
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        out = {"mesh": sizes, "faults": {}}
+        with recording(torch, k7s, k8s):
+            for label, arch, changes, mix in jobs:
+                t0 = time.perf_counter()
+                cfg = get_config(arch).replace(**changes)
+                _, n, _, max_new, B, cache_len = mix[:6]
+                params = init_params(cfg, torch.Generator(device).manual_seed(
+                    0), device, mesh=mesh)
+                eng = ServingEngine(cfg, params, max_batch=B,
+                                    cache_len=cache_len, device=device,
+                                    mesh=mesh)
+                reqs = requests_for(np, cfg, *mix[1:4])
+                for w in wrappers.values():
+                    w.launches = 0
+                n7, n8 = len(k7s), len(k8s)
+                results = eng.serve(reqs)
+                _sync(torch, device)
+                launches = {k: w.launches for k, w in wrappers.items()}
+                # every launch of the serve is among the configurations
+                assert launches == {"flash_attention": len(k7s) - n7,
+                                    "decode_attention": len(k8s) - n8}, (
+                    label, launches, len(k7s) - n7, len(k8s) - n8)
+                step = eng.decode_step(B)
+                with CommDebugMode() as comm:
+                    step()
+                    _sync(torch, device)
+                rec = {
+                    "launches": launches,
+                    "tokens": [r.tokens for r in results],
+                    "prefill_ms": [r.prefill_ms for r in results[::B]],
+                    "decode_ms": [r.decode_ms for r in results[::B]],
+                    "param_bytes": _local_bytes(params),
+                    "param_bytes_even": _split_bytes(
+                        params, param_specs(cfg, mesh), sizes),
+                    "cache_bytes": _local_bytes(step.cache),
+                    "cache_bytes_even": _split_bytes(
+                        step.cache, cache_specs(cfg, mesh, B), sizes),
+                    "collectives": {str(k).split(".")[-1]: v for k, v in
+                                    comm.get_comm_counts().items()},
+                    "serve_s": time.perf_counter() - t0}
+                del eng, step
+                if cfg.is_moe:      # held in float32 (MESH_MOE_TOL)
+                    cfg = cfg.replace(dtype="float32")
+                    whole = init_params(get_config(arch), torch.Generator(
+                        device).manual_seed(0), device)
+                    params = shard_params(tree_map(lambda t: t.float(),
+                                                   whole), cfg, mesh)
+                    del whole
+                model = Model(cfg, mesh)
+                runs = [forced_logits(torch, model, params,
+                                      padded(np, reqs[i * B:(i + 1) * B]),
+                                      toks, cache_len, device)
+                        for i, toks in enumerate(refs[label])]
+                rec["forced_step_ms"] = runs[0][1] * 1e3
+                if rank == 0:   # by value: a shared tensor dies with the rank
+                    rec["logits"] = [lg.float().numpy() for lg, _ in runs]
+                for job, fault in MESH_FAULTS:
+                    if job == label:
+                        with planted(fault):
+                            lg, _ = forced_logits(
+                                torch, model, params, padded(np, reqs[:B]),
+                                refs[label][0][:, :MESH_FAULT_STEPS + 1],
+                                cache_len, device)
+                        if rank == 0:
+                            out["faults"][fault] = lg.float().numpy()
+                out[label] = rec
+                del params, model
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+        out["k7"] = sorted(set(k7s), key=str)
+        out["k8"] = sorted({(q, k, d, tuple(n.tolist()))
+                            for q, k, d, n in k8s}, key=str)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(torch, np, device, paths, attn, llm, moe, card):
+    """``phase llm-mesh``: the sharded model on two ranks of the one card
+    (``MESH_JOBS``), each job's forced logits held against this process's
+    single-process run of the same weights at every step, its served
+    tokens against that run's up to a difference the step's deltas
+    explain, the planted faults (``MESH_FAULTS``) beyond the bound, K7/K8
+    launched on every rank and held against their plain versions at
+    every configuration a rank launched, bytes a rank the even split of
+    the whole, collectives a decode step counted by ``CommDebugMode``.
+    Two ranks time-slice one card and their collectives go through gloo
+    on the host: the times are that arrangement's, not two cards'."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    from repro_torch.models import Model
+    t_phase = time.perf_counter()
+    owners = {LLM_ARCH: llm, MOE_ARCH: moe}
+    refs, want = {}, {}     # tokens fed to the ranks; their logits here
+    ref_tokens = {}
+    for label, arch, changes, mix in MESH_JOBS:
+        m = owners[arch]
+        _, n, _, max_new, B, cache_len = mix[:6]
+        reqs = requests_for(np, m.cfg, *mix[1:4])
+        toks = [padded(np, reqs[i:i + B]) for i in range(0, n, B)]
+        cfg, params = m.cfg, m.params
+        served = [greedy(torch, Model(cfg), params, t, max_new, cache_len,
+                         device) for t in toks]
+        ref_tokens[label] = [t for t, _ in served]
+        if cfg.is_moe:
+            cfg, params = m.float32()
+            served = [greedy(torch, Model(cfg), params, toks[0], max_new,
+                             cache_len, device)]
+            del params
+        refs[label] = [t for t, _ in served]
+        want[label] = [lg for _, lg in served]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"phase llm-mesh references: single-process greedy runs of "
+        f"{[j[0] for j in MESH_JOBS]} ({time.perf_counter() - t_phase:.2f} "
+        f"s)")
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=mesh_rank, args=(
+        r, MESH_RANKS, port, MESH_JOBS, refs, str(device), queue))
+        for r in range(MESH_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < len(procs):
+            try:
+                rank, status, res = queue.get(timeout=5)
+            except queue_mod.Empty:     # a rank that died puts nothing
+                dead = [p.exitcode for p in procs if p.exitcode]
+                assert not dead, f"phase llm-mesh: a rank exited {dead}"
+                assert time.perf_counter() - t0 < MESH_TIMEOUT, \
+                    "phase llm-mesh: the ranks took too long"
+                continue
+            if status != "ok":
+                raise AssertionError(f"phase llm-mesh rank {rank} failed:\n"
+                                     f"{res}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    ranks_s = time.perf_counter() - t0
+    # K7/K8 at every configuration the ranks launched, against plain
+    t1 = time.perf_counter()
+    k7s = sorted({c for r in got.values() for c in r["k7"]}, key=str)
+    k8s = sorted({c for r in got.values() for c in r["k8"]}, key=str)
+    new = attn.add_configs(k7s, k8s)
+    log(f"phase llm-mesh attention: K7/K8 vs plain at the ranks' {len(k7s)} "
+        f"K7 and {len(k8s)} K8 launch configurations ({new} not checked "
+        f"before; K7 query / key shapes "
+        f"{sorted({(c[0], c[1], str(c[2])) for c in k7s})}): checked "
+        f"{attn.checked}, mismatches {attn.mismatches} "
+        f"({time.perf_counter() - t1:.2f} s)")
+    assert all(v == 0 for v in attn.mismatches.values()), attn.mismatches
+    for label, arch, changes, mix in MESH_JOBS:
+        m = owners[arch]
+        kv_mode = changes.get("kv_mode")
+        _, n, _, max_new, B, cache_len = mix[:6]
+        recs = [got[r][label] for r in range(MESH_RANKS)]
+        tol = MESH_MOE_TOL if m.cfg.is_moe else MESH_TOL
+        mine = [torch.from_numpy(lg) for lg in recs[0]["logits"]]
+        scale = max(float(w.abs().max()) for w in want[label])
+        err = max(float((g - w).abs().max())
+                  for g, w in zip(mine, want[label]))
+        assert err <= tol * scale, (label, err, tol * scale)
+        faults = []
+        for job, fault in MESH_FAULTS:
+            if job == label:
+                lg = torch.from_numpy(got[0]["faults"][fault])
+                e = float((lg - want[label][0][:len(lg)]).abs().max())
+                faults.append(f"{fault} {e:.4e} ({e / scale:.4f} of "
+                              f"max|logit|)")
+                assert e > tol * scale, (label, fault, e, tol * scale)
+        single = [row for t in ref_tokens[label] for row in t]
+        agree, worst = 0, 0.0
+        for r in recs:
+            assert r["tokens"] == recs[0]["tokens"], label   # every rank
+        for i, (ours, theirs) in enumerate(zip(recs[0]["tokens"], single)):
+            theirs = list(theirs)
+            agree += ours == theirs
+            if ours == theirs or m.cfg.is_moe:
+                continue
+            t = next(j for j, (a, b) in enumerate(zip(ours, theirs))
+                     if a != b)
+            ws = want[label][i // B][t, i % B]
+            delta = float((mine[i // B][t, i % B] - ws).abs().max())
+            margin = float(ws[theirs[t]] - ws[ours[t]])
+            assert margin <= 2 * delta, (label, i, t, margin, delta)
+            worst = max(worst, margin / delta if margin > 0 else 0.0)
+        k7 = [r["launches"]["flash_attention"] for r in recs]
+        k8 = [r["launches"]["decode_attention"] for r in recs]
+        batches = n // B
+        steps = batches * (max_new - 1)
+        L = m.cfg.num_layers
+        if device.type == "cuda":   # the CPU path has no kernel
+            assert k7 == [L * batches] * MESH_RANKS, (label, k7)
+            assert k8 == ([0] * MESH_RANKS if kv_mode == "sequence"
+                          else [L * steps] * MESH_RANKS), (label, k8)
+        for r in recs:
+            assert r["param_bytes"] == r["param_bytes_even"], label
+            assert r["cache_bytes"] == r["cache_bytes_even"], label
+        for name, v in (("flash_attention", sum(k7)),
+                        ("decode_attention", sum(k8))):
+            paths.launches[name] += v
+        whole_p = sum(t.numel() * t.element_size()
+                      for t in Llm._leaves(m.params))
+        from repro_torch.serving.engine import kv_block_bytes
+        whole_c = kv_block_bytes(m.cfg, cache_len) * B
+        dec_ms = [d / (max_new - 1) for d in recs[0]["decode_ms"]]
+        tps = [B * (max_new - 1) / (d / 1e3) for d in recs[0]["decode_ms"]]
+        log(f"phase llm-mesh {label}: {arch} over (data 1, model "
+            f"{MESH_RANKS}) on one card, {changes or 'kv_mode heads'}"
+            + (f", {m.cfg.num_experts // MESH_RANKS} of "
+               f"{m.cfg.num_experts} experts a rank" if m.cfg.is_moe
+               else "") + ": "
+            f"{n} requests, max_batch {B}, cache_len {cache_len}; launches "
+            f"per rank K7 {k7[0]}, K8 {k8[0]}; per rank prefill_ms "
+            + "/".join(f"{p:.3f}" for p in recs[0]["prefill_ms"])
+            + ", decode ms/step " + "/".join(f"{d:.3f}" for d in dec_ms)
+            + ", tokens/s " + "/".join(f"{t:.2f}" for t in tps)
+            + f" (rank 1: prefill_ms "
+            + "/".join(f"{p:.3f}" for p in recs[1]["prefill_ms"])
+            + f"); forced decode {recs[0]['forced_step_ms']:.3f} ms/step; "
+            f"bytes a rank: params {recs[0]['param_bytes']} of {whole_p} "
+            f"({recs[0]['param_bytes'] / whole_p:.6f}), cache "
+            f"{recs[0]['cache_bytes']} of ~{whole_c} "
+            f"({recs[0]['cache_bytes'] / whole_c:.6f}), both == the even "
+            f"split; collectives a decode step {recs[0]['collectives']}; "
+            f"{'float32 ' if m.cfg.is_moe else ''}logits at "
+            f"{sum(len(x) for x in mine)} steps x {len(mine[0][0])} rows "
+            f"max|delta| {err:.4e} ({err / scale:.4f} of max|logit| "
+            f"{scale:.4e}) <= {tol}"
+            + (f"; planted faults {'; '.join(faults)}, each > {tol}"
+               if faults else "")
+            + f"; served tokens == single process for {agree}/{n} requests"
+            + (" (bf16, not held)" if m.cfg.is_moe else
+               f", at each difference the single-process margin <= 2 x "
+               f"the step's max|delta| (largest margin / delta "
+               f"{worst:.3f})")
+            + f" [{card}] ({recs[0]['serve_s']:.2f} s)")
+    log(f"phase llm-mesh: {MESH_RANKS} ranks {ranks_s:.2f} s "
+        f"({time.perf_counter() - t_phase:.2f} s with the references)")
+
+
+def dryrun_start(out):
+    """Start ``phase dryrun``'s processes (host only, one fake world of 256
+    ranks each): ``repro_torch.launch.dryrun`` of ``DRYRUN_COMBOS``,
+    writing to ``out``; ``dryrun_phase`` waits for them."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    return [(arch, shape, extra, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", out, *extra],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for arch, shape, extra in DRYRUN_COMBOS]
+
+
+def dryrun_phase(procs, out):
+    """``phase dryrun``: each record's keys, chips and per-device numbers
+    printed; its seconds are the process's, which ran beside ``phase
+    llm-mesh``."""
+    t_phase = time.perf_counter()
+    for arch, shape, extra, t0, proc in procs:
+        text, _ = proc.communicate(timeout=600)
+        secs = time.perf_counter() - t0
+        assert proc.returncode == 0, text
+        rec = json.loads((Path(out) / f"{arch}__{shape}__single.json")
+                         .read_text())
+        assert rec["chips"] == 256, rec["chips"]
+        assert rec["analysis_mode"] == ("scan" if extra
+                                        else "unrolled"), rec
+        mem = rec["memory_analysis"]
+        assert mem["peak_memory_in_bytes"] > 0, mem
+        r, h = rec["roofline"], rec["roofline_h100"]
+        log(f"phase dryrun {arch} x {shape} x single "
+            f"({rec['analysis_mode']}): per device flops "
+            f"{rec['flops_per_device']:.6e}, bytes "
+            f"{rec['bytes_per_device']:.6e}, collectives "
+            + ", ".join(f"{k} {v}" for k, v in rec["collectives"].items()
+                        if v) + f", peak memory "
+            f"{mem['peak_memory_in_bytes']} B (args "
+            f"{mem['argument_size_in_bytes']}, out "
+            f"{mem['output_size_in_bytes']}, temp "
+            f"{mem['temp_size_in_bytes']}); roofline tpu-v5e "
+            f"{r['dominant']} {r['step_time_lb_s'] * 1e3:.4f} ms, "
+            f"h100 {h['dominant']} {h['step_time_lb_s'] * 1e3:.4f} ms; "
+            f"model flops {rec['model_flops_global']:.6e} "
+            f"({secs:.2f} s in its process)")
+    log(f"phase dryrun: {time.perf_counter() - t_phase:.2f} s after "
+        f"phase llm-mesh")
 
 
 def train_phase(torch, np, device, paths, card):
@@ -3322,6 +3921,12 @@ def main() -> int:
     moe.card_vs_cpu("llm-moe", *moe.float32(), tol=MOE_CPU_TOL)
     moe.reorder("llm-moe", MOE_MIX[5:6])
     log(f"phase llm-moe: {time.perf_counter() - t0:.2f} s")
+    # the sharded model: two ranks on the card against this process, the
+    # dry-run's host processes beside it
+    with tempfile.TemporaryDirectory() as dry_out:
+        dry = dryrun_start(dry_out)
+        mesh_phase(torch, np, device, paths, attn, llm, moe, card)
+        dryrun_phase(dry, dry_out)
     # the recurrent decoders, one at a time, the earlier models freed
     del llm, moe
     gc.collect()

@@ -8,17 +8,18 @@
 All three counts are per device.  The reference reads FLOPs and bytes
 from ``compiled.cost_analysis()`` of a GSPMD-partitioned module (the
 per-device program); a torch program's come from a count over its trace
-(such as ``torch.utils.flop_counter.FlopCounterMode``) or, for one kernel
+(``launch/dryrun.py``'s, on each rank's local shards) or, for one kernel
 or one step, from its shapes.  Collective bytes are not in cost_analysis
 — they are summed from the operand shapes of every all-gather / all-reduce /
 reduce-scatter / all-to-all / collective-permute in the optimized HLO text,
-which is likewise the per-device program.
+which is likewise the per-device program; the port's come from a census
+of the collectives one rank issues (``collective_bytes_from_census``).
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 _DTYPE_BYTES = {
     "pred": 1, "s4": 1, "u4": 1, "s8": 1, "u8": 1, "f8e4m3fn": 1,
@@ -122,6 +123,53 @@ def collective_bytes_from_hlo(hlo_text: str) -> Dict[str, int]:
     return out
 
 
+# the functional collectives a torch program issues (DTensor's
+# redistributions, a mapped body's own) and the HLO kind each counts as
+FUNCTIONAL_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+
+def collective_bytes_from_census(census: Iterable[Tuple[str, int, int]]
+                                 ) -> Dict[str, int]:
+    """Per-device link traffic per collective kind from a census of one
+    device's collectives, ``(kind, result bytes, group size)`` each (the
+    port's counterpart of ``collective_bytes_from_hlo``: a dispatch mode
+    takes the census as ``CommDebugMode`` counts, under DTensor's local
+    ops; ``kind`` an HLO name of ``COLLECTIVES`` or a functional op's of
+    ``FUNCTIONAL_KINDS``).  The same ring-algorithm rules as the HLO
+    census, g the group size:
+
+      all-gather          result*(g-1)/g
+      all-reduce          2*result*(g-1)/g
+      reduce-scatter      result*(g-1)
+      all-to-all          result*(g-1)/g
+      collective-permute  result
+    """
+    out: Dict[str, int] = {k: 0 for k in COLLECTIVES}
+    for kind, result_bytes, g in census:
+        kind = FUNCTIONAL_KINDS.get(kind, kind)
+        g = max(int(g), 1)
+        if kind == "all-gather":
+            traffic = result_bytes * (g - 1) // g
+        elif kind == "all-reduce":
+            traffic = 2 * result_bytes * (g - 1) // g
+        elif kind == "reduce-scatter":
+            traffic = result_bytes * (g - 1)
+        elif kind == "all-to-all":
+            traffic = result_bytes * (g - 1) // g
+        elif kind == "collective-permute":
+            traffic = result_bytes
+        else:
+            raise ValueError(f"not a collective: {kind!r}")
+        out[kind] += traffic
+    out["total"] = sum(out[k] for k in COLLECTIVES)
+    return out
+
+
 def roofline_report(*, flops: float, bytes_accessed: float,
                     collective_bytes: float,
                     hw: HardwareSpec = TPU_V5E,
@@ -155,5 +203,6 @@ def model_flops(cfg, shape_kind: str, tokens: int) -> float:
     return mult * n * tokens
 
 
-__all__ = ["COLLECTIVES", "H100", "HardwareSpec", "TPU_V5E",
+__all__ = ["COLLECTIVES", "FUNCTIONAL_KINDS", "H100", "HardwareSpec",
+           "TPU_V5E", "collective_bytes_from_census",
            "collective_bytes_from_hlo", "model_flops", "roofline_report"]

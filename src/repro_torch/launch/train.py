@@ -15,9 +15,15 @@ the device from a ``torch.Generator`` seeded with 0, and batches come
 from ``repro_torch.data.SyntheticLMDataset(seed=0)``, copied to the
 device before each step.
 
-There is one device: ``--production-mesh`` (the reference's 16×16 TPU
-mesh) raises ``UnsupportedConfigError``; the mesh comes with ROADMAP
-Queue 1 item 14.  ``main`` returns a ``TrainRun``: the final state, the
+``--production-mesh`` builds the reference's (16, 16) ("data",
+"model") mesh over the default process group
+(``launch.mesh.make_production_mesh``: every one of its 256 ranks runs
+this launcher, after ``torch.distributed.init_process_group``; with
+fewer ranks it raises ``RuntimeError``) and shards the state as the
+reference's launcher does: parameters by ``param_specs``, the AdamW
+moments by ``param_specs(moe_fsdp=True)``, the step replicated
+(``training.train_state_init(..., mesh=)``).  ``main`` returns a
+``TrainRun``: the final state, the
 step function, the dataset and each step's wall seconds (the card
 synchronised before and after the step), metrics and, on the card,
 ``torch.cuda.max_memory_allocated`` after it.
@@ -33,11 +39,13 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model, UnsupportedConfigError
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models.model import Model
+from repro_torch.models.sharding import full
 from repro_torch.training import (TrainState, make_train_step,
                                   train_state_init)
 from repro_torch.training.checkpoint import save_checkpoint
-from repro_torch.training.optimizer import tree_leaves
+from repro_torch.training.optimizer import tree_leaves, tree_map
 
 
 class TrainRun(NamedTuple):
@@ -70,19 +78,17 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu (the plain path)")
     args = ap.parse_args(argv)
-    if args.production_mesh:
-        raise UnsupportedConfigError(
-            "--production-mesh: the port runs on one device; the mesh "
-            "comes with ROADMAP Queue 1 item 14 (launch/: mesh.py, "
-            "dryrun.py, shapes.py and the sharded model code)")
     dev = resolve_device(args.device)
+    mesh = make_production_mesh(device=dev) if args.production_mesh \
+        else None
 
     cfg = get_config(args.arch)
-    model = Model(cfg)
+    model = Model(cfg, mesh)
     state = train_state_init(cfg, torch.Generator(device=dev).manual_seed(0),
-                             dev)
+                             dev, mesh=mesh)
     n = sum(t.numel() for t in tree_leaves(state.params))
-    print(f"arch={cfg.name} params={n/1e6:.1f}M mesh=None")
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh else None
+    print(f"arch={cfg.name} params={n/1e6:.1f}M mesh={shape}")
 
     ds = SyntheticLMDataset(cfg, args.batch, args.seq, seed=0)
     step_fn = make_train_step(
@@ -102,8 +108,8 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
             print(f"step {i:4d} loss={float(m['loss']):.3f} "
                   f"gnorm={float(m['grad_norm']):.2f}", flush=True)
     if args.ckpt_dir:
-        print("saved:", save_checkpoint(args.ckpt_dir, state.params,
-                                        args.steps))
+        print("saved:", save_checkpoint(args.ckpt_dir, tree_map(
+            full, state.params), args.steps))
     return TrainRun(state, step_fn, ds, steps)
 
 

@@ -14,8 +14,17 @@ a token's expert outputs are summed in ascending expert id in float32.
 The reference loops over the experts one at a time; here each step of
 that loop is a batched tensor operation, so the routing costs a fixed
 number of launches and no host read (the decode step stays capturable).
-The expert-parallel mesh path (``:107-139``) comes with the sharded model
-code (ROADMAP Queue 1 item 14).
+
+On a mesh (``:107-139``) the experts are split over the "model" axis and
+the tokens over the batch axes, replicated over "model": each rank runs
+its ``E / tp`` experts (global ids from ``rank · E / tp``) on its batch
+rows in a mapped body (``sharding.local_map``, the reference's
+``shard_map``), with the capacity of those rows (``T_loc = B / dp ·
+S``, not ``B · S``: a sharded run may drop other tokens than an
+unsharded one), the expert weights all-gathered over "data" first where
+``moe_fsdp`` stores them sharded there, and the partial outputs summed
+over "model" in the activation dtype.  The router runs outside the body,
+on the replicated logits.
 """
 from __future__ import annotations
 
@@ -23,6 +32,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .sharding import P, axis_sizes, is_dtensor, local_map, replicate, shard
 
 
 def router_topk(x: torch.Tensor, w_router: torch.Tensor, k: int
@@ -37,21 +48,25 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor, k: int
     E = w_router.shape[-1]
     # one-hot of the first choice by comparison: F.one_hot reads the ids'
     # range on the host
-    first = (top_i[..., :1] == torch.arange(E, device=x.device)).float()
+    ids = torch.arange(E, device=x.device)
+    if is_dtensor(top_i):
+        ids = replicate(ids, top_i.device_mesh)
+    first = (top_i[..., :1] == ids).float()
     f = first.reshape(-1, E).mean(0)
     p = probs.reshape(-1, E).mean(0)
     aux = E * torch.sum(f * p)
     return top_p, top_i.to(torch.int32), aux
 
 
-def dispatch(top_i: torch.Tensor, num_experts: int, capacity: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+def dispatch(top_i: torch.Tensor, num_experts: int, capacity: int,
+             first_expert: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """top_i [T,k] -> (slot [T,E] int64, kept [T,E] bool): token t's row
-    in expert e's buffer and whether it is there.  A token that chose e
-    gets slot ``cumsum`` of e's hits before and at it, minus one, and is
-    kept while that is below ``capacity``; every other (t, e) gets slot
-    ``capacity``, the overflow row (``_expert_pass``, ``:58-63``)."""
-    experts = torch.arange(num_experts, device=top_i.device)
+    in expert ``first_expert + e``'s buffer and whether it is there.  A
+    token that chose that expert gets slot ``cumsum`` of its hits before
+    and at it, minus one, and is kept while that is below ``capacity``;
+    every other (t, e) gets slot ``capacity``, the overflow row
+    (``_expert_pass``, ``:58-63``)."""
+    experts = first_expert + torch.arange(num_experts, device=top_i.device)
     hit = (top_i[:, :, None] == experts).any(1)              # [T,E]
     pos = torch.cumsum(hit.long(), 0) - 1
     kept = hit & (pos < capacity)
@@ -104,16 +119,19 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def expert_pass(x_flat: torch.Tensor, top_p: torch.Tensor,
                 top_i: torch.Tensor, w_gate: torch.Tensor,
                 w_up: torch.Tensor, w_down: torch.Tensor,
-                capacity: int) -> torch.Tensor:
+                capacity: int, first_expert: int = 0) -> torch.Tensor:
     """Tokens -> experts -> tokens, capacity-bounded: x_flat [T,d], top_p /
-    top_i [T,k], w_gate / w_up [E,d,ff], w_down [E,ff,d].  Returns y [T,d]
-    float32 (the reference's ``_expert_pass`` with every expert local)."""
+    top_i [T,k], w_gate / w_up [E,d,ff], w_down [E,ff,d], the experts
+    ``first_expert ..`` of the model's.  Returns y [T,d] float32: each
+    token's outputs of those experts (the reference's ``_expert_pass``;
+    all of them without a mesh)."""
     T, d = x_flat.shape
     E, k = w_gate.shape[0], top_i.shape[1]
     wt, dev = w_gate.dtype, x_flat.device
     top_i = top_i.long()
-    slot, kept = dispatch(top_i, E, capacity)
-    gate = torch.where(top_i[:, :, None] == torch.arange(E, device=dev),
+    slot, kept = dispatch(top_i, E, capacity, first_expert)
+    experts = first_expert + torch.arange(E, device=dev)
+    gate = torch.where(top_i[:, :, None] == experts,
                        top_p[:, :, None], 0.0).sum(1)        # [T,E]
     # the token in each expert's rows (T: none); only the overflow column
     # receives more than one token, and it is dropped
@@ -124,10 +142,14 @@ def expert_pass(x_flat: torch.Tensor, top_p: torch.Tensor,
     h = (F.silu(_bmm_f32(buf, w_gate)) * _bmm_f32(buf, w_up)).to(wt)
     out = _bmm_f32(h, w_down)                                # [E,cap,d]
     out = torch.cat([out, out.new_zeros((E, 1, d))], 1).reshape(-1, d)
-    # each token's chosen experts in ascending id, their rows and weights
-    ids = torch.sort(top_i, dim=1).values                    # [T,k]
+    # each token's chosen experts in ascending id, their rows and weights;
+    # an expert of another rank weighs 0
+    ids = torch.sort(top_i, dim=1).values - first_expert     # [T,k]
+    mine = (ids >= 0) & (ids < E)
+    ids = ids.clamp(0, E - 1)
     rows = ids * (capacity + 1) + slot.gather(1, ids)
     weight = torch.where(kept & (gate > 0), gate, 0.0).gather(1, ids)
+    weight = torch.where(mine, weight, 0.0)
     part = out[rows] * weight[:, :, None]                    # [T,k,d]
     y = part[:, 0]
     for j in range(1, k):
@@ -143,17 +165,52 @@ def capacity_of(tokens: int, k: int, num_experts: int,
 
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, *, k: int,
-            capacity_factor: float = 1.25
+            capacity_factor: float = 1.25, mesh=None,
+            dp_axes: Tuple[str, ...] = (), tp_axis: str = "model"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B,S,d] -> (y [B,S,d] in x's dtype, aux loss).  w_gate / w_up
-    [E,d,ff], w_down [E,ff,d]."""
+    [E,d,ff], w_down [E,ff,d].  With a mesh: expert-parallel over
+    ``tp_axis``, the tokens over ``dp_axes`` (``:107-139``); the body
+    reads the expert weights all-gathered over "data" where they lie
+    sharded there (``moe_fsdp``: the reference's ``fsdp_axis``)."""
     B, S, d = x.shape
     E = w_router.shape[-1]
     top_p, top_i, aux = router_topk(x, w_router, k)
-    cap = capacity_of(B * S, k, E, capacity_factor)
-    y = expert_pass(x.reshape(-1, d), top_p.reshape(-1, k),
-                    top_i.reshape(-1, k), w_gate, w_up, w_down, cap)
-    return y.reshape(B, S, d).to(x.dtype), aux
+    if mesh is None:
+        cap = capacity_of(B * S, k, E, capacity_factor)
+        y = expert_pass(x.reshape(-1, d), top_p.reshape(-1, k),
+                        top_i.reshape(-1, k), w_gate, w_up, w_down, cap)
+        return y.reshape(B, S, d).to(x.dtype), aux
+
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    sizes = axis_sizes(mesh)
+    dp = 1
+    for a in dp_axes:
+        dp *= sizes[a]
+    tp = sizes[tp_axis]
+    if E % tp:
+        raise ValueError(f"{E} experts do not split over {tp} ranks")
+    E_loc = E // tp
+    T_loc = (B // dp) * S
+    cap = capacity_of(T_loc, k, E, capacity_factor)
+    tok = P(dp_axes, None, None)
+    w_spec = P(tp_axis, None, None)
+
+    def shard_fn(xs, tps, tis, wg, wu, wd):
+        first = mesh.get_local_rank(tp_axis) * E_loc
+        Bl = xs.shape[0]
+        y = expert_pass(xs.reshape(-1, d), tps.reshape(-1, k),
+                        tis.reshape(-1, k), wg, wu, wd, cap, first)
+        # summed over tp_axis in the activation dtype, not float32
+        return y.to(xs.dtype).reshape(Bl, S, d)
+
+    out = tuple(Shard(0) if a in dp_axes else
+                (Partial() if a == tp_axis else Replicate())
+                for a in mesh.mesh_dim_names)
+    y = local_map(shard_fn, mesh, (tok, tok, tok, w_spec, w_spec, w_spec),
+                  out)(shard(x, mesh, tok), shard(top_p, mesh, tok),
+                       shard(top_i, mesh, tok), w_gate, w_up, w_down)
+    return shard(y, mesh, tok).to(x.dtype), aux
 
 
 __all__ = ["capacity_of", "dispatch", "expert_pass", "moe_ffn",

@@ -50,7 +50,9 @@ from repro_torch.core.fx_reorder import ReorderReport, reorder_graph_module
 from repro_torch.core.graph import Graph
 from repro_torch.cuda_graphs import CapturedGraph, capture
 from repro_torch.device import resolve_device
-from repro_torch.models.model import Model, init_cache
+from repro_torch.models.model import (Model, UnsupportedConfigError,
+                                      init_cache)
+from repro_torch.models.sharding import full
 from repro_torch.serving.faults import (FaultInjector, FaultPlan,
                                         dispatch_with_retry)
 from repro_torch.serving.stats import EngineStats
@@ -188,13 +190,17 @@ class DecodeStep:
     model's decode cache at ``cache_len`` (``pos``, and the layout's K/V
     slots, conv windows and recurrent states), updated in place.
     ``logits`` holds the last step's.  On the card the step is a CUDA
-    graph, captured by ``capture()``; on the CPU it runs eagerly."""
+    graph, captured by ``capture()``; on the CPU it runs eagerly, and so
+    it does on a mesh (the cache then placed by ``cache_specs``, the
+    logits gathered on every rank: the collectives go through the host
+    under gloo, which a graph cannot hold)."""
 
     def __init__(self, model: Model, params, batch: int, cache_len: int,
                  device: torch.device) -> None:
         self.model, self.params, self.device = model, params, device
         self.cache_len = cache_len
-        self.cache = init_cache(model.cfg, batch, cache_len, device=device)
+        self.cache = init_cache(model.cfg, batch, cache_len, device=device,
+                                mesh=model.mesh)
         self.tok = torch.zeros((batch,), dtype=torch.int64, device=device)
         self.logits: Optional[torch.Tensor] = None
         self.graph: Optional[CapturedGraph] = None
@@ -202,6 +208,7 @@ class DecodeStep:
     def _run(self) -> torch.Tensor:
         logits, _ = self.model.decode_step(self.params, self.cache,
                                            self.tok)
+        logits = full(logits)
         self.tok.copy_(torch.argmax(logits, -1))
         return logits
 
@@ -225,7 +232,7 @@ class DecodeStep:
         self.tok.copy_(tok)
 
     def __call__(self) -> None:
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.model.mesh is None:
             self.capture().replay()
         else:
             self.logits = self._run()
@@ -284,17 +291,24 @@ class ServingEngine:
     unbounded).  ``params`` must lie on ``device`` (None: the card).
     ``execute_reordered`` is stored and not read, as in the reference:
     serving runs the in-place step; ``analyse_decode_schedule`` keeps the
-    reordered one in ``reordered_step``."""
+    reordered one in ``reordered_step``.
+
+    ``mesh`` (``launch.mesh.make_local_mesh``): every rank runs the engine
+    SPMD over its pieces of ``params`` (``init_params(..., mesh=)``) and
+    the same requests, as the reference's engine passes its mesh to its
+    model (``serving/engine.py:172-176``); the decode step runs eagerly
+    and every rank gets every token.  The KV arena plans the whole
+    block a request, as the reference's does."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
                  cache_len: int = 128, execute_reordered: bool = False,
-                 hbm_budget: Optional[int] = None, device=None):
+                 hbm_budget: Optional[int] = None, device=None, mesh=None):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"engine serves on {self.device}")
         self.cfg = cfg
-        self.model = Model(cfg)
+        self.model = Model(cfg, mesh)
         self.params = params
         self.max_batch = max_batch
         self.cache_len = cache_len
@@ -312,7 +326,12 @@ class ServingEngine:
         """Trace the decode step of ``batch_size`` sequences at the engine's
         ``cache_len`` (shapes only), apply the paper's scheduler to its
         nodes, keep and return the liveness report; the reordered step
-        goes to ``reordered_step``."""
+        goes to ``reordered_step``.  One device only: the traced step on
+        a mesh is the dry-run's."""
+        if self.model.mesh is not None:
+            raise UnsupportedConfigError(
+                "analyse_decode_schedule traces the step of one device; "
+                "the engine has a mesh")
         self.reordered_step, self.reorder_report = reorder_decode_step(
             self.model, self.params, batch_size, self.cache_len)
         return self.reorder_report
@@ -324,7 +343,7 @@ class ServingEngine:
         if step is None:
             step = DecodeStep(self.model, self.params, batch,
                               self.cache_len, self.device)
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and self.model.mesh is None:
                 step.capture()
             self._steps[batch] = step
         return step
@@ -372,6 +391,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         logits, cache = self.model.prefill(self.params, feed,
                                            cache_len=self.cache_len)
+        logits = full(logits)
         _synchronize(self.device)
         t_pre = (time.perf_counter() - t0) * 1e3
 

@@ -20,9 +20,11 @@ the host: the step, the bias corrections and the learning rate stay
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.models.sharding import empty_like_spec, is_dtensor
 
 Tree = Dict[str, Any]
 
@@ -53,12 +55,25 @@ class AdamWState(NamedTuple):
     nu: Tree
 
 
-def adamw_init(params: Tree) -> AdamWState:
+def adamw_init(params: Tree, specs: Optional[Tree] = None,
+               mesh=None) -> AdamWState:
+    """Zero float32 moments like ``params`` and step 0.  With ``specs``
+    (a ``param_specs`` tree) and a ``mesh`` the moments are DTensors
+    placed by them, made in place on each rank; ``step`` is a plain 0-d
+    tensor every rank holds (replicated)."""
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    def placed(tree, spec):
+        return {k: placed(v, spec[k]) if isinstance(v, dict)
+                else empty_like_spec(v.shape, mesh, spec[k],
+                                     dtype=torch.float32, device=v.device)
+                for k, v in tree.items()}
     dev = tree_leaves(params)[0].device
+    mu, nu = (tree_map(zeros, params), tree_map(zeros, params)) \
+        if specs is None else (placed(params, specs), placed(params, specs))
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                      mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+                      mu=mu, nu=nu)
 
 
 def cosine_lr(step: torch.Tensor, *, peak: float, warmup: int,
@@ -78,6 +93,13 @@ def global_norm(tree) -> torch.Tensor:
                           for x in leaves))
 
 
+def _like(t, ref):
+    """``t`` placed as DTensor ``ref`` is (``t`` as it is otherwise)."""
+    if is_dtensor(t) and tuple(t.placements) != tuple(ref.placements):
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return t
+
+
 @torch.no_grad()
 def adamw_update(params: Tree, grads, state: AdamWState, *,
                  lr: torch.Tensor, b1: float = 0.9, b2: float = 0.95,
@@ -87,6 +109,9 @@ def adamw_update(params: Tree, grads, state: AdamWState, *,
     ``grads``: a tree like ``params``, or its leaves in ``tree_leaves``
     order; bf16 gradients are widened here, after the norm."""
     flat_g = tree_leaves(grads) if isinstance(grads, dict) else list(grads)
+    # a DTensor gradient goes where its moment lies (a reduce-scatter of a
+    # partial sum, a slice of a replicated one)
+    flat_g = [_like(g, m) for g, m in zip(flat_g, tree_leaves(state.mu))]
     gnorm = global_norm(flat_g)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     state.step.add_(1)
@@ -99,6 +124,7 @@ def adamw_update(params: Tree, grads, state: AdamWState, *,
         v.mul_(b2).add_(g.square_().mul_(1 - b2))   # b2 v + (1 - b2) g²
         del g
         delta = (m / b1c).div_((v / b2c).sqrt_().add_(eps))
+        delta = _like(delta, p)     # ZeRO-1: moments sharded, p not
         if p.ndim >= 2:     # decoupled decay only on >= 2-D tensors
             delta.add_(p.float() * weight_decay)
         p.copy_(delta.mul_(lr).neg_().add_(p))      # p - lr delta

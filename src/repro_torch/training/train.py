@@ -16,7 +16,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import Model, init_params
+from repro_torch.models.model import Model, init_params, param_specs
+from repro_torch.models.sharding import full
 from .optimizer import (AdamWState, Tree, adamw_init, adamw_update,
                         cosine_lr, tree_leaves, tree_map)
 
@@ -28,13 +29,21 @@ class TrainState(NamedTuple):
 
 def train_state_init(cfg: ModelConfig,
                      generator: Optional[torch.Generator] = None,
-                     device=None) -> TrainState:
+                     device=None, mesh=None) -> TrainState:
     """Random parameters (``models.init_params``: on ``device``, None the
     card, from ``generator``, None a new one seeded with 0) that require
-    grad, and zero float32 moments."""
+    grad, and zero float32 moments.  With a ``mesh`` the sharded state of
+    the reference's launcher and dry-run (``launch/train.py:40-51``,
+    ``launch/dryrun.py:90-102``): parameters placed by ``param_specs``,
+    the moments always by ``param_specs(cfg.replace(moe_fsdp=True))``
+    (ZeRO-1 keeps the optimizer state sharded over "data" where the
+    experts' weights are not), ``step`` replicated (every rank holds
+    it)."""
     params = tree_map(lambda t: t.requires_grad_(),
-                      init_params(cfg, generator, device))
-    return TrainState(params=params, opt=adamw_init(params))
+                      init_params(cfg, generator, device, mesh=mesh))
+    specs = param_specs(cfg.replace(moe_fsdp=True), mesh) \
+        if mesh is not None else None
+    return TrainState(params=params, opt=adamw_init(params, specs, mesh))
 
 
 def make_train_step(model: Model, *, peak_lr: float = 3e-4,
@@ -52,8 +61,8 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
         leaves = tree_leaves(params)
         loss, metrics = model.loss_fn(params, batch, remat=remat)
         grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            grads
+        return full(loss).detach(), \
+            {k: full(v).detach() for k, v in metrics.items()}, grads
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         if microbatches == 1:
@@ -64,8 +73,7 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
                 raise ValueError(f"batch {B} does not split into "
                                  f"{microbatches} microbatches")
             n = B // microbatches
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
+            grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in tree_leaves(state.params)]
             loss, ms = 0.0, []
             for i in range(microbatches):
@@ -84,7 +92,7 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
                        total=total_steps)
         params, opt, om = adamw_update(state.params, grads, state.opt, lr=lr)
         metrics = dict(metrics)
-        metrics.update(om)
+        metrics.update({k: full(v) for k, v in om.items()})
         metrics["loss"] = loss
         metrics["lr"] = lr
         return TrainState(params, opt), metrics

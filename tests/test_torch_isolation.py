@@ -18,6 +18,7 @@ from repro_torch.errors import DeviceInitError
 from repro_torch.graphs import mobilenet_v1_graph, quantize_graph
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.mcu import MicroInterpreter
 from repro_torch.mcu.compile import compile_schedule
 from repro_torch.models import init_params
@@ -39,6 +40,8 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.models, repro_torch.configs, repro_torch.data, "
             "repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.launch.shapes, repro_torch.analysis.roofline, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.models.runtime, repro_torch.models.sharding, "
             "repro_torch.training, repro_torch.training.checkpoint, "
             "repro_torch.serving.sharded, "
             "repro_torch.serving.admission, repro_torch.core.fx_reorder, "
@@ -106,6 +109,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         launch_train.main(["--arch", "llama3.2-3b@smoke", "--steps", "1"])
     with pytest.raises(DeviceInitError, match="device='cpu'"):
         train_state_init(cfg)
+    with pytest.raises(DeviceInitError, match="device='cpu'"):
+        make_local_mesh()
     for example in ("quickstart", "mcu_deploy", "serve_llm", "train_small"):
         main = runpy.run_path(str(ROOT / "examples_torch" / f"{example}.py"))
         with pytest.raises(DeviceInitError, match="device='cpu'"):

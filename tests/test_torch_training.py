@@ -34,7 +34,7 @@ import repro_torch.models.model as model_mod
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.launch import train as launch_train
-from repro_torch.models import Model, UnsupportedConfigError
+from repro_torch.models import Model
 from repro_torch.params import adamw_state_from_numpy, llm_params_from_numpy
 from repro_torch.training import (AdamWState, TrainState, adamw_init,
                                   adamw_update, cosine_lr, make_train_step,
@@ -422,10 +422,12 @@ def test_train_step_makes_no_host_read(monkeypatch):
 
 
 def test_the_launcher_has_no_production_mesh():
-    """The reference's ``--production-mesh`` (a 16×16 TPU mesh) has no
-    counterpart on one device yet: a typed error naming the ROADMAP item
-    that brings the mesh."""
-    with pytest.raises(UnsupportedConfigError, match="item 14"):
+    """The reference's ``--production-mesh`` (a 16×16 mesh) needs 256
+    ranks: without them the launcher raises ``make_production_mesh``'s
+    ``RuntimeError``, naming the world it needs and the fake process
+    group the dry-run uses (``test_torch_mesh.py`` builds the mesh under
+    that group)."""
+    with pytest.raises(RuntimeError, match="need 256 ranks.*fake"):
         launch_train.main(["--production-mesh", "--device", "cpu"])
 
 
