@@ -121,12 +121,22 @@ after (the launches of the kernel checks above do not count):
   float32 on the data pipeline's seeded frames / patches
   (``CROSS_CONT_TOL``, ``CROSS_CPU_TOL``), and the reordered step;
 * ``phase train``, after every serving model is freed: ``phase
-  train-llama`` runs ``repro_torch.launch.train``'s ``main`` on
-  Llama-3.2-3B at full width and depth (bf16, B 4 x S 1 024, remat, 4
+  train-llama`` runs ``repro_torch.launch.train``'s ``main --eager`` on
+  Llama-3.2-3B at full width and depth (bf16, B 4 x S 1 024, remat, 6
   steps), each step after the first with its ms, tokens/s, loss,
   grad_norm and peak memory, then one step under the profiler (busy,
   idle share, the five largest kernels) beside its bound
-  (``step_bound``); ``phase train-small`` trains
+  (``step_bound``); ``phase train-graph`` runs the launcher's default on
+  the card, the step as one captured CUDA graph
+  (``training.GraphedTrainStep``), beside the eager step of the same
+  seed and batches — Llama-3.2-3B with one and two microbatches and
+  xLSTM-350M, full width and depth (``GRAPH_RUNS``): every step's loss
+  and grad_norm and each parameter leaf's float64 checksums equal, step
+  ms eager and graphed, capture ms, busy and idle share of a replayed
+  step, peak allocated and reserved bytes — then every architecture at
+  2 layers (``GRAPH_SMALL_STEPS`` steps: parameters, moments, step and
+  metrics against two eager runs) and a planted fault (the static batch
+  never refreshed) beyond the bound; ``phase train-small`` trains
   ``examples_torch/train_small.py``'s model on the card until its loss
   falls by more than ``SMALL_DROP``; ``phase train-card-vs-cpu`` takes
   one ``make_train_step`` step of each registered architecture at full
@@ -369,8 +379,37 @@ WINDOW_BLOCK = 1024
 # repro_torch.launch.train's main (bf16 parameters and gradients, float32
 # AdamW moments, one checkpointed body a layer, the chunked attention
 # under autograd as the reference trains — K7 has no backward), B 4 x S
-# 1 024, one microbatch, 4 steps: the first is the warm-up.
-TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "llama3.2-3b", 4, 1024, 4
+# 1 024, one microbatch, 6 steps (--eager: the plain step): the first is
+# the warm-up; the steps are phase train-graph's reference.
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "llama3.2-3b", 4, 1024, 6
+# train-graph: the train step as one captured CUDA graph
+# (training.GraphedTrainStep, which launch.train uses on the card: two
+# warm-up calls, each one eager step on a side stream, then the capture's
+# call, which records the step and replays it, then replays) beside the
+# eager step of the same seed and batches (launch.train --eager), at full
+# width and depth, bf16, B TRAIN_B, remat: (arch, S, microbatches, steps,
+# a note for its line).
+# Every step's loss and grad_norm and a float64 checksum of every
+# parameter leaf after the last step (its sum and the sum of its
+# magnitudes) must equal the eager run's bit for bit: the same kernels on
+# the same inputs.  Where they do not, a second eager run measures the
+# eager spread, printed, and the graphed run is held to twice it.
+# xLSTM-350M runs at S 512 (the 5th field says so in its line): at S
+# 1 024 on an H100 (700 W) an eager step took 11.5 s and the capture
+# 29.8 s, which would add ~180 s to the script, where ~90 s was its room.
+GRAPH_RUNS = ((TRAIN_ARCH, TRAIN_S, 1, TRAIN_STEPS, ""),
+              (TRAIN_ARCH, TRAIN_S, 2, TRAIN_STEPS, ""),
+              ("xlstm-350m", 512, 1, 4, " (S cut from 1 024 to 512: "
+               "GRAPH_RUNS)"))
+# and each architecture at train-card-vs-cpu's sizes (full width, 2
+# layers or one group, float32, TF32 off): GRAPH_SMALL_STEPS graphed
+# steps from a copy of the state against two eager runs, every
+# parameter, both moments, step and every step's metrics equal, or within
+# twice the two eager runs' difference (the MoE's expert scatter may add
+# atomically).  The planted fault: a graphed step whose static batch is
+# filled at the first call only, so it trains on the first batch again,
+# must land beyond that bound on the loss.
+GRAPH_SMALL_STEPS = 4
 # train-small: examples_torch/train_small.py's model (Llama smoke at 4
 # layers, d 256, float32) on the card, 30 steps of B 8 x S 64, peak lr
 # 3e-3, warm-up 5: the mean of the last five losses below the first
@@ -3400,14 +3439,16 @@ def dryrun_phase(procs, out):
 
 def train_phase(torch, np, device, paths, card):
     """``phase train``: a full-width training run of Llama-3.2-3B through
-    the launcher, the example's model learning on the card, and one step
-    of every architecture on the card against the CPU.  No K1-K8 launch
-    in any of it: training runs the chunked attention under autograd, as
-    the reference does."""
+    the launcher, the step as a CUDA graph against the eager step, the
+    example's model learning on the card, and one step of every
+    architecture on the card against the CPU.  No K1-K8 launch in any of
+    it: training runs the chunked attention under autograd, as the
+    reference does."""
     t0 = time.perf_counter()
-    train_llama(torch, np, device, paths, card)
+    eager = train_llama(torch, np, device, paths, card)
     gc.collect()
     torch.cuda.empty_cache()
+    train_graph(torch, np, device, paths, card, eager)
     train_small(torch, paths, card)
     train_card_vs_cpu(torch, np, device, paths)
     log(f"phase train: {time.perf_counter() - t0:.2f} s")
@@ -3444,23 +3485,21 @@ def step_bound(cfg, B, S):
 
 
 def train_llama(torch, np, device, paths, card):
-    """``phase train-llama``: ``repro_torch.launch.train.main`` at
-    ``TRAIN_ARCH``'s full width and depth; each step after the warm-up
+    """``phase train-llama``: ``repro_torch.launch.train.main --eager``
+    at ``TRAIN_ARCH``'s full width and depth; each step after the warm-up
     with its ms, tokens/s, loss, grad_norm and the peak of
     ``max_memory_allocated``; then one more step under the profiler:
     device busy, idle share against the steps' median wall time, the
-    five largest kernels.  K7/K8 launch no time."""
+    five largest kernels.  K7/K8 launch no time.  Returns the run's
+    record (``launcher_run``), taken before the profiled step: ``phase
+    train-graph``'s reference."""
     import math
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launch_train
     t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    paths.reset()
-    run = launch_train.main(["--arch", TRAIN_ARCH, "--steps",
-                             str(TRAIN_STEPS), "--batch", str(TRAIN_B),
-                             "--seq", str(TRAIN_S), "--microbatches", "1"])
-    launches = paths.read()
-    no_launches(launches, "train-llama")
+    eager, run = launcher_run(torch, paths, TRAIN_ARCH, TRAIN_S, 1,
+                              TRAIN_STEPS, eager=True)
+    launches = eager["launches"]
     tokens, walls = TRAIN_B * TRAIN_S, []
     for i, rec in enumerate(run.steps[1:], 1):
         loss = float(rec["metrics"]["loss"])
@@ -3497,6 +3536,7 @@ def train_llama(torch, np, device, paths, card):
         f"{launches['flash_attention']}/{launches['decode_attention']} "
         f"[{card}] ({time.perf_counter() - t0:.2f} s)")
     del run, state, batch
+    return eager
 
 
 def step_parts(torch, cfg, state, batch, device):
@@ -3542,6 +3582,255 @@ def step_parts(torch, cfg, state, batch, device):
             f"({cfg.num_layers} layers x (forward {fwd_ms:.3f} + forward "
             f"and backward {both_ms:.3f} ms)); adamw_update {adam_ms:.3f} "
             f"ms")
+
+
+def param_sums(torch, params):
+    """Per parameter leaf, in ``tree_leaves`` order: (sum, sum of
+    magnitudes), in float64, over pieces of 2^24 elements in order (a
+    whole leaf widened to float64 would not fit beside a graph's pool)."""
+    from repro_torch.training.optimizer import tree_leaves
+
+    def sums(t):
+        parts = t.detach().reshape(-1).split(1 << 24)
+        return (sum(float(p.double().sum()) for p in parts),
+                sum(float(p.double().abs().sum()) for p in parts))
+    return [sums(t) for t in tree_leaves(params)]
+
+
+def launcher_run(torch, paths, arch, S, microbatches, steps, eager):
+    """(record, run) of ``launch.train.main`` at ``arch``, B ``TRAIN_B`` x
+    ``S``: eager (``--eager``) or graphed; the record holds every step's
+    loss, grad_norm and wall ms, ``param_sums`` after the last step, the
+    peak allocated and the reserved bytes, the kernels' launches (K1-K8
+    launch no time) and, graphed, the capture and warm-up ms."""
+    from repro_torch.launch import train as launch_train
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    paths.reset()
+    run = launch_train.main(
+        ["--arch", arch, "--steps", str(steps), "--batch", str(TRAIN_B),
+         "--seq", str(S), "--microbatches", str(microbatches)]
+        + (["--eager"] if eager else []))
+    launches = paths.read()
+    no_launches(launches, f"train {arch}")
+    return {"loss": [float(r["metrics"]["loss"]) for r in run.steps],
+            "gnorm": [float(r["metrics"]["grad_norm"]) for r in run.steps],
+            "ms": [r["seconds"] * 1e3 for r in run.steps],
+            "sums": param_sums(torch, run.state.params),
+            "peak": torch.cuda.max_memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(),
+            "capture_ms": run.capture_ms,
+            "warmup_ms": run.warmup_ms, "launches": launches}, run
+
+
+def run_spread(a, b):
+    """max |a - b| over the loss, grad_norm and checksums of two
+    records."""
+    def worst(x, y):
+        return max((abs(u - v) for u, v in zip(x, y)), default=0.0)
+    return {"loss": worst(a["loss"], b["loss"]),
+            "gnorm": worst(a["gnorm"], b["gnorm"]),
+            "sums": worst([v for p in a["sums"] for v in p],
+                          [v for p in b["sums"] for v in p])}
+
+
+def busy_ms(torch, fn):
+    """(busy, wall, activities) of one call of ``fn``: the ms of the
+    card's activities ``torch.profiler`` records, summed from its raw
+    events (a replayed xLSTM step has ~10^5 kernels; ``device_time``'s
+    tree of named events would outlast the step), the call's own wall
+    ms, the card synchronised before and after, and the number of those
+    activities.  Busy 0: not measured."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if ns:
+            return sum(ns) / 1e6, wall, len(ns)
+    return 0.0, wall, 0
+
+
+def stale_batch_step():
+    """The planted fault: a ``GraphedTrainStep`` whose static batch is
+    filled at the first call only, so every step trains on the first
+    batch."""
+    from repro_torch.training import GraphedTrainStep
+
+    class StaleBatchStep(GraphedTrainStep):
+        def _load(self, batch):
+            if self._batch is None:
+                super()._load(batch)
+    return StaleBatchStep
+
+
+def train_graph(torch, np, device, paths, card, eager_llama):
+    """``phase train-graph``: each of ``GRAPH_RUNS`` through the launcher
+    graphed beside its eager run (Llama's first: ``eager_llama``, from
+    ``phase train-llama``): every step's loss and grad_norm and the
+    parameter checksums equal (or within twice a measured eager spread);
+    step ms and tokens/s eager and graphed, capture and warm-up ms, the
+    busy time and idle share of one more, replayed step, peak allocated
+    and reserved bytes.  Then ``train_graph_small``."""
+    from repro_torch.cuda_graphs import WARMUP_RUNS
+    from repro_torch.launch import train as launch_train
+    t_phase = time.perf_counter()
+    for arch, S, mb, steps, cut in GRAPH_RUNS:
+        t0 = time.perf_counter()
+        if (arch, S, mb, steps, cut) == GRAPH_RUNS[0]:
+            eager = eager_llama
+        else:
+            eager, run = launcher_run(torch, paths, arch, S, mb, steps,
+                                      eager=True)
+            del run
+        graphed, run = launcher_run(torch, paths, arch, S, mb, steps,
+                                    eager=False)
+        assert run.step_fn.graph is not None and \
+            run.step_fn.calls == steps, run.step_fn.calls
+        assert int(run.state.opt.step) == steps
+        batch = launch_train.device_batch(run.dataset.batch(steps), device)
+        state = [run.state]
+
+        def step():
+            state[0], _ = run.step_fn(state[0], batch)
+
+        busy, wall, n_kernels = busy_ms(torch, step)
+        no_launches(paths.read(), f"train-graph {arch} replay")
+        del run, state, batch
+        diff = run_spread(graphed, eager)
+        if any(diff.values()):
+            again, run = launcher_run(torch, paths, arch, S, mb, steps,
+                                      eager=True)
+            del run
+            spread = run_spread(again, eager)
+            held = (f"graphed != eager: max|d| loss {diff['loss']:.6e}, "
+                    f"grad_norm {diff['gnorm']:.6e}, checksums "
+                    f"{diff['sums']:.6e}; two eager runs: {spread['loss']:.6e}"
+                    f", {spread['gnorm']:.6e}, {spread['sums']:.6e} (bound: "
+                    f"twice those)")
+            log(f"phase train-graph {arch}: {held}")
+            assert all(diff[k] <= 2 * spread[k] for k in diff), (diff,
+                                                                 spread)
+        else:
+            held = (f"every step's loss and grad_norm and the "
+                    f"{len(graphed['sums'])} parameter leaves' float64 "
+                    f"checksums graphed == eager bit for bit")
+        tokens = TRAIN_B * S
+        e_ms = statistics.median(eager["ms"][1:])
+        g_ms = statistics.median(graphed["ms"][WARMUP_RUNS + 1:])
+        log(f"phase train-graph {arch} B {TRAIN_B} x S {S}{cut}, "
+            f"microbatches {mb}, {steps} steps: eager {e_ms:.3f} ms/step ({tokens / e_ms * 1e3:.2f} "
+            f"tokens/s), graphed {g_ms:.3f} ms/step ({tokens / g_ms * 1e3:.2f} "
+            f"tokens/s; the replays' median); capture "
+            f"{graphed['capture_ms']:.3f} ms, warm-up calls "
+            f"{graphed['warmup_ms']:.3f} ms, the capture's call "
+            f"{graphed['ms'][WARMUP_RUNS]:.3f} ms; one more replayed "
+            f"step under the profiler: {n_kernels} device activities, "
+            f"busy "
+            + (f"{busy:.3f} ms, idle share {1 - busy / wall:.3f} of its "
+               f"{wall:.3f} ms, {1 - busy / g_ms:.3f} against the "
+               f"replays' median (the profiler's cost a kernel is in the "
+               f"first)" if busy > 0 else "not measured")
+            + f"; {held}; losses {graphed['loss']}; peak allocated eager "
+            f"{eager['peak']} B graphed {graphed['peak']} B, reserved "
+            f"eager {eager['reserved']} B graphed {graphed['reserved']} B; "
+            f"K1-K8 launches 0 [{card}] ({time.perf_counter() - t0:.2f} s)")
+    train_graph_small(torch, device, paths, card)
+    log(f"phase train-graph: {time.perf_counter() - t_phase:.2f} s")
+
+
+def train_graph_small(torch, device, paths, card):
+    """``phase train-graph`` at ``train-card-vs-cpu``'s sizes: for each
+    of ``TRAIN_CPU_ARCHS`` two eager runs and a graphed run of
+    ``GRAPH_SMALL_STEPS`` steps from copies of one float32 state, each
+    step with its own batch; every parameter, moment, the step and every
+    step's metrics of the graphed run equal to the first eager run's, or
+    within twice the two eager runs' difference tensor by tensor.  For
+    the first architecture the planted fault too."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models.model import Model
+    from repro_torch.training import (GraphedTrainStep, TrainState,
+                                      adamw_init, make_train_step)
+    from repro_torch.training.optimizer import tree_leaves
+    assert not torch.backends.cuda.matmul.allow_tf32
+    t_all = time.perf_counter()
+    for arch in TRAIN_CPU_ARCHS:
+        t0 = time.perf_counter()
+        cfg, params, layers = small_train_model(torch, device, arch)
+        model = Model(cfg)
+        ds = SyntheticLMDataset(cfg, TRAIN_CPU_B, (cfg.num_patch_tokens or 0)
+                                + TRAIN_CPU_S, TRAIN_CPU_SEED)
+        batches = [{k: torch.as_tensor(v, device=device)
+                    for k, v in ds.batch(i).items()}
+                   for i in range(GRAPH_SMALL_STEPS)]
+
+        def run(graphed=None):
+            """The final parameters, moments and step, then each step's
+            metrics (sorted by name) as one tensor a step."""
+            p = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                         params)
+            state = TrainState(p, adamw_init(p))
+            step = make_train_step(model, peak_lr=TRAIN_CPU_LR, warmup=0,
+                                   total_steps=10)
+            if graphed is not None:
+                step = graphed(step, device)
+            paths.reset()
+            metrics = []
+            for b in batches:
+                state, m = step(state, b)
+                metrics.append(torch.stack([m[k] for k in sorted(m)]))
+            no_launches(paths.read(), f"train-graph {arch}")
+            if graphed is not None:
+                assert step.graph is not None
+            return [t.detach() for t in tree_leaves(state.params)
+                    + tree_leaves(state.opt.mu) + tree_leaves(state.opt.nu)
+                    + [state.opt.step]] + metrics
+
+        def gaps(a, b):
+            return [float((x.double() - y.double()).abs().max())
+                    for x, y in zip(a, b)]
+
+        def losses(r):      # metrics sorted: aux, ce, grad_norm, loss, lr
+            return [float(m[3]) for m in r[-GRAPH_SMALL_STEPS:]]
+
+        first, second = run(), run()
+        spread = gaps(first, second)
+        got = gaps(run(GraphedTrainStep), first)
+        over = [(i, g, s) for i, (g, s) in enumerate(zip(got, spread))
+                if g > 2 * s]
+        equal = sum(g == 0 for g in got)
+        fault = ""
+        if arch == TRAIN_CPU_ARCHS[0]:
+            bound = 2 * max(abs(a - b) for a, b in zip(losses(first),
+                                                      losses(second)))
+            stale = max(abs(a - b) for a, b in zip(
+                losses(run(stale_batch_step())), losses(first)))
+            fault = (f"; planted fault (the static batch filled at the "
+                     f"first call only): loss max|d| {stale:.6e} against "
+                     f"the bound {bound:.6e}")
+            assert stale > bound, (stale, bound)
+        del second
+        log(f"phase train-graph {arch}: {layers} layers at full width, "
+            f"float32, B {TRAIN_CPU_B} x S {TRAIN_CPU_S}, "
+            f"{GRAPH_SMALL_STEPS} steps: {equal} of {len(got)} tensors "
+            f"(every parameter, both moments, step, each step's metrics) "
+            f"graphed == eager bit for bit; two eager runs' largest "
+            f"difference {max(spread):.6e}, graphed's {max(got):.6e} "
+            f"(bound: twice the eager difference, tensor by tensor)"
+            f"{fault}; K1-K8 launches 0 [{card}] "
+            f"({time.perf_counter() - t0:.2f} s)")
+        assert not over, (arch, over)
+        del params, first, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase train-graph small: {len(TRAIN_CPU_ARCHS)} architectures "
+        f"({time.perf_counter() - t_all:.2f} s)")
 
 
 def train_small(torch, paths, card):
@@ -3640,15 +3929,38 @@ def moe_bf16_check(torch, cfg, params, device):
         f"({time.perf_counter() - t0:.2f} s)")
 
 
+def small_train_model(torch, device, arch, check_moe=False):
+    """(cfg, params, layers): ``arch`` at full width, its depth cut to
+    2 layers (Whisper 2 encoder + 2 decoder; one group of 6 for Zamba2
+    and xLSTM), in float32, the MoE at
+    capacity factor E / k, from seed 0 on the card; with ``check_moe``
+    the MoE's bf16 expert products are checked first
+    (``moe_bf16_check``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, model_layout
+    cfg = get_config(arch)
+    layers = 6 if model_layout(cfg).kind in ("zamba", "xlstm") else 2
+    full = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                       device)
+    changes = dict(num_layers=layers,
+                   encoder_layers=layers if cfg.encoder_layers else 0)
+    if cfg.is_moe:
+        changes["capacity_factor"] = cfg.num_experts / cfg.experts_per_token
+        if check_moe:
+            moe_bf16_check(torch, cfg.replace(**changes),
+                           cut_depth(full, layers), device)
+    params = tree_map(lambda t: t.float(), cut_depth(full, layers))
+    return cfg.replace(dtype="float32", **changes), params, layers
+
+
 def train_card_vs_cpu(torch, np, device, paths):
     """``phase train-card-vs-cpu``: for each of ``TRAIN_CPU_ARCHS`` one
     ``make_train_step`` step from the same float32 parameters and zero
     moments on the card and on the CPU: loss, grad_norm, every gradient
     leaf (through the first moment) and every parameter after the step,
     each within its tolerance above."""
-    from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMDataset
-    from repro_torch.models.model import Model, init_params, model_layout
+    from repro_torch.models.model import Model
     from repro_torch.training import TrainState, adamw_init, make_train_step
     from repro_torch.training.optimizer import tree_items, tree_leaves
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -3656,20 +3968,8 @@ def train_card_vs_cpu(torch, np, device, paths):
     t_all = time.perf_counter()
     for arch in TRAIN_CPU_ARCHS:
         t0 = time.perf_counter()
-        cfg = get_config(arch)
-        layers = 6 if model_layout(cfg).kind in ("zamba", "xlstm") else 2
-        full = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                           device)
-        changes = dict(num_layers=layers,
-                       encoder_layers=layers if cfg.encoder_layers else 0)
-        if cfg.is_moe:
-            changes["capacity_factor"] = cfg.num_experts / \
-                cfg.experts_per_token
-            moe_bf16_check(torch, cfg.replace(**changes),
-                           cut_depth(full, layers), device)
-        card = tree_map(lambda t: t.float(), cut_depth(full, layers))
-        del full
-        cfg = cfg.replace(dtype="float32", **changes)
+        cfg, card, layers = small_train_model(torch, device, arch,
+                                              check_moe=True)
         model = Model(cfg)
         batch = SyntheticLMDataset(
             cfg, TRAIN_CPU_B, (cfg.num_patch_tokens or 0) + TRAIN_CPU_S,

@@ -1,12 +1,16 @@
 """CUDA-graph capture of the port's compiled forms, with launch accounting.
 
 The reference compiles its main path with ``jax.jit``: the arena program
-(``fn``, ``batched_fn``) and the LLM decode step are each one XLA
-executable.  On the card the counterpart is one captured CUDA graph:
-``capture(fn, device, what=...)`` runs ``fn`` twice on a side stream,
-then records one run of it into a ``torch.cuda.CUDAGraph``, and
-``CapturedGraph.replay()`` launches every kernel of that run again
-without the Python that issued them.
+(``fn``, ``batched_fn``), the LLM decode step and the train step are each
+one XLA executable.  On the card the counterpart is one captured CUDA
+graph: ``capture(fn, device, what=...)`` runs ``fn`` twice on a side
+stream, then records one run of it into a ``torch.cuda.CUDAGraph`` with
+a memory pool of its own, and ``CapturedGraph.replay()`` launches every
+kernel of that run again without the Python that issued them.  The train
+step (``training/graphed.py``) cannot be run twice for nothing — each run
+updates the parameters, moments and step in place — so it warms up on
+its own calls (``warm_up``, one run each, with that call's batch) and
+captures with ``warmup_runs=0``.
 
 The two warm-up runs make every one-time call happen outside the capture:
 the executor's host-to-device copies of operator constants, the kernels'
@@ -89,35 +93,52 @@ class CapturedGraph:
             wrapper.launches += k
 
 
-def _warm_up(fn: Callable[[], Any], device: torch.device) -> None:
+def _warm_up(fn: Callable[[], Any], device: torch.device,
+             runs: int = WARMUP_RUNS) -> Any:
+    """``runs`` runs of ``fn`` on a side stream; the last one's output."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
+    out = None
     with torch.cuda.stream(side):
-        for _ in range(WARMUP_RUNS):
-            fn()
+        for _ in range(runs):
+            out = fn()
     torch.cuda.current_stream(device).wait_stream(side)
+    return out
 
 
 def _record(fn: Callable[[], Any], device: torch.device):
-    """(graph, fn's output) of one run of ``fn`` recorded on the card."""
+    """(graph, fn's output) of one run of ``fn`` recorded on the card,
+    into a private memory pool (``torch.cuda.graph`` empties the
+    allocator's cache first)."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.device(device):
-        with torch.cuda.graph(graph, capture_error_mode=CAPTURE_MODE):
+        with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(),
+                              capture_error_mode=CAPTURE_MODE):
             out = fn()
     return graph, out
 
 
-def capture(fn: Callable[[], Any], device: torch.device, *,
-            what: str) -> CapturedGraph:
-    """Warm ``fn`` up and capture one run of it on ``device`` as a CUDA
-    graph; ``what`` names the program in errors."""
-    wrappers = kernel_wrappers()
-    t0 = time.perf_counter()
+def warm_up(fn: Callable[[], Any], device: torch.device, *, what: str,
+            runs: int = WARMUP_RUNS) -> Any:
+    """``runs`` warm-up runs of ``fn`` on a side stream of ``device``
+    (the one-time calls happen there, outside any capture); returns the
+    last run's output.  ``what`` names the program in errors."""
     try:
-        _warm_up(fn, device)
+        return _warm_up(fn, device, runs)
     except Exception as e:
         raise CaptureError(f"warm-up of {what} failed{_where(e)}: "
                            f"{type(e).__name__}: {e}") from e
+
+
+def capture(fn: Callable[[], Any], device: torch.device, *,
+            what: str, warmup_runs: int = WARMUP_RUNS) -> CapturedGraph:
+    """Warm ``fn`` up (``warmup_runs`` runs; 0 where the caller did) and
+    capture one run of it on ``device`` as a CUDA graph; ``what`` names
+    the program in errors."""
+    wrappers = kernel_wrappers()
+    t0 = time.perf_counter()
+    if warmup_runs:
+        warm_up(fn, device, what=what, runs=warmup_runs)
     t1 = time.perf_counter()
     before = {n: f.launches for n, f in wrappers.items()}
     try:
@@ -135,4 +156,4 @@ def capture(fn: Callable[[], Any], device: torch.device, *,
 
 
 __all__ = ["CAPTURE_MODE", "CapturedGraph", "WARMUP_RUNS", "capture",
-           "kernel_wrappers"]
+           "kernel_wrappers", "warm_up"]

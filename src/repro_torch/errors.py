@@ -70,10 +70,12 @@ class NaNActivationError(ReproError):
 
 class CaptureError(ReproError):
     """A compiled form (the arena program's ``fn``/``batched_fn``, the LLM
-    engine's decode step) could not be captured as a CUDA graph or
-    replayed, or holds an operator that runs host code.  The message names
-    the program and the operator or layer that was running.  Nothing runs
-    eagerly in its place."""
+    engine's decode step, the train step) could not be captured as a CUDA
+    graph or replayed, or holds an operator that runs host code, or was
+    asked for where a graph cannot hold it (the CPU; a mesh, whose
+    collectives go through the host).  The message names the program and
+    the operator or layer that was running.  Nothing runs eagerly in its
+    place."""
 
 
 class TraceError(ReproError):

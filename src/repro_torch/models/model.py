@@ -1612,7 +1612,11 @@ class Model:
 
         def run(body, *args):
             if remat:
-                return checkpoint(body, *args, use_reentrant=False)
+                # no body draws a random number (the reference has no
+                # dropout), and stashing the CUDA generator's state reads
+                # its seed and offset, which a graph capture refuses
+                return checkpoint(body, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
             return body(*args)
 
         def attend(p, x, ckv=None):
@@ -1704,8 +1708,10 @@ class Model:
         tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
         for c in range(n):
             sl = slice(c * chunk, (c + 1) * chunk)
+            # no random number drawn: nothing to stash (see _seq_stack)
             tot = tot + checkpoint(nll, x[:, sl], labels[:, sl], mask[:, sl],
-                                   head, use_reentrant=False)
+                                   head, use_reentrant=False,
+                                   preserve_rng_state=False)
             cnt = cnt + (mask if mesh is None else counts)[:, sl].sum()
         if mesh is not None:
             tot = full(tot)

@@ -51,7 +51,10 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
                     microbatches: int = 1, remat: bool = True
                     ) -> Callable[[TrainState, Dict[str, Any]], Any]:
     """Returns train_step(state, batch) -> (state, metrics): ``ce``,
-    ``aux``, ``grad_norm``, ``loss`` and ``lr``, 0-d tensors.  With
+    ``aux``, ``grad_norm``, ``loss`` and ``lr``, 0-d tensors, the plain
+    step (``training.GraphedTrainStep`` captures it on the card, where
+    the reference writes ``jax.jit``; it carries ``model`` and
+    ``microbatches`` as attributes for that).  With
     ``microbatches`` > 1 the batch splits along dim 0 into that many
     contiguous pieces (the reference's reshape); their gradients add up
     in float32 accumulators, and loss and gradients are divided by
@@ -97,6 +100,8 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
         metrics["lr"] = lr
         return TrainState(params, opt), metrics
 
+    # what GraphedTrainStep names in its errors and checks for a mesh
+    train_step.model, train_step.microbatches = model, microbatches
     return train_step
 
 

@@ -148,17 +148,35 @@ def test_decode_step_makes_no_host_read_and_stays_in_place(
 
 
 class _FakeGraph:
-    """A recorded run that replays nothing in Python, as on the card."""
+    """A recorded run.  Without ``fn`` it replays nothing in Python, as
+    on the card; with ``fn`` (the recorded program) and ``out`` (what the
+    recording returned) a replay reruns ``fn`` and copies every tensor of
+    its result into ``out``'s, as a replay rewrites the graph's output
+    tensors (tensors the program updates in place are ``out``'s
+    already)."""
     replays = 0
+
+    def __init__(self, fn=None, out=None):
+        self.fn, self.out = fn, out
 
     def replay(self):
         _FakeGraph.replays += 1
+        if self.fn is not None:
+            new = torch.utils._pytree.tree_leaves(self.fn())
+            old = torch.utils._pytree.tree_leaves(self.out)
+            assert len(new) == len(old)
+            with torch.no_grad():
+                for o, n in zip(old, new):
+                    if isinstance(o, torch.Tensor) and o is not n:
+                        o.copy_(n)
 
 
 def _fake_cuda(monkeypatch, record=None):
-    def warm_up(fn, device):
-        for _ in range(cuda_graphs.WARMUP_RUNS):
-            fn()
+    def warm_up(fn, device, runs=cuda_graphs.WARMUP_RUNS):
+        out = None
+        for _ in range(runs):
+            out = fn()
+        return out
 
     def plain_record(fn, device):
         return _FakeGraph(), fn()

@@ -43,6 +43,7 @@ def test_import_leaves_jax_and_the_reference_out():
             "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
             "repro_torch.models.runtime, repro_torch.models.sharding, "
             "repro_torch.training, repro_torch.training.checkpoint, "
+            "repro_torch.training.graphed, repro_torch.cuda_graphs, "
             "repro_torch.serving.sharded, "
             "repro_torch.serving.admission, repro_torch.core.fx_reorder, "
             "repro_torch.core.fx_partial\n"

@@ -402,23 +402,47 @@ def test_bf16_checkpoint_of_the_reference_restores_bit_for_bit(tmp_path):
             assert a[k].tobytes() == b[k].tobytes(), k
 
 
-def test_train_step_makes_no_host_read(monkeypatch):
-    """One step of Granite-MoE (two microbatches, remat) and one of
-    Whisper under the dispatch mode that fails on a host read, a
-    data-dependent shape or host data copied in: the loss, the backward
-    and the update.  The batch is already on the device."""
-    for arch, mb in (("granite-moe-1b-a400m@smoke", 2),
-                     ("whisper-large-v3@smoke", 1)):
-        cfg = get_config(arch)
-        state = train_state_init(cfg, torch.Generator().manual_seed(5),
-                                 "cpu")
-        batch = {k: torch.as_tensor(v) for k, v in
-                 SyntheticLMDataset(cfg, 4, 16, seed=5).batch(0).items()}
-        step = make_train_step(Model(cfg), microbatches=mb, warmup=0)
-        with no_host_reads(monkeypatch):
-            state, m = step(state, batch)
-        assert all(torch.isfinite(v) for v in m.values())
-        assert int(state.opt.step) == 1
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_makes_no_host_read(arch, microbatches, monkeypatch):
+    """One step of each smoke architecture, with one and two
+    microbatches and remat, under the dispatch mode that fails on a host
+    read, a data-dependent shape or host data copied in: the loss, the
+    backward and the update, all of which the captured step replays.
+    The batch is already on the device."""
+    cfg = get_config(arch)
+    state = train_state_init(cfg, torch.Generator().manual_seed(5), "cpu")
+    batch = {k: torch.as_tensor(v) for k, v in
+             SyntheticLMDataset(cfg, 4, 16, seed=5).batch(0).items()}
+    step = make_train_step(Model(cfg), microbatches=microbatches, warmup=0,
+                           remat=True)
+    with no_host_reads(monkeypatch):
+        state, m = step(state, batch)
+    assert all(torch.isfinite(v) for v in m.values())
+    assert int(state.opt.step) == 1
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_never_stashes_the_rng_state(arch, monkeypatch):
+    """The checkpointed bodies (a layer or a group, and each CE chunk)
+    draw no random number, so they do not stash the generators' state:
+    on the card that reads the CUDA generator's seed and offset
+    (``torch.utils.checkpoint.get_device_states``), which a graph
+    capture refuses.  With CUDA taken as initialised, a step with remat
+    never reaches it, nor the CPU generator's state."""
+    import torch.utils.checkpoint as ckpt
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a checkpointed body stashed an RNG state")
+    cfg = get_config(arch)
+    state = train_state_init(cfg, torch.Generator().manual_seed(5), "cpu")
+    batch = SyntheticLMDataset(cfg, 2, 16, seed=5).batch(0)
+    step = make_train_step(Model(cfg), warmup=0, remat=True)
+    monkeypatch.setattr(torch.cuda, "_initialized", True)
+    monkeypatch.setattr(ckpt, "get_device_states", refuse)
+    monkeypatch.setattr(torch, "get_rng_state", refuse)
+    state, m = step(state, batch)
+    assert torch.isfinite(m["loss"]) and int(state.opt.step) == 1
 
 
 def test_the_launcher_has_no_production_mesh():
