@@ -120,6 +120,17 @@ after (the launches of the kernel checks above do not count):
   continuation at full depth and card vs CPU at two layers, both in
   float32 on the data pipeline's seeded frames / patches
   (``CROSS_CONT_TOL``, ``CROSS_CPU_TOL``), and the reordered step;
+* ``phase llm-dense`` and ``phase llm-phi-moe``, after those are freed,
+  one model at a time: Qwen2-7B (28 layers, H 28 / K 4, QKV bias),
+  GLM-4-9B (40, H 32 / K 2: K8 in two chunks of 8 query heads a kv head)
+  and Phi-3-medium-14B (40, H 40 / K 10) at full width and depth, then
+  Phi-3.5-MoE (16 experts top 2) at full width and depth 8 of 32, bf16,
+  each through the launcher's weights and engine with the short mix (its
+  block bytes, ``DENSE_MIXES`` / ``PHI_MOE_MIX``), ``phase graphs
+  llm-*``, the reordered step at cache 96, card vs CPU at two layers and
+  the continuation, both in float32 (the weights widened in place;
+  ``DENSE_CONT_TOL``, ``DENSE_CPU_TOL``, Phi-3.5-MoE as Granite), and K8
+  timed at GLM-4-9B's group at the long mix's shape (``K8_GLM``);
 * ``phase train``, after every serving model is freed: ``phase
   train-llama`` runs ``repro_torch.launch.train``'s ``main --eager`` on
   Llama-3.2-3B at full width and depth (bf16, B 4 x S 1 024, remat, 6
@@ -356,6 +367,42 @@ CROSS_MIXES = (("whisper-large-v3",
 # against the chunked path, 1e-3, as SSM_CPU_TOL.
 CROSS_CONT_TOL, CROSS_CPU_TOL = 2e-3, 1e-3
 CROSS_WHISPER_FRAMES = 1500     # encoder_seq: the rows of its cross cache
+# ---- the dense decoders (phase llm-dense), after the cross-attention ones
+# are freed, one at a time, at full width and depth, random bf16 weights
+# drawn on the card by the launcher, the short mix as LLM_MIXES', with the
+# bytes of a request's block (k + v = 2*L*96*K*128*2 B + pos + kv_pos):
+# Qwen2-7B (28 layers, H 28 / K 4, QKV bias; 15.23 GB), GLM-4-9B (40, H 32
+# / K 2: a group of 16, K8 in two chunks of 8 heads; 18.80 GB) and
+# Phi-3-medium-14B (40, H 40 / K 10; 29.32 GB)
+DENSE_MIXES = (("qwen2-7b", ("dense-qwen2", 8, None, 12, 4, 96, 5_505_412)),
+               ("glm4-9b", ("dense-glm4", 8, None, 12, 4, 96, 3_932_548)),
+               ("phi3-medium-14b",
+                ("dense-phi3", 8, None, 12, 4, 96, 19_661_188)))
+# Their checks run in float32 (TF32 off): in bf16 Llama's 28-layer
+# continuation came to 2.041e-02 of CONT_TOL's 3e-2 on an H100 (PERF.md),
+# and these have up to 40 layers.  The weights are the served bf16 ones
+# widened exactly, in place a leaf at a time after the serve (Phi-3-medium
+# is 58.64 GB in float32: beside its bf16 copy it would not fit 80 GB);
+# Qwen2's QKV biases, zeros as the launcher draws them, get seeded values
+# (DENSE_BIAS_STD) first, so that the checks see them.
+# Continuation at full depth: the prefill of t tokens runs K7 and the step
+# after a prefill of t-1 runs K8, each within F32_ATTN (2e-5 of
+# max|want|) of plain attention, the GEMMs sum in other orders (~1e-7
+# relative); if every layer's error adds, 40 attentions move a logit by at
+# most ~8e-4 of its scale: 2e-3 * max|logit|, as CROSS_CONT_TOL.  Card vs
+# CPU at 2 layers, full width: cuBLAS against MKL and the kernels against
+# the chunked path, 1e-3, as CROSS_CPU_TOL.
+DENSE_CONT_TOL, DENSE_CPU_TOL, DENSE_BIAS_STD = 2e-3, 1e-3, 0.5
+# ---- the MoE decoder Phi-3.5-MoE (phase llm-phi-moe), after the dense
+# ones: full width (d 4096, H 32 / K 8, 16 experts top 2 of d_ff 6 400),
+# depth cut to 8 of its 32 layers (83.75 GB in bf16 at 32 does not fit one
+# 80 GB card; 21.33 GB at 8), random bf16 weights drawn on the card as
+# the launcher draws them (torch.Generator seed 0), the short mix with the
+# block of 2*8*96*8*128*2 B + pos + kv_pos.  Its checks follow
+# Granite's (MOE_CONT_TOL at capacity factor E/k, over the 8 served
+# layers; MOE_CPU_TOL at the configured 1.25, 2 layers), in float32.
+PHI_MOE_ARCH, PHI_MOE_LAYERS = "phi3.5-moe-42b-a6.6b", 8
+PHI_MOE_MIX = ("phi-moe", 8, None, 12, 4, 96, 3_146_116)
 # ---- sliding-window attention (phase llm-window), after Llama's phases:
 # Llama-3.2-3B at full width and depth, bf16, random weights drawn on the
 # card from WINDOW_SEED, at launch/shapes.py's long_500k config (window
@@ -459,6 +506,10 @@ TRAIN_GRAD_TOL = 1e-3
 # of two float32 values that differ in the last float32 bits.
 F32_ATTN, BF16_ATTN_ABS = 2e-5, 1e-6
 K8_CACHES = 6       # K8 is timed over this many caches in turn (see timing)
+# K8 at GLM-4-9B's group of 16 (two chunks of 8 query heads, each reading
+# the kv head's rows), timed at the long mix's shape: (B, S, H, K, D,
+# lengths), bf16
+K8_GLM = (4, 2048, 32, 2, 128, (1039, 2048, 700, 1))
 # hostile K7 shapes (B, Sq, Skv, H, K, D, causal, packed): S 1 / 17 / 1000,
 # GQA 1, 3 and 4, D 64 / 96 / 128, Sq < Skv, non-causal; `packed` reads
 # q/k/v as strided slices of one [B, S, H+2K, D] projection
@@ -504,11 +555,11 @@ HOSTILE_K7_WINDOW = [(1, 17, 17, 2, 2, 64, 1, False),
                      (1, 1000, 1000, 14, 2, 64, 300, False),
                      (1, 2048, 2048, 24, 8, 128, 512, True)]
 # hostile K8 shapes (B, S, H, K, D, lengths, strided): caches of 96 and
-# 2048 rows, lengths 1, S and between, GQA 1, 3 and 4; `strided` caches are
-# views of a longer cache, MISALIGNED ones start one element into it (no
-# 16-byte load: the scalar path).  The split-K edges: length 1 with the
-# largest split (B 1, 8 kv heads: 8 blocks a row), lengths below the split,
-# D 40 and 96
+# 2048 rows, lengths 1, S and between, GQA 1, 3, 4, 12, 16, 20 and 32;
+# `strided` caches are views of a longer cache, MISALIGNED ones start one
+# element into it (no 16-byte load: the scalar path).  The split-K edges:
+# length 1 with the largest split (B 1, 8 kv heads: 8 blocks a row),
+# lengths below the split, D 40 and 96
 MISALIGNED = "misaligned"
 HOSTILE_K8 = [(1, 96, 8, 8, 128, (1,), False),
               (4, 2048, 24, 8, 128, (1, 1039, 2048, 700), False),
@@ -527,7 +578,16 @@ HOSTILE_K8 = [(1, 96, 8, 8, 128, (1,), False),
               (2, 2048, 4, 4, 80, (2048, 17), True),
               (3, 300, 8, 8, 80, (300, 1, 129), MISALIGNED),
               # Whisper's cross cache: every row of 1 500 frames, H = K
-              (4, 1500, 20, 20, 64, (1500,) * 4, False)]
+              (4, 1500, 20, 20, 64, (1500,) * 4, False),
+              # groups above 8 (K8 in chunks of at most 8 heads a kv
+              # head): GLM-4-9B's 16 with ragged lengths; 12, which a naive
+              # split leaves 8 + 4 (chunks 6 + 6); 20 (chunks 6, 7 and 7);
+              # 32 on a strided cache; 16 misaligned (the scalar path)
+              (4, 2048, 32, 2, 128, (1039, 2048, 700, 1), False),
+              (2, 300, 24, 2, 64, (300, 17), False),
+              (1, 96, 20, 1, 80, (96,), False),
+              (2, 1024, 32, 1, 128, (1024, 333), True),
+              (2, 512, 32, 2, 128, (500, 3), MISALIGNED)]
 # test_torch_qconv.py's hostile shapes: odd H/W, 1-lane channels, stride
 # 2, asymmetric pads (H, W, Cin, Cout, k, stride, hpad, wpad; Cout=0 for
 # depthwise)
@@ -2220,7 +2280,8 @@ class AttentionChecks:
             f"D{D} {dtype} lengths {sorted(set(lengths.tolist()))} (L2 "
             f"cold): " + "; ".join(f"split {n}: kernel_ms {e:.5f}, "
                                    f"device_ms {dev(t)}" for n, e, t in times)
-            + f"; planned {dec._plan(B, K, S, self.device.index or 0)}, "
+            + f"; planned {dec._plan(B, K * dec.plan_chunks(H // K), S,
+                                    self.device.index or 0)}, "
             f"mismatches {self.mismatches['decode_attention']} [{card}]")
 
 
@@ -2261,11 +2322,13 @@ class Llm:
     attention, K8 on every decode attention: Llama-3.2-3B (``LLM_ARCH``),
     the MoE decoder Granite-3.0-1B-A400M (``MOE_ARCH``), a recurrent
     decoder of ``SSM_MIXES`` (Zamba2: one attention a group; xLSTM:
-    none), or a model of ``CROSS_MIXES`` (Whisper: the encoder and cross
-    attention too; InternVL2: the patch rows in every prefill)."""
+    none), a model of ``CROSS_MIXES`` (Whisper: the encoder and cross
+    attention too; InternVL2: the patch rows in every prefill), a dense
+    decoder of ``DENSE_MIXES`` or Phi-3.5-MoE at a cut depth
+    (``layers``)."""
 
     def __init__(self, torch, np, device, paths, attn, card, arch=LLM_ARCH,
-                 mix=LLM_MIXES[0], shape=None, seed=0):
+                 mix=LLM_MIXES[0], shape=None, seed=0, layers=None):
         from repro_torch.configs import get_config
         from repro_torch.launch import serve as launch_serve
         from repro_torch.launch.shapes import config_for_shape
@@ -2275,14 +2338,19 @@ class Llm:
         self.launch_serve = launch_serve
         t0 = time.perf_counter()
         self.cfg = get_config(arch)
-        if shape is None:
+        full_depth = self.cfg.num_layers
+        if shape is None and layers is None:
             # the launcher's own engine: random bf16 weights drawn on the
             # card (seed 0)
             self.params = launch_serve.build_engine(
                 arch, max_batch=mix[4], cache_len=mix[5],
                 device=device).params
-        else:       # the shape's config, weights drawn from ``seed``
-            self.cfg = config_for_shape(self.cfg, shape)
+        else:       # the shape's config or a cut depth, weights drawn from
+            # ``seed`` as the launcher draws them
+            if shape is not None:
+                self.cfg = config_for_shape(self.cfg, shape)
+            if layers is not None:
+                self.cfg = self.cfg.replace(num_layers=layers)
             self.params = init_params(
                 self.cfg, torch.Generator(device=device).manual_seed(seed),
                 device)
@@ -2308,8 +2376,12 @@ class Llm:
         if self.cfg.sliding_window:
             moe += (f", {shape}'s sliding window {self.cfg.sliding_window}, "
                     f"weights seed {seed}")
-        log(f"phase llm-init: {arch} ({self.cfg.num_layers} layers, d "
-            f"{self.cfg.d_model}, {self.cfg.num_heads} heads / "
+        if self.cfg.qkv_bias:
+            moe += ", QKV bias"
+        depth = (f" (depth {layers} of {full_depth})" if layers is not None
+                 else "")
+        log(f"phase llm-init: {arch} ({self.cfg.num_layers} layers{depth}, "
+            f"d {self.cfg.d_model}, {self.cfg.num_heads} heads / "
             f"{self.cfg.num_kv_heads} kv heads of {self.cfg.head_dim_}, "
             f"d_ff {self.cfg.d_ff}{moe}, vocab {self.cfg.vocab_size}, "
             f"{self.cfg.dtype}): {n} parameters drawn on the card, "
@@ -2515,12 +2587,36 @@ class Llm:
     def _padded(self, batch):
         return padded(self.np, batch)
 
-    def float32(self, **changes):
+    def float32(self, layers=None, **changes):
         """(config, parameters) of this model in float32 — the same
-        weights, widened exactly — with ``changes`` to the config."""
+        weights, widened exactly — with ``changes`` to the config; with
+        ``layers``, of its first ``layers`` layers only (``cut_depth``)."""
         assert not self.torch.backends.cuda.matmul.allow_tf32
-        params = tree_map(lambda t: t.to(self.torch.float32), self.params)
+        params = self.params
+        if layers is not None:
+            params = cut_depth(params, layers)
+            changes["num_layers"] = layers
+        params = tree_map(lambda t: t.to(self.torch.float32), params)
         return self.cfg.replace(dtype="float32", **changes), params
+
+    def widen(self):
+        """This model in float32 from here on: each leaf replaced by its
+        exact float32 widening, one leaf at a time, so the bf16 and the
+        float32 weights are never both whole on the card (Phi-3-medium:
+        29.32 + 58.64 GB).  Nothing else may hold the bf16 leaves (serve
+        and reorder run before)."""
+        assert not self.torch.backends.cuda.matmul.allow_tf32
+
+        def walk(tree):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(v)
+                else:
+                    tree[k] = v.to(self.torch.float32)
+        walk(self.params)
+        self.cfg = self.cfg.replace(dtype="float32")
+        self.torch.cuda.synchronize()
+        self.torch.cuda.empty_cache()
 
     def continuation(self, label="llm", cfg=None, params=None,
                      tol=CONT_TOL):
@@ -2552,13 +2648,15 @@ class Llm:
         assert torch.isfinite(full).all() and torch.isfinite(dec).all()
         err = float((dec - full).abs().max())
         scale = float(full.abs().max())
-        log(f"phase {label}-continuation: B 2, t {CONT_T}, {cfg.dtype}"
+        log(f"phase {label}-continuation: B 2, t {CONT_T}, {cfg.dtype}, "
+            f"{cfg.num_layers} layers"
             + (f", capacity factor {cfg.capacity_factor}" if cfg.is_moe
                else "")
             + f": max|decode(t) - prefill(t)| {err:.3e} of max|logit| "
             f"{scale:.5f} (ratio {err / scale:.3e}, tolerance {tol}); "
             f"launches {launches} ({time.perf_counter() - t0:.2f} s)")
         assert err <= tol * scale, (err, scale)
+        return err / scale
 
     def card_vs_cpu(self, label="llm", cfg=None, params=None, tol=CPU_TOL,
                     layers=CPU_LAYERS, prompt=CPU_S, n_steps=CPU_STEPS):
@@ -2612,6 +2710,7 @@ class Llm:
             + f" (tolerance {tol}); launches {launches} "
             f"({time.perf_counter() - t0:.2f} s)")
         assert max(ratios) <= tol, ratios
+        return max(ratios)
 
     def window_continuation(self, eng, reqs, results):
         """ROADMAP R8's check on the card: each served request's prompt
@@ -3437,6 +3536,123 @@ def dryrun_phase(procs, out):
         f"phase llm-mesh")
 
 
+def _served(m, mix):
+    """``m.serve(*mix)`` then ``m.graphs`` on it: a summary of the serve
+    for the phase's line, the engine itself dropped (its captured step
+    holds the weights and a cache).  The graphed decode ms/step stands
+    beside the step's bytes bound: every weight read once (the MoE's
+    batched experts read all of theirs; a step reads one row of the
+    embedding table a token, not counted) and the K/V rows of the
+    longest request's last step in every layer and row of the batch, at
+    the card's HBM rate (``h100()``)."""
+    eng, reqs, results, *rest = m.serve(*mix)
+    m.graphs(mix[0], eng, reqs, results, *rest)
+    cfg, B = m.cfg, mix[4]
+    steps = sum(max(r.max_new_tokens for r in reqs[i:i + B]) - 1
+                for i in range(0, len(reqs), B))
+    dec_ms = sum(results[i].decode_ms for i in range(0, len(reqs), B)) \
+        / steps
+    wbytes = sum(t.numel() * t.element_size() for t in m._leaves(m.params))
+    emb = m.params["embed"]
+    wbytes -= emb.numel() * emb.element_size()
+    rows = max(len(r.prompt) + r.max_new_tokens - 1 for r in reqs)
+    kv = (2 * cfg.num_layers * B * rows * cfg.num_kv_heads * cfg.head_dim_
+          * emb.element_size())
+    bound = (wbytes + kv) / h100().hbm_bw * 1e3
+    return (f"served block_bytes {eng.block_bytes} B, kv_arena_peak_bytes "
+            f"{eng.stats.kv_arena_peak_bytes} B; graphed decode "
+            f"{dec_ms:.3f} ms/step against a bytes bound of {bound:.4f} ms "
+            f"({(wbytes + kv) / 1e9:.3f} GB: weights but the embedding "
+            f"table, {rows} K/V rows)")
+
+
+def dense_phase(torch, np, device, paths, attn, card):
+    """``phase llm-dense``: each model of ``DENSE_MIXES`` at full width
+    and depth, one at a time, each freed before the next: the short mix
+    through the launcher's engine (its block bytes, K7 once a layer a
+    prefill, K8 once a layer a step), ``phase graphs``, the L1 report and
+    the reordered step at cache 96, then in float32 (``DENSE_*_TOL``)
+    card vs CPU at two layers and, the weights widened in place, the
+    continuation at full depth.  Then K8 timed at GLM-4-9B's group of 16
+    at the long mix's shape (``K8_GLM``) beside its bytes bound."""
+    from repro_torch.kernels.decode_attention.ops import plan_chunks
+    t_phase = time.perf_counter()
+    for arch, mix in DENSE_MIXES:
+        t0 = time.perf_counter()
+        m = Llm(torch, np, device, paths, attn, card, arch=arch, mix=mix)
+        cfg, label = m.cfg, f"llm-{mix[0]}"
+        served = _served(m, mix)
+        m.reorder(label, mix[5:6])
+        if cfg.qkv_bias:    # the launcher's zeros: seeded values instead
+            gen = torch.Generator(device=device).manual_seed(0)
+            for n in ("bq", "bk", "bv"):
+                b = m.params["blocks"][n]
+                b.copy_(DENSE_BIAS_STD * torch.randn(
+                    b.shape, generator=gen, device=device))
+        cpu = m.card_vs_cpu(label, *m.float32(layers=CPU_LAYERS),
+                            tol=DENSE_CPU_TOL)
+        gc.collect()
+        m.widen()
+        cont = m.continuation(label, tol=DENSE_CONT_TOL)
+        group = cfg.num_heads // cfg.num_kv_heads
+        log(f"phase llm-dense {arch}: {cfg.num_layers} layers (full depth),"
+            f" d {cfg.d_model}, H {cfg.num_heads} / K {cfg.num_kv_heads} of "
+            f"{cfg.head_dim_} (group {group}: K8 in {plan_chunks(group)} "
+            f"chunk(s) of heads a kv head), QKV bias {cfg.qkv_bias}"
+            + (f" (std {DENSE_BIAS_STD} in the float32 checks)"
+               if cfg.qkv_bias else "")
+            + f"; {served}; continuation ratio {cont:.3e} (tolerance "
+            f"{DENSE_CONT_TOL}, "
+            f"float32, full depth); card vs CPU ratio {cpu:.3e} (tolerance "
+            f"{DENSE_CPU_TOL}, float32, {CPU_LAYERS} layers); K7 "
+            f"{m.n_k7}/prefill, K8 {m.n_k8}/step [{card}] "
+            f"({time.perf_counter() - t0:.2f} s)")
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    B, S, H, K, D, lengths = K8_GLM
+    attn.timing("decode_attention", card, label="GLM-4-9B group 16 (2 "
+                "chunks) at the long mix's shape", config=(
+                    (B, H, D), (B, S, K, D), torch.bfloat16,
+                    torch.tensor(lengths, dtype=torch.int32)))
+    log(f"phase llm-dense: {time.perf_counter() - t_phase:.2f} s")
+
+
+def phi_moe_phase(torch, np, device, paths, attn, card):
+    """``phase llm-phi-moe``: Phi-3.5-MoE at full width, its depth cut to
+    ``PHI_MOE_LAYERS`` of 32, as ``phase llm-moe`` runs Granite: the
+    short mix, ``phase graphs``, the reordered step at cache 96, card vs
+    CPU at two layers in float32 (capacity factor 1.25) and, the weights
+    widened in place, the continuation over the 8 layers at capacity
+    factor E/k."""
+    t0 = time.perf_counter()
+    m = Llm(torch, np, device, paths, attn, card, arch=PHI_MOE_ARCH,
+            mix=PHI_MOE_MIX, layers=PHI_MOE_LAYERS)
+    cfg, label = m.cfg, f"llm-{PHI_MOE_MIX[0]}"
+    served = _served(m, PHI_MOE_MIX)
+    m.reorder(label, PHI_MOE_MIX[5:6])
+    cpu = m.card_vs_cpu(label, *m.float32(layers=CPU_LAYERS),
+                        tol=MOE_CPU_TOL)
+    gc.collect()
+    E, k = cfg.num_experts, cfg.experts_per_token
+    m.widen()
+    cont = m.continuation(label, m.cfg.replace(capacity_factor=E / k),
+                          m.params, tol=MOE_CONT_TOL)
+    log(f"phase llm-phi-moe {PHI_MOE_ARCH}: full width (d {cfg.d_model}, H "
+        f"{cfg.num_heads} / K {cfg.num_kv_heads} of {cfg.head_dim_}, {E} "
+        f"experts top {k} of d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"depth {cfg.num_layers} of 32; {served}; continuation ratio "
+        f"{cont:.3e} "
+        f"(tolerance {MOE_CONT_TOL}, float32, {cfg.num_layers} layers, "
+        f"capacity factor {E / k}); card vs CPU ratio {cpu:.3e} (tolerance "
+        f"{MOE_CPU_TOL}, float32, {CPU_LAYERS} layers, capacity factor "
+        f"{cfg.capacity_factor}); K7 {m.n_k7}/prefill, K8 {m.n_k8}/step "
+        f"[{card}] ({time.perf_counter() - t0:.2f} s)")
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def train_phase(torch, np, device, paths, card):
     """``phase train``: a full-width training run of Llama-3.2-3B through
     the launcher, the step as a CUDA graph against the eager step, the
@@ -4260,6 +4476,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         log(f"phase {label}: {time.perf_counter() - t0:.2f} s")
+    # the dense decoders and Phi-3.5-MoE, one at a time, the earlier
+    # models freed
+    dense_phase(torch, np, device, paths, attn, card)
+    phi_moe_phase(torch, np, device, paths, attn, card)
     train_phase(torch, np, device, paths, card)
     t0 = time.perf_counter()
     n_main = attn.main_path()

@@ -14,10 +14,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 DECODE_ATTENTION = KernelSet(Path(__file__).resolve().parent / "csrc", {
     # q, k_cache, v_cache, lengths, out, B, H, K, S, D, q (batch, head)
     # strides, k/v (batch, seq, head) strides in elements, scale, dtype,
-    # split (ops.plan_split), the 16-byte path or not, device, stream
+    # chunks (ops.plan_chunks), split (ops.plan_split), the 16-byte path
+    # or not, device, stream
     "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _L, _L, _L, _L, _L, _L, _L, _L,
-                         _F, _I, _I, _I, _I, _P],
+                         _F, _I, _I, _I, _I, _I, _P],
 })
 
 __all__ = ["DECODE_ATTENTION"]

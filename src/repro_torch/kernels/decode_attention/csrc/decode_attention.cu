@@ -9,14 +9,22 @@
 //
 // What bounds it on the H100: bytes.  A step reads each valid K and V row
 // once (B 4, ~1 040 rows, 8 kv heads of 128 in bf16: ~17 MB, ~5 us at
-// 3.35 TB/s) and does ~2 flops per byte.  Reaching that rate takes every
-// SM and tens of KB in flight on each.
+// 3.35 TB/s) and does 4 * D flops per query head over the row's 4 * D
+// bytes in bf16: G = H/K flops a byte, at most 16 (GLM-4-9B), below the
+// ~20 a byte where float32 on the CUDA cores (67 TFLOP/s) would bound it.
+// Reaching that rate takes every SM and tens of KB in flight on each.
 //
 // What the design does about it:
-// - One cluster of `split` blocks per (batch row, kv head) serves all H/K
-//   query heads of that kv head, so each K/V row leaves device memory once
-//   per step.  `split` (<= 8, a portable cluster) is planned on the host
-//   from B, K and the cache's capacity S (ops.plan_split), never from
+// - One cluster of `split` blocks per (batch row, kv head, chunk) serves
+//   the chunk's query heads of that kv head, so each K/V row leaves device
+//   memory once per chunk and step.  A kv head's G = H/K query heads fall
+//   into `chunks` = ceil(G / 8) chunks of ceil or floor G / chunks heads
+//   (ops.plan_chunks; GLM-4-9B's 16: 8 + 8), since a lane keeps every
+//   head's accumulators in registers (the template's G, at most 8: ptxas
+//   already reports up to 250 registers a thread at 8).  A group of 8 or
+//   fewer is one chunk, and K/V rows leave device memory once per step.
+//   `split` (<= 8, a portable cluster) is planned on the host from B,
+//   K * chunks and the cache's capacity S (ops.plan_split), never from
 //   `lengths`, which stays on the card: no host sync.  Block p of the
 //   cluster takes rows [p * c, min(len, (p + 1) * c)) of the valid prefix,
 //   c = ceil(len / split), len = lengths[b] read on the device; a block
@@ -119,7 +127,8 @@ __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc,
                         const int* __restrict__ lengths, T* __restrict__ out,
-                        int H, int S, int D, long long q_bs, long long q_hs,
+                        int H, int S, int D, int chunks, long long q_bs,
+                        long long q_hs,
                         long long k_bs, long long k_ss, long long k_hs,
                         long long v_bs, long long v_ss, long long v_hs,
                         float scale) {
@@ -132,7 +141,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   __shared__ float blk_m[G], blk_l[G];
 
   const int split = gridDim.x, rank = blockIdx.x;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.y / chunks, chunk = blockIdx.y % chunks;
+  const int b = blockIdx.z;
+  // this chunk's query heads h0 .. h0 + gn - 1 (gn <= G) of the kv head's
+  // group of H / K; heads gn .. G - 1 of the registers stay unused
+  const int group = H / (gridDim.y / chunks);
+  const int c0 = chunk * group / chunks, c1 = (chunk + 1) * group / chunks;
+  const int h0 = kvh * group + c0, gn = c1 - c0;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int half = tid / 16, j = tid % 16;
   const int len = max(0, min(lengths[b], S));
@@ -184,13 +199,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   float qr[G][EPL], acc[G][EPL], m[G], l[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const T* qg = q + b * q_bs + (long long)(kvh * G + g) * q_hs;
+    const T* qg = q + b * q_bs + (long long)(h0 + g) * q_hs;
     m[g] = MASKED;
     l[g] = 0.0f;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       const int d = EPL * j + e;
-      qr[g][e] = d < D ? __fmul_rn(to_f32(qg[d]), scale) : 0.0f;
+      qr[g][e] = d < D && g < gn ? __fmul_rn(to_f32(qg[d]), scale) : 0.0f;
       acc[g][e] = 0.0f;
     }
   }
@@ -301,7 +316,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     cluster.sync();
   else
     __syncthreads();
-  for (int e = rank * THREADS + tid; e < G * D; e += split * THREADS) {
+  for (int e = rank * THREADS + tid; e < gn * D; e += split * THREADS) {
     const int g = e / D, d = e % D;
     float pm[MAX_SPLIT], pl[MAX_SPLIT], pa[MAX_SPLIT];
 #pragma unroll
@@ -325,7 +340,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         den = fmaf(pl[p], c, den);
         num = fmaf(pa[p], c, num);
       }
-    store(out + ((long long)b * H + kvh * G + g) * D + d,
+    store(out + ((long long)b * H + h0 + g) * D + d,
           num / fmaxf(den, 1e-30f));
   }
   if (split > 1) cluster.sync();   // no block leaves while another reads it
@@ -333,12 +348,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
 template <typename T, int G, bool VEC>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* out, int B, int H, int K, int S, int D, long long q_bs,
-           long long q_hs, long long k_bs, long long k_ss, long long k_hs,
-           long long v_bs, long long v_ss, long long v_hs, float scale,
-           int split, cudaStream_t stream) {
+           void* out, int B, int H, int K, int S, int D, int chunks,
+           long long q_bs, long long q_hs, long long k_bs, long long k_ss,
+           long long k_hs, long long v_bs, long long v_ss, long long v_hs,
+           float scale, int split, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, K, B);
+  cfg.gridDim = dim3(split, K * chunks, B);
   cfg.blockDim = dim3(THREADS);
   cfg.stream = stream;
   cudaLaunchAttribute cluster[1];
@@ -350,25 +365,26 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   cfg.numAttrs = split > 1 ? 1 : 0;
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, decode_attention_kernel<T, G, VEC>, (const T*)q, (const T*)k,
-      (const T*)v, (const int*)lengths, (T*)out, H, S, D, q_bs, q_hs, k_bs,
-      k_ss, k_hs, v_bs, v_ss, v_hs, scale);
+      (const T*)v, (const int*)lengths, (T*)out, H, S, D, chunks, q_bs,
+      q_hs, k_bs, k_ss, k_hs, v_bs, v_ss, v_hs, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// the template's G: the largest chunk's heads, ceil((H / K) / chunks)
 template <typename T, bool VEC>
 int launch_groups(const void* q, const void* k, const void* v,
                   const void* lengths, void* out, int B, int H, int K, int S,
-                  int D, long long q_bs, long long q_hs, long long k_bs,
-                  long long k_ss, long long k_hs, long long v_bs,
-                  long long v_ss, long long v_hs, float scale, int split,
-                  cudaStream_t s) {
+                  int D, int chunks, long long q_bs, long long q_hs,
+                  long long k_bs, long long k_ss, long long k_hs,
+                  long long v_bs, long long v_ss, long long v_hs, float scale,
+                  int split, cudaStream_t s) {
 #define K8_CASE(G)                                                          \
   case G:                                                                  \
-    return launch<T, G, VEC>(q, k, v, lengths, out, B, H, K, S, D, q_bs,   \
-                             q_hs, k_bs, k_ss, k_hs, v_bs, v_ss, v_hs,     \
-                             scale, split, s);
-  switch (H / K) {
+    return launch<T, G, VEC>(q, k, v, lengths, out, B, H, K, S, D, chunks, \
+                             q_bs, q_hs, k_bs, k_ss, k_hs, v_bs, v_ss,     \
+                             v_hs, scale, split, s);
+  switch ((H / K + chunks - 1) / chunks) {
     K8_CASE(1)
     K8_CASE(2)
     K8_CASE(3)
@@ -387,35 +403,40 @@ int launch_groups(const void* q, const void* k, const void* v,
 template <typename T>
 int launch_path(int vec, const void* q, const void* k, const void* v,
                 const void* lengths, void* out, int B, int H, int K, int S,
-                int D, long long q_bs, long long q_hs, long long k_bs,
-                long long k_ss, long long k_hs, long long v_bs,
-                long long v_ss, long long v_hs, float scale, int split,
-                cudaStream_t s) {
+                int D, int chunks, long long q_bs, long long q_hs,
+                long long k_bs, long long k_ss, long long k_hs,
+                long long v_bs, long long v_ss, long long v_hs, float scale,
+                int split, cudaStream_t s) {
   if (vec)
-    return launch_groups<T, true>(q, k, v, lengths, out, B, H, K, S, D, q_bs,
-                                  q_hs, k_bs, k_ss, k_hs, v_bs, v_ss, v_hs,
-                                  scale, split, s);
-  return launch_groups<T, false>(q, k, v, lengths, out, B, H, K, S, D, q_bs,
-                                 q_hs, k_bs, k_ss, k_hs, v_bs, v_ss, v_hs,
-                                 scale, split, s);
+    return launch_groups<T, true>(q, k, v, lengths, out, B, H, K, S, D,
+                                  chunks, q_bs, q_hs, k_bs, k_ss, k_hs, v_bs,
+                                  v_ss, v_hs, scale, split, s);
+  return launch_groups<T, false>(q, k, v, lengths, out, B, H, K, S, D,
+                                 chunks, q_bs, q_hs, k_bs, k_ss, k_hs, v_bs,
+                                 v_ss, v_hs, scale, split, s);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  Strides are in elements; the head
 // dimension is contiguous.  lengths is an int32 device array [B]; out a
-// contiguous [B, H, D] array.  split (1..8) is the cluster size
-// (ops.plan_split); vec != 0 takes the 16-byte path, which the caller has
-// checked the caches' pointers, strides and D allow.  Returns a
-// cudaError_t (cudaErrorInvalidValue for D outside 1..128, H/K outside
-// 1..8 or split outside 1..8).
+// contiguous [B, H, D] array.  chunks splits each kv head's H/K query
+// heads into that many clusters of at most 8 heads (ops.plan_chunks);
+// split (1..8) is the cluster size (ops.plan_split); vec != 0 takes the
+// 16-byte path, which the caller has checked the caches' pointers,
+// strides and D allow.  Returns a cudaError_t (cudaErrorInvalidValue for
+// D outside 1..128, H not a multiple of K, chunks outside 1..H/K or
+// leaving a chunk more than 8 heads, K * chunks or B above 65535, or split
+// outside 1..8).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, int B, int H, int K, int S, int D, long long q_bs,
     long long q_hs, long long k_bs, long long k_ss, long long k_hs,
     long long v_bs, long long v_ss, long long v_hs, float scale, int dtype,
-    int split, int vec, int device, void* stream) {
-  if (D < 1 || D > DMAX || K < 1 || H % K != 0 || B > 65535 || split < 1 ||
+    int chunks, int split, int vec, int device, void* stream) {
+  if (D < 1 || D > DMAX || K < 1 || H < K || H % K != 0 || chunks < 1 ||
+      chunks > H / K || (H / K + chunks - 1) / chunks > 8 ||
+      (long long)K * chunks > 65535 || B > 65535 || split < 1 ||
       split > MAX_SPLIT)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -423,11 +444,11 @@ extern "C" int decode_attention_launch(
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_path<float>(vec, q, k, v, lengths, out, B, H, K, S, D,
-                              q_bs, q_hs, k_bs, k_ss, k_hs, v_bs, v_ss, v_hs,
-                              scale, split, s);
+                              chunks, q_bs, q_hs, k_bs, k_ss, k_hs, v_bs,
+                              v_ss, v_hs, scale, split, s);
   if (dtype == 1)
     return launch_path<__nv_bfloat16>(vec, q, k, v, lengths, out, B, H, K, S,
-                                      D, q_bs, q_hs, k_bs, k_ss, k_hs, v_bs,
-                                      v_ss, v_hs, scale, split, s);
+                                      D, chunks, q_bs, q_hs, k_bs, k_ss, k_hs,
+                                      v_bs, v_ss, v_hs, scale, split, s);
   return (int)cudaErrorInvalidValue;
 }

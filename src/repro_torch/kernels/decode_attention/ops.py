@@ -6,15 +6,17 @@ are gone): on CUDA tensors the wrapper launches the Hopper kernel or
 raises; on CPU tensors it runs the plain version in ``ref.py``.  No path
 falls back from a failed build or launch to the plain version.
 
-q [B,H,D], caches [B,S,K,D] in float32 or bfloat16, H/K in 1..8, D <= 128;
+q [B,H,D], caches [B,S,K,D] in float32 or bfloat16, H % K == 0, D <= 128;
 lengths [B] integers >= 1 (each row's valid cache prefix).  The kernel
 reads the caches in place through their strides (only the head dimension
 must be contiguous) and writes a new contiguous [B,H,D] tensor.
 ``decode_attention.launches`` counts kernel launches and nothing else.
 
-Each (batch row, kv head) is split over a cluster of ``plan_split``
-blocks, planned from the shapes alone: ``lengths`` is read only on the
-card, so a call never waits for the device.  The wrapper takes the
+A kv head's H/K query heads fall into ``plan_chunks`` chunks of at most
+``MAX_GROUP`` heads, and each (batch row, kv head, chunk) is split over a
+cluster of ``plan_split`` blocks, both planned from the shapes alone:
+``lengths`` is read only on the card, so a call never waits for the
+device.  The wrapper takes the
 kernel's 16-byte load path where both caches' pointers and strides and
 the row's bytes are multiples of 16, and its scalar path otherwise.
 """
@@ -40,11 +42,31 @@ from .build import DECODE_ATTENTION
 MAX_SPLIT = 8
 BLOCKS_PER_SM = 2
 MIN_SPLIT_ROWS = 128
+# A cluster serves at most this many query heads of one kv head: a lane
+# keeps each one's accumulators in registers (the kernel's template G)
+MAX_GROUP = 8
+
+
+def plan_chunks(group: int) -> int:
+    """Clusters per kv head for its ``group`` query heads: the fewest
+    chunks of at most ``MAX_GROUP`` heads (each chunk reads the kv head's
+    rows once)."""
+    return -(-group // MAX_GROUP)
+
+
+def chunk_heads(group: int, chunks: int):
+    """The query heads (first, last + 1) within a kv head's group that
+    each chunk serves, as the kernel splits them: chunk c takes heads
+    ``c·group // chunks`` up to ``(c + 1)·group // chunks``, sizes that
+    differ by at most one (16 → 8 + 8, 12 → 6 + 6, 20 → 6 + 7 + 7)."""
+    return [(c * group // chunks, (c + 1) * group // chunks)
+            for c in range(chunks)]
 
 
 def plan_split(batch: int, kv_heads: int, seq: int, sms: int) -> int:
-    """Blocks per (batch row, kv head) for a cache of ``seq`` rows on a
-    card of ``sms`` SMs: 1..MAX_SPLIT, from shapes only."""
+    """Blocks per (batch row, kv head, chunk) for a cache of ``seq`` rows
+    on a card of ``sms`` SMs: 1..MAX_SPLIT, from shapes only
+    (``kv_heads`` counts every chunk of every kv head)."""
     pairs = max(1, batch * kv_heads)
     return max(1, min(MAX_SPLIT, seq // MIN_SPLIT_ROWS,
                       -(-BLOCKS_PER_SM * sms // pairs)))
@@ -92,10 +114,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                         softmax_scale=scale)
     dtype = cuda_operands("decode_attention", (
         ("q", q), ("k_cache", k_cache), ("v_cache", v_cache)))
-    if D > 128 or H // K > 8 or B > 65535:
+    chunks = plan_chunks(H // K)
+    if D > 128 or B > 65535 or K * chunks > 65535:
         raise ValueError(f"decode_attention: the kernel takes D <= 128, "
-                         f"H/K <= 8 and B <= 65535, got D={D}, H/K={H // K}, "
-                         f"B={B}")
+                         f"B <= 65535 and K * chunks <= 65535, got D={D}, "
+                         f"B={B}, K={K}, chunks={chunks}")
     if lengths.device != q.device or lengths.dtype != torch.int32:
         raise ValueError(f"decode_attention: lengths must be int32 on "
                          f"{q.device}, got {lengths.dtype} on "
@@ -111,7 +134,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     DECODE_ATTENTION.launch(
         "decode_attention", q.data_ptr(), kp, vp, lengths.data_ptr(),
         out.data_ptr(), B, H, K, S, D, *q.stride()[:2], *k_st, *v_st, scale,
-        dtype, _plan(B, K, S, dev), int(vec), dev, _current_stream(dev))
+        dtype, chunks, _plan(B, K * chunks, S, dev), int(vec), dev,
+        _current_stream(dev))
     decode_attention.launches += 1
     return out
 
@@ -119,5 +143,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 decode_attention.launches = 0
 KERNEL_WRAPPERS = {"decode_attention": decode_attention}
 
-__all__ = ["KERNEL_WRAPPERS", "decode_attention", "plan_split",
-           "vector_loads"]
+__all__ = ["KERNEL_WRAPPERS", "chunk_heads", "decode_attention",
+           "plan_chunks", "plan_split", "vector_loads"]

@@ -7,6 +7,8 @@ it), its pure-jnp ``decode_attention_ref`` and the model's jnp
 Tolerances are ``tests/test_kernels.py``'s: 2e-5 in float32, 2e-2 in
 bfloat16.  The CUDA kernel itself runs only on the card:
 ``chip_smoke.py`` holds it against this plain version there."""
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,6 +51,9 @@ def _np(x):
     (2, 64, 4, 4, 32, (33, 64)),       # MHA; a middle length and S
     (3, 64, 8, 2, 32, (1, 64, 17)),    # GQA 4:1; length 1
     (2, 96, 6, 2, 64, (96, 50)),       # GQA 3:1, as Llama-3.2-3B
+    (2, 64, 32, 2, 128, (40, 64)),     # GQA 16:1, as GLM-4-9B
+    (2, 64, 12, 1, 16, (7, 64)),       # GQA 12:1, a narrow head
+    (1, 32, 32, 1, 128, (20,)),        # GQA 32:1
 ])
 def test_plain_matches_the_pallas_kernel_and_ref(B, S, H, K, D, lengths,
                                                  dtype):
@@ -151,22 +156,29 @@ F32_ATTN, BF16_ATTN_ABS = 2e-5, 1e-6
 
 def split_merge_emulation(q, k_cache, v_cache, lengths, split):
     """K8's float32 arithmetic on the card (``csrc/decode_attention.cu``):
-    block p of ``split`` takes rows [p·c, min(len, (p + 1)·c)) of the valid
-    prefix, c = ceil(len / split), and keeps per query head m (its largest
-    score, -1e30 if its share is empty), l = Σ exp(s − m) and acc =
-    Σ exp(s − m)·v; the blocks merge in block order, rescaled to the common
-    max; out = acc / max(l, 1e-30) in q's dtype."""
+    a cluster per (batch row, kv head, chunk) serves the chunk's query
+    heads (``ops.chunk_heads`` of ``ops.plan_chunks(H/K)`` chunks, at most
+    ``ops.MAX_GROUP`` heads each); block p of its ``split`` takes rows
+    [p·c, min(len, (p + 1)·c)) of the valid prefix, c = ceil(len / split),
+    and keeps per query head m (its largest score, -1e30 if its share is
+    empty), l = Σ exp(s − m) and acc = Σ exp(s − m)·v; the blocks merge in
+    block order, rescaled to the common max; out = acc / max(l, 1e-30) in
+    q's dtype.  Every head is written by exactly one cluster."""
     B, H, D = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     groups = H // K
+    chunks = ops.chunk_heads(groups, ops.plan_chunks(groups))
+    assert all(hi - lo <= ops.MAX_GROUP for lo, hi in chunks)
     qs = q.float() * D ** -0.5
-    out = torch.empty((B, H, D), dtype=torch.float32)
-    for b in range(B):
+    out = torch.full((B, H, D), float("nan"))
+    for b, kvh, (h_lo, h_hi) in itertools.product(range(B), range(K),
+                                                  chunks):
         n = min(int(lengths[b]), S)
         c = -(-n // split)
-        for h in range(H):
-            k = k_cache[b, :, h // groups].float()
-            v = v_cache[b, :, h // groups].float()
+        k = k_cache[b, :, kvh].float()
+        v = v_cache[b, :, kvh].float()
+        for h in range(kvh * groups + h_lo, kvh * groups + h_hi):
+            assert out[b, h].isnan().all()      # no head written twice
             parts = []
             for p in range(split):
                 lo, hi = min(n, p * c), min(n, (p + 1) * c)
@@ -184,6 +196,7 @@ def split_merge_emulation(q, k_cache, v_cache, lengths, split):
                 w = torch.exp(m - mx)
                 den, num = den + l * w, num + a * w
             out[b, h] = num / torch.clamp_min(den, 1e-30)
+    assert not out.isnan().any()                # ... and every head once
     return out.to(q.dtype)
 
 
@@ -206,6 +219,10 @@ def _within_k8_bound(got, want):
     (2, 48, 8, 2, 16, (48, 17), 4),      # length = S; GQA 4
     (3, 40, 6, 2, 24, (40, 1, 9), 3),    # a ragged share; GQA 3
     (2, 33, 4, 1, 8, (33, 32), 1),       # no split
+    (2, 64, 32, 2, 32, (64, 5), 4),      # GQA 16: two chunks of 8
+    (1, 40, 12, 1, 16, (40,), 3),        # GQA 12: two chunks of 6
+    (2, 48, 32, 1, 16, (1, 48), 8),      # GQA 32: four chunks of 8
+    (1, 33, 20, 1, 8, (33,), 2),         # GQA 20: chunks of 6, 7 and 7
 ])
 def test_k8_split_and_merge_matches_the_plain_version(B, S, H, K, D, lengths,
                                                       split, dtype):
@@ -226,9 +243,23 @@ def test_k8_plan_split_reads_shapes_only():
     least 1, no share of a full cache under MIN_SPLIT_ROWS rows, and while
     it is below both caps the blocks reach BLOCKS_PER_SM per SM.  The long
     mix (B 4, 8 kv heads, 2 048 rows) splits 8 ways on an H100; the short
-    mix's 96-row cache is not split."""
+    mix's 96-row cache is not split.  A kv head's query heads fall into the
+    fewest chunks of at most MAX_GROUP, of sizes that differ by at most one
+    and cover the group once, in order; GLM-4-9B's 16 into two of 8, and
+    its decode step at the long mix's shape (B 4, 2 kv heads x 2 chunks)
+    splits 8 ways."""
     assert ops.plan_split(4, 8, 2048, H100_SMS) == 8
     assert ops.plan_split(4, 8, 96, H100_SMS) == 1
+    assert ops.chunk_heads(16, ops.plan_chunks(16)) == [(0, 8), (8, 16)]
+    assert ops.chunk_heads(12, ops.plan_chunks(12)) == [(0, 6), (6, 12)]
+    assert ops.plan_split(4, 2 * ops.plan_chunks(16), 2048, H100_SMS) == 8
+    for group in range(1, 65):
+        chunks = ops.chunk_heads(group, ops.plan_chunks(group))
+        sizes = [hi - lo for lo, hi in chunks]
+        assert chunks[0][0] == 0 and chunks[-1][1] == group
+        assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+        assert max(sizes) <= ops.MAX_GROUP and max(sizes) - min(sizes) <= 1
+        assert len(chunks) == -(-group // ops.MAX_GROUP)
     for batch in (1, 2, 4, 16, 64):
         for kv_heads in (1, 2, 8):
             for seq in (1, 17, 96, 128, 255, 256, 1024, 2048, 8192):

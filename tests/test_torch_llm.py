@@ -281,7 +281,8 @@ def _shapes(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-7b",
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-7b", "glm4-9b",
+                                  "phi3-medium-14b",
                                   "granite-moe-1b-a400m",
                                   "phi3.5-moe-42b-a6.6b", "zamba2-2.7b",
                                   "xlstm-350m", "whisper-large-v3",
@@ -295,7 +296,11 @@ def test_full_width_parameters_and_kv_blocks_match(arch):
     4 B and kv_pos 4·Sc; Zamba2: 9 K/V layers, conv windows and SSM
     states; xLSTM: its recurrent states only, whatever the cache length;
     Whisper: k + v, and the cross cache ck + cv = 2·32·1500·20·64·2 B
-    whatever the cache length)."""
+    whatever the cache length; the dense models' k + v = 2·L·Sc·K·D·2 B:
+    Qwen2-7B 28 layers of 4 kv heads, GLM-4-9B 40 of 2, Phi-3-medium 40
+    of 10; Phi-3.5-MoE 32 of 8, or 8 at the depth it runs on one card).
+    The three dense models fit one 80 GB card in bf16 at full depth
+    (15.23, 18.80 and 29.32 GB), one at a time."""
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     got = _shapes(init_params(cfg, device="meta"))
     want = _shapes(jax.eval_shape(lambda: jax_init_params(
@@ -309,16 +314,28 @@ def test_full_width_parameters_and_kv_blocks_match(arch):
     # logical vocab): Granite-3.0-1B-A400M fits one 80 GB card in bf16
     # (2.77 GB), Phi-3.5-MoE does not (83.75 GB)
     n = sum(int(np.prod(shape)) for shape, _ in got.values())
-    assert n == {"granite-moe-1b-a400m": 1_385_219_072,
+    assert n == {"qwen2-7b": 7_615_616_512,
+                 "glm4-9b": 9_399_767_040,
+                 "phi3-medium-14b": 14_659_507_200,
+                 "granite-moe-1b-a400m": 1_385_219_072,
                  "phi3.5-moe-42b-a6.6b": 41_873_051_648,
                  "zamba2-2.7b": 2_422_386_848,
                  "xlstm-350m": 212_300_880,
                  "whisper-large-v3": 2_022_319_360,
                  "internvl2-1b": 630_626_176}.get(arch, n)
-    blocks = {"zamba2-2.7b": (81_326_980, 261_231_108),
+    blocks = {"qwen2-7b": (5_505_412, 117_448_708),
+              "glm4-9b": (3_932_548, 83_894_276),
+              "phi3-medium-14b": (19_661_188, 419_438_596),
+              "phi3.5-moe-42b-a6.6b": (12_583_300, 268_443_652),
+              "zamba2-2.7b": (81_326_980, 261_231_108),
               "xlstm-350m": (21_118_980, 21_118_980),
               "whisper-large-v3": (261_489_028, 581_312_516),
               "internvl2-1b": (1_180_036, 25_174_020)}
+    if arch == "phi3.5-moe-42b-a6.6b":     # 8 of 32 layers, as on the card
+        cut = cfg.replace(num_layers=8)
+        assert kv_block_bytes(cut, 96) == 3_146_116
+        assert sum(int(np.prod(t.shape)) for t in _leaves(init_params(
+            cut, device="meta"))) == 10_665_660_416
     if arch == "internvl2-1b":
         # its served cache: 256 patch rows + prompt + new tokens fit 320
         assert kv_block_bytes(cfg, 320) == 3_933_444
@@ -330,6 +347,81 @@ def test_full_width_parameters_and_kv_blocks_match(arch):
         assert kv_block_bytes(cfg, 2048) == 234_889_220
         c = init_cache(cfg, 4, 2048, device="meta")
         assert tuple(c["k"].shape) == (28, 4, 2048, 8, 128)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+# Narrow twins of the four largest registered LLMs (2 layers, heads of 16,
+# float32) that keep what sets each apart: its GQA group (Qwen2 7, GLM-4
+# 16, Phi-3-medium and Phi-3.5-MoE 4), Qwen2's QKV bias, Phi-3.5-MoE's 16
+# experts top 2, and each model's RoPE theta and vocabulary rule
+NARROW = {"qwen2-7b": dict(num_heads=14, num_kv_heads=2),
+          "glm4-9b": dict(num_heads=16, num_kv_heads=1),
+          "phi3-medium-14b": dict(num_heads=8, num_kv_heads=2),
+          "phi3.5-moe-42b-a6.6b": dict(num_heads=8, num_kv_heads=2)}
+
+
+@pytest.mark.parametrize("arch", sorted(NARROW))
+def test_narrow_twins_of_the_large_models_match_the_reference(
+        arch, monkeypatch):
+    """Prefill of B 2 x S 9 at cache 12, then four teacher-forced decode
+    steps (the cache fills at the third), the port against the JAX
+    package on the reference's ``init_params(PRNGKey(0))``: logits within
+    ``rtol=1e-4, atol=1e-5·max|ref|`` (float32 sums in other orders, as
+    the smoke configs' tests).  Then the card's route on CPU tensors (the
+    kernels' wrappers on their plain versions): K8 receives the model's
+    whole group of query heads per kv head and gives the CPU route's
+    logits."""
+    changes = dict(NARROW[arch], num_layers=2, head_dim=16, d_ff=64,
+                   vocab_size=512, attn_chunk=16, dtype="float32")
+    changes["d_model"] = 16 * changes["num_heads"]
+    jcfg = jax_get_config(arch).replace(**changes)
+    cfg = get_config(arch).replace(**changes)
+    assert cfg.qkv_bias == (arch == "qwen2-7b")
+    assert cfg.num_experts == (16 if cfg.is_moe else 0)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(5)
+    if cfg.qkv_bias:    # drawn as zeros: seeded values, so that they count
+        blocks = dict(jparams["blocks"])
+        for name in ("bq", "bk", "bv"):
+            blocks[name] = jnp.asarray(0.5 * rng.standard_normal(
+                blocks[name].shape), blocks[name].dtype)
+        jparams = dict(jparams, blocks=blocks)
+    params = llm_params_from_numpy(
+        cfg, jax.tree_util.tree_map(np.asarray, jparams))
+    jmodel, model = JaxModel(jcfg), Model(cfg)
+    toks = rng.integers(0, 512, (2, 9)).astype(np.int32)
+    fed = rng.integers(0, 512, (4, 2)).astype(np.int32)
+    jlog, jcache = jax.jit(lambda p, b: jmodel.prefill(p, b, cache_len=12))(
+        jparams, {"tokens": jnp.asarray(toks)})
+    log, cache = model.prefill(params, {"tokens": torch.as_tensor(toks)},
+                               cache_len=12)
+    _close(log.numpy(), jlog)
+    want = [log]
+    step = jax.jit(jmodel.decode_step)
+    for t in fed:
+        jlog, jcache = step(jparams, jcache, jnp.asarray(t))
+        log, cache = model.decode_step(params, cache, torch.as_tensor(t))
+        _close(log.numpy(), jlog)
+        want.append(log)
+    groups = []
+
+    def decode(q, k_cache, v_cache, lengths):
+        groups.append(q.shape[1] // k_cache.shape[2])
+        return decode_ops.decode_attention(q, k_cache, v_cache, lengths)
+    monkeypatch.setattr(kernels, "decode_attention", decode)
+    monkeypatch.setattr(model_mod, "_on_card", lambda cfg, x: True)
+    log, cache = model.prefill(params, {"tokens": torch.as_tensor(toks)},
+                               cache_len=12)
+    got = [log]
+    for t in fed:
+        got.append(model.decode_step(params, cache, torch.as_tensor(t))[0])
+    assert groups == [cfg.num_heads // cfg.num_kv_heads] * (4 * 2)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w.numpy())
 
 
 def test_sliding_window_runs_on_the_card_route(twins, monkeypatch):

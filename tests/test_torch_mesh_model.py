@@ -29,9 +29,10 @@ and the unsharded port lies ~6e-5 from the reference on these inputs
 farther from the reference than twice that."""
 import multiprocessing as mp
 import os
-import socket
+import queue as queue_mod
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -229,15 +230,22 @@ def _tree(res, prefix):
     return out
 
 
-def _rank(rank, world, port, work, payload, queue):
+# finish_ranks polls the queue and the ranks' exit codes this often (s),
+# and gives the ranks this long in all (s)
+RANK_POLL, RANK_TIMEOUT = 2.0, 600.0
+
+
+def _rank(rank, world, rendezvous, work, payload, queue):
     """One CPU rank: ``work(mesh, payload)`` on the (2, 2) mesh; rank 0
-    puts its result on ``queue``."""
+    puts its result on ``queue``, a rank that raises its traceback.  The
+    ranks meet through the file ``rendezvous`` (a ``FileStore``): no port
+    is picked and let go before a rank binds it."""
     import traceback
     try:
         torch.set_num_threads(1)
         import torch.distributed as dist
         from repro_torch.launch.mesh import make_local_mesh
-        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+        dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
                                 rank=rank, world_size=world)
         try:
             res = work(make_local_mesh(2, device="cpu"), payload)
@@ -250,14 +258,14 @@ def _rank(rank, world, port, work, payload, queue):
         raise
 
 
-def start_ranks(work, payload):
-    """Four spawned CPU ranks running ``work``; ``finish_ranks`` waits."""
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+def start_ranks(work, payload, tmp: Path):
+    """Four spawned CPU ranks running ``work``, meeting through a new file
+    in the directory ``tmp``; ``finish_ranks`` waits."""
+    rendezvous = tmp / "rendezvous"
+    assert not rendezvous.exists(), rendezvous      # a FileStore's, fresh
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=_rank, args=(r, 4, port, work, payload,
+    procs = [ctx.Process(target=_rank, args=(r, 4, rendezvous, work, payload,
                                              queue)) for r in range(4)]
     for p in procs:
         p.start()
@@ -265,14 +273,35 @@ def start_ranks(work, payload):
 
 
 def finish_ranks(procs, queue):
+    """Rank 0's result.  Polls the queue and the ranks' exit codes every
+    ``RANK_POLL`` seconds: a rank that raised fails it with its
+    traceback, a rank that died without a word (killed) with the exit
+    codes, at once; after ``RANK_TIMEOUT`` seconds it fails too.  Every
+    rank still running at the end is killed."""
+    t0 = time.monotonic()
     try:
-        status, res = queue.get(timeout=600)
-    finally:
+        while True:
+            # read before the wait: what a rank put before it exited is
+            # on the queue by then
+            codes = [p.exitcode for p in procs]
+            try:
+                status, res = queue.get(timeout=RANK_POLL)
+                break
+            except queue_mod.Empty:
+                assert not any(codes) and None in codes, \
+                    f"a rank exited without a result: exit codes {codes}"
+                assert time.monotonic() - t0 < RANK_TIMEOUT, \
+                    f"the ranks took over {RANK_TIMEOUT} s: exit codes " \
+                    f"{codes}"
+        assert status == "ok", \
+            f"{res}\nexit codes {[p.exitcode for p in procs]}"
         for p in procs:
             p.join(60)
+    finally:
+        for p in procs:
             if p.is_alive():
                 p.kill()
-    assert status == "ok", res
+                p.join()
     assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
     return res
 
@@ -304,7 +333,7 @@ def ranks(tmp_path_factory):
         jcfg = jax_get_config(arch).replace(**changes)
         nparams = _np(jax_init_params(jcfg, jax.random.PRNGKey(0)))
         serve[name] = (arch, changes, feed, fed, nparams)
-    procs, queue = start_ranks(_serve_cases, serve)
+    procs, queue = start_ranks(_serve_cases, serve, tmp)
     want, floor = {}, {}
     for name in SERVE:
         _, want[name] = _reference_serve(name)

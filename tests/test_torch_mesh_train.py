@@ -162,7 +162,7 @@ def ranks(tmp_path_factory):
                           repr(TRAIN_KW))
     train = {a: _reference_train(a) for a in TRAIN if a != GRANITE}
     train[GRANITE] = finish_script(script, tmp)
-    return finish_ranks(*start_ranks(_train_cases, train)), train
+    return finish_ranks(*start_ranks(_train_cases, train, tmp)), train
 
 
 def _adamw_allowance(mu0, nu0, g, g_atol, scale, step, lr):
