@@ -26,6 +26,8 @@ import dataclasses
 import heapq
 from typing import Dict, FrozenSet, List, Optional, Sequence, Set, Tuple
 
+from repro_torch.tracing import phase
+
 from .graph import Graph, Operator, linear_chains
 from .scheduler import ScheduleResult, minimise_peak_memory
 
@@ -350,7 +352,8 @@ def schedule(graph: Graph, exact_limit: int = 18, contract_limit: int = 40,
              solver_nodes: int = 20_000, solver_op_limit: int = 24,
              objective: str = "memory",
              macs_cap: Optional[float] = None,
-             rungs: Optional[Sequence[str]] = None) -> ScheduleResult:
+             rungs: Optional[Sequence[str]] = None,
+             phase_s: Optional[Dict[str, float]] = None) -> ScheduleResult:
     """Best-effort minimal-peak schedule:
 
     1. greedy (always) — provides a branch-and-bound upper bound;
@@ -398,6 +401,10 @@ def schedule(graph: Graph, exact_limit: int = 18, contract_limit: int = 40,
     shrinking subsets when a rung's rewrite fails.  ``"reorder"`` is
     mandatory (it is the base every other rung escalates from); ``None``
     (default) enables every rung, which is the historical behaviour.
+
+    **Rung times.**  Each rung that runs is a ``repro_torch.tracing``
+    phase ``rung.<name>``: a span while tracing is on, and its host
+    seconds added to ``phase_s`` when one is given.
     """
     if rungs is None:
         active = frozenset(_ALL_RUNGS)
@@ -411,16 +418,17 @@ def schedule(graph: Graph, exact_limit: int = 18, contract_limit: int = 40,
             raise ValueError("the 'reorder' rung is the mandatory base of "
                              "the ladder and cannot be disabled")
     best = _ladder(graph, exact_limit, contract_limit, beam_width,
-                   arena_budget, partition, partition_opts, active)
+                   arena_budget, partition, partition_opts, active, phase_s)
     if ("solver" in active and solver_nodes
             and 0 < len(graph.operators) <= solver_op_limit):
         from .solver import solve   # deferred: avoids import cycle
         mode = ("latency" if objective == "latency"
                 and arena_budget is not None else "memory")
         joint = arena_budget is not None or partition
-        sr = solve(graph, mode=mode, arena_budget=arena_budget,
-                   macs_cap=macs_cap, max_nodes=solver_nodes,
-                   max_rewrites=16 if joint else 0, seeds=[best])
+        with phase("rung.solver", phase_s):
+            sr = solve(graph, mode=mode, arena_budget=arena_budget,
+                       macs_cap=macs_cap, max_nodes=solver_nodes,
+                       max_rewrites=16 if joint else 0, seeds=[best])
         cand = sr.best
         if mode == "latency":
             if cand.peak <= arena_budget:
@@ -435,13 +443,17 @@ def _ladder(graph: Graph, exact_limit: int, contract_limit: int,
             beam_width: int, arena_budget: Optional[int],
             partition: bool,
             partition_opts: Optional[dict],
-            active: FrozenSet[str] = frozenset(_ALL_RUNGS)
+            active: FrozenSet[str] = frozenset(_ALL_RUNGS),
+            phase_s: Optional[Dict[str, float]] = None
             ) -> ScheduleResult:
     """The fixed escalation ladder: reorder → pex → cascade → pex-over-tail
     → 2-D tiled cascade (greedy search inside each rung); the joint solver
     refines on top.  ``active`` gates which rungs may fire (degradation
-    path; "reorder" is always implied)."""
-    best = _schedule_plain(graph, exact_limit, contract_limit, beam_width)
+    path; "reorder" is always implied); each rung that runs is timed into
+    ``phase_s`` as ``rung.<name>``."""
+    with phase("rung.reorder", phase_s):
+        best = _schedule_plain(graph, exact_limit, contract_limit,
+                               beam_width)
     want = partition or (arena_budget is not None
                          and best.peak > arena_budget)
     if not want or not (active & {"pex", "cascade", "cascade2d"}):
@@ -449,17 +461,17 @@ def _ladder(graph: Graph, exact_limit: int, contract_limit: int,
     from .partition import (cascade_graph,    # deferred: partition is
                             partition_graph)  # optional
     if "pex" in active:
-        pr = partition_graph(graph, budget=arena_budget,
-                             **(partition_opts or {}))
-        if pr.segments:
-            pg = pr.graph
-            pbest = min(_cheap_candidates(pg), key=lambda r: r.peak)
-            if pbest.peak < best.peak:
-                best = dataclasses.replace(pbest, graph=pg,
-                                           method=pbest.method + "+pex",
-                                           extra_macs=pr.extra_macs,
-                                           total_macs=pr.total_macs,
-                                           extra_macs_frac=pr.extra_macs_frac)
+        with phase("rung.pex", phase_s):
+            pr = partition_graph(graph, budget=arena_budget,
+                                 **(partition_opts or {}))
+            pbest = (min(_cheap_candidates(pr.graph), key=lambda r: r.peak)
+                     if pr.segments else None)
+        if pbest is not None and pbest.peak < best.peak:
+            best = dataclasses.replace(pbest, graph=pr.graph,
+                                       method=pbest.method + "+pex",
+                                       extra_macs=pr.extra_macs,
+                                       total_macs=pr.total_macs,
+                                       extra_macs_frac=pr.extra_macs_frac)
     if (arena_budget is None or best.peak <= arena_budget
             or not (active & {"cascade", "cascade2d"})):
         return best
@@ -503,7 +515,8 @@ def _ladder(graph: Graph, exact_limit: int, contract_limit: int,
                                    extra_macs_frac=frac)
 
     if "cascade" in active:
-        cand = cascade_rung((1,), "+cascade")
+        with phase("rung.cascade", phase_s):
+            cand = cascade_rung((1,), "+cascade")
         if cand is None:
             return best
         if cand.peak < best.peak:
@@ -513,7 +526,8 @@ def _ladder(graph: Graph, exact_limit: int, contract_limit: int,
         # W-strips in the search space (MCUNetV2-style patch streaming).
         # Gated on still-over-budget so in-budget row-cascade goldens are
         # byte-identical to the pre-2-D ladder.
-        cand2d = cascade_rung((2, 3, 4), "+cascade2d")
+        with phase("rung.cascade2d", phase_s):
+            cand2d = cascade_rung((2, 3, 4), "+cascade2d")
         if cand2d is not None and cand2d.peak < best.peak:
             best = cand2d
     return best

@@ -37,6 +37,7 @@ from repro_torch.device import resolve_device
 from repro_torch.errors import (BudgetUnreachableError, DeploymentError,
                                 InputValidationError, NaNActivationError)
 from repro_torch.mcu.compile import CompiledExecutor, compile_schedule
+from repro_torch.tracing import phase, span
 
 # Graph dtype name -> the numpy dtype a request must carry (bfloat16 has
 # no numpy dtype and is not checked here).
@@ -67,6 +68,10 @@ class Deployment:
     the schedule's operators belong to (a Pex/cascade rewrite, or the int8
     rewrite under ``quantize=True``).  ``plan`` is the validated arena
     plan the executor runs against, on ``executor.device``.
+    ``phase_s`` holds the host seconds of the build's phases, summed over
+    the rung sets ``build`` tried: ``calibrate`` (with ``quantize``),
+    ``schedule``, ``rung.<name>`` for each scheduler rung that ran (inside
+    ``schedule``), ``plan`` and ``compile``.
     """
 
     graph: Graph
@@ -78,6 +83,7 @@ class Deployment:
     # what build(strict=False) gave up on — [] means nothing degraded
     degraded: List[str] = dataclasses.field(default_factory=list)
     guard_bytes: int = 0                  # canary width planned (0 = off)
+    phase_s: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def schedule(self) -> List[Operator]:
@@ -212,7 +218,8 @@ class Deployment:
     def quantize_inputs(self, inputs: Dict[str, Any]) -> Dict[str, Any]:
         if self.qmodel is None:
             return inputs
-        return self.qmodel.quantize_inputs(inputs)
+        with span("quantize_inputs"):
+            return self.qmodel.quantize_inputs(inputs)
 
     def dequantize_outputs(self, outputs: Dict[str, Any]) -> Dict[str, Any]:
         if self.qmodel is None:
@@ -250,56 +257,64 @@ def build(graph: Graph, *, arena_budget: Optional[int] = None,
     * extra keyword arguments are forwarded to ``core.schedule()``.
     """
     dev = resolve_device(device)
-    qmodel = None
-    if quantize:
-        from repro_torch.graphs import quantize_graph
-        qmodel = quantize_graph(graph, calibration, device=dev)
-        graph = qmodel.graph
+    with span("build"):
+        times: Dict[str, float] = {}
+        qmodel = None
+        if quantize:
+            from repro_torch.graphs import quantize_graph
+            with phase("calibrate", times):
+                qmodel = quantize_graph(graph, calibration, device=dev)
+            graph = qmodel.graph
 
-    # one attempt = the full schedule → plan → validate → compile chain for
-    # one rung set; any failure inside is that rung set's failure
-    def attempt(rungs):
-        res = _schedule(graph, arena_budget=arena_budget,
-                        partition=partition, objective=objective,
-                        macs_cap=macs_cap,
-                        **(schedule_opts if rungs is None
-                           else {**schedule_opts, "rungs": rungs}))
-        eg = res.graph if res.graph is not None else graph
-        plan = ArenaPlanner.plan(eg, res.schedule, guard_bytes=guard_bytes)
-        ArenaPlanner.validate(plan, eg)
-        ex = compile_schedule(eg, res.schedule, plan, device=dev)
-        return res, eg, plan, ex
+        # one attempt = the full schedule → plan → validate → compile
+        # chain for one rung set; any failure inside is that rung set's
+        # failure
+        def attempt(rungs):
+            with phase("schedule", times):
+                res = _schedule(graph, arena_budget=arena_budget,
+                                partition=partition, objective=objective,
+                                macs_cap=macs_cap, phase_s=times,
+                                **(schedule_opts if rungs is None
+                                   else {**schedule_opts, "rungs": rungs}))
+            eg = res.graph if res.graph is not None else graph
+            with phase("plan", times):
+                plan = ArenaPlanner.plan(eg, res.schedule,
+                                         guard_bytes=guard_bytes)
+                ArenaPlanner.validate(plan, eg)
+            with phase("compile", times):
+                ex = compile_schedule(eg, res.schedule, plan, device=dev)
+            return res, eg, plan, ex
 
-    ladder = (_FALLBACK_RUNGS if "rungs" not in schedule_opts
-              else (schedule_opts.pop("rungs"),))
-    degraded: List[str] = []
-    res = None
-    if strict:
-        res, exec_graph, plan, executor = attempt(ladder[0])
-    else:
-        for rungs in ladder:
-            try:
-                res, exec_graph, plan, executor = attempt(rungs)
-                break
-            except Exception as e:       # noqa: BLE001 — each rung may fail
-                tag = "full ladder" if rungs is None else "+".join(rungs)
-                degraded.append(f"rung set [{tag}] failed: "
-                                f"{type(e).__name__}: {e}")
-        if res is None:
-            raise DeploymentError(
-                "every scheduler rung set failed — nothing left to degrade "
-                "to:\n  " + "\n  ".join(degraded))
-    if arena_budget is not None and plan.arena_size > arena_budget:
-        miss = (f"arena budget missed: need {int(plan.arena_size)} B > "
-                f"budget {int(arena_budget)} B (best rung: {res.method})")
+        ladder = (_FALLBACK_RUNGS if "rungs" not in schedule_opts
+                  else (schedule_opts.pop("rungs"),))
+        degraded: List[str] = []
+        res = None
         if strict:
-            raise BudgetUnreachableError(
-                miss + " — pass strict=False to deploy best-effort")
-        degraded.append(miss)
-    return Deployment(graph=graph, exec_graph=exec_graph,
-                      schedule_result=res, plan=plan, executor=executor,
-                      qmodel=qmodel, degraded=degraded,
-                      guard_bytes=guard_bytes)
+            res, exec_graph, plan, executor = attempt(ladder[0])
+        else:
+            for rungs in ladder:
+                try:
+                    res, exec_graph, plan, executor = attempt(rungs)
+                    break
+                except Exception as e:   # noqa: BLE001 — a rung may fail
+                    tag = "full ladder" if rungs is None else "+".join(rungs)
+                    degraded.append(f"rung set [{tag}] failed: "
+                                    f"{type(e).__name__}: {e}")
+            if res is None:
+                raise DeploymentError(
+                    "every scheduler rung set failed — nothing left to "
+                    "degrade to:\n  " + "\n  ".join(degraded))
+        if arena_budget is not None and plan.arena_size > arena_budget:
+            miss = (f"arena budget missed: need {int(plan.arena_size)} B > "
+                    f"budget {int(arena_budget)} B (best rung: {res.method})")
+            if strict:
+                raise BudgetUnreachableError(
+                    miss + " — pass strict=False to deploy best-effort")
+            degraded.append(miss)
+        return Deployment(graph=graph, exec_graph=exec_graph,
+                          schedule_result=res, plan=plan, executor=executor,
+                          qmodel=qmodel, degraded=degraded,
+                          guard_bytes=guard_bytes, phase_s=times)
 
 
 __all__ = ["Deployment", "build"]

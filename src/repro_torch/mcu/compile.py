@@ -80,6 +80,7 @@ from repro_torch.cuda_graphs import CapturedGraph, capture
 from repro_torch.device import device_count, resolve_device
 from repro_torch.errors import CaptureError, DeviceInitError, GuardViolation
 from repro_torch.kernels.conv_quant.ops import RingWindow, ring_spans
+from repro_torch.tracing import span
 
 # Graph dtype name -> torch dtype of the typed arena views.
 TORCH_DTYPES = {
@@ -95,6 +96,13 @@ TORCH_DTYPES = {
 # bit rotation and distinct from 0x00/0xFF, so zero-fills, one-fills and
 # shifted writes all trip it.
 CANARY_BYTE = 0xA5
+
+# What an executor counts where the work happens (``CompiledExecutor.
+# counters``; they only ever grow): lanes written, host-to-arena copies
+# and their bytes, arena-to-host copies and their bytes, graph replays and
+# captures.
+EXECUTOR_COUNTERS = ("lanes_written", "uploads", "upload_bytes",
+                     "downloads", "download_bytes", "replays", "captures")
 
 
 # ----------------------------------------------------------- lowering registry
@@ -401,7 +409,9 @@ class CompiledExecutor:
     program on every lane in place (one kernel launch per op for all
     lanes), ``outputs_from`` reads one lane's outputs.  ``fn`` and
     ``batched_fn(lanes)`` are the compiled forms (``ArenaProgram``);
-    ``run`` is one request through ``fn``.
+    ``run`` is one request through ``fn``.  ``counters`` holds the
+    ``EXECUTOR_COUNTERS`` of everything run on this executor; a replica's
+    copy (``_on``) counts its own.
     """
 
     graph: Graph
@@ -430,6 +440,9 @@ class CompiledExecutor:
     # replica index (>= 1) -> this program on that replica's device
     _replicas: Dict[int, "CompiledExecutor"] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
+    counters: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(EXECUTOR_COUNTERS, 0),
+        repr=False, compare=False)
 
     # ------------------------------------------------------------ arenas
     def new_arena(self, lanes: int = 1) -> torch.Tensor:
@@ -478,6 +491,8 @@ class CompiledExecutor:
                     f"expects {t.elements} ({size} bytes as {t.dtype})")
             row[off:off + size] = val.reshape(-1).view(torch.uint8).to(
                 self.device)
+            self.counters["uploads"] += 1
+            self.counters["upload_bytes"] += size
 
     def pad_arena(self) -> torch.Tensor:
         """One all-zero ``[pitch]`` lane: what every lane past the admitted
@@ -540,8 +555,12 @@ class CompiledExecutor:
         out: Dict[str, Any] = {}
         for o in self.graph.outputs:
             val = self._view(arena[lane:lane + 1], o)[0]
-            out[o] = (val.to("cpu", copy=True).numpy() if as_numpy
-                      else val.clone())
+            if as_numpy:
+                out[o] = val.to("cpu", copy=True).numpy()
+                self.counters["downloads"] += 1
+                self.counters["download_bytes"] += out[o].nbytes
+            else:
+                out[o] = val.clone()
         return out
 
     def verify_guards(self, arena) -> None:
@@ -633,9 +652,10 @@ class CompiledExecutor:
     def _on(self, device: torch.device) -> "CompiledExecutor":
         """This program on ``device``: its own device copies of the
         constants (made at its first run) and its own compiled forms."""
-        return dataclasses.replace(self, device=device,
-                                   _ctx=LoweringCtx(self.graph, device),
-                                   _fn_cache={}, _replicas={})
+        return dataclasses.replace(
+            self, device=device, _ctx=LoweringCtx(self.graph, device),
+            _fn_cache={}, _replicas={},
+            counters=dict.fromkeys(EXECUTOR_COUNTERS, 0))
 
 
 class ArenaProgram:
@@ -656,10 +676,12 @@ class ArenaProgram:
         """Capture the program on the card, once."""
         if self.graph is None:
             ex, arena = self.executor, self.arena
-            self.graph = capture(
-                lambda: ex.execute(arena), ex.device,
-                what=f"the arena program ({self.lanes} lanes, "
-                     f"{ex.steps} ops)")
+            with span("capture"):
+                self.graph = capture(
+                    lambda: ex.execute(arena), ex.device,
+                    what=f"the arena program ({self.lanes} lanes, "
+                         f"{ex.steps} ops)")
+            ex.counters["captures"] += 1
         return self.graph
 
     def __call__(self, requests: Sequence[Dict[str, Any]]) -> torch.Tensor:
@@ -670,13 +692,17 @@ class ArenaProgram:
         on_card = ex.device.type == "cuda"
         if on_card:
             self.capture()
-        arena.zero_()
-        for lane, inputs in enumerate(requests):
-            ex.write_inputs(arena, lane, inputs)
-        if on_card:
-            self.graph.replay()
-        else:
-            ex.execute(arena)
+        with span("write_inputs"):
+            arena.zero_()
+            for lane, inputs in enumerate(requests):
+                ex.write_inputs(arena, lane, inputs)
+        ex.counters["lanes_written"] += len(requests)
+        with span("run"):
+            if on_card:
+                self.graph.replay()
+                ex.counters["replays"] += 1
+            else:
+                ex.execute(arena)
         return arena
 
 
@@ -708,9 +734,12 @@ class ReplicatedProgram:
             with (torch.cuda.device(dev) if dev.type == "cuda"
                   else contextlib.nullcontext()):
                 arenas.append(prog(chunk))
-        for prog in self.programs:
-            if prog.executor.device.type == "cuda":
-                torch.cuda.synchronize(prog.executor.device)
+        cards = [prog.executor.device for prog in self.programs
+                 if prog.executor.device.type == "cuda"]
+        if cards:
+            with span("wait"):
+                for dev in cards:
+                    torch.cuda.synchronize(dev)
         return arenas
 
 
@@ -763,6 +792,7 @@ def compile_schedule(graph: Graph,
         _ctx=ctx, _items=items, _zc=zc)
 
 
-__all__ = ["ArenaProgram", "CANARY_BYTE", "CompiledExecutor", "LoweringCtx",
+__all__ = ["ArenaProgram", "CANARY_BYTE", "CompiledExecutor",
+           "EXECUTOR_COUNTERS", "LoweringCtx",
            "ReplicatedProgram", "TORCH_DTYPES", "compile_schedule",
            "lower_op", "register_lowering"]

@@ -45,6 +45,15 @@ and opens the batch boundary:
 * **Typed stats** — latency p50/p99 and throughput plus the failure-layer
   counters (admitted/expired/shed/retried/failed/watchdog_trips) in
   ``EngineStats``.
+* **Running counters and spans** — ``counters`` reads, at any moment, the
+  counts that only ever grow: the engine's own (``ENGINE_COUNTERS``:
+  dispatches, requests admitted and completed, pad lanes) and the
+  replicas' executors' (``EXECUTOR_COUNTERS``: lanes written, uploads,
+  downloads and their bytes, replays, captures), summed.  ``drain()``
+  derives its dispatch, pad-lane, admitted and request counts from them.
+  Each dispatch opens the spans ``rt.dispatch`` > ``rt.admit``,
+  ``rt.write_inputs``, ``rt.run``, ``rt.wait``, ``rt.read_outputs`` while
+  ``repro_torch.tracing`` is enabled.
 
 With no faults, no guards, and default admission (no deadlines, no bound)
 outputs are read straight from the replicas' arenas with
@@ -60,11 +69,16 @@ import numpy as np
 from repro_torch.device import device_count
 from repro_torch.errors import (DeviceInitError, DispatchFailedError,
                                 GuardViolation)
+from repro_torch.mcu.compile import ReplicatedProgram
 from repro_torch.serving.admission import (AdmissionQueue, QueuedRequest,
                                            RequestError)
 from repro_torch.serving.faults import (FaultInjector, FaultPlan,
                                         dispatch_with_retry)
 from repro_torch.serving.stats import EngineStats
+from repro_torch.tracing import span
+
+# What the engine itself counts, in ``step`` (they only ever grow).
+ENGINE_COUNTERS = ("dispatches", "admitted", "completed", "pad_lanes")
 
 
 class ShardedServingEngine:
@@ -126,16 +140,14 @@ class ShardedServingEngine:
                 f"replica program init failed ({type(e).__name__}: {e}); "
                 f"falling back to single-device serving")
             self.replicas = 1
-            batched = self.executor.batched_fn(self.lanes)
-            self._fn = lambda requests: [batched(requests)]
+            self._fn = ReplicatedProgram(
+                [self.executor.batched_fn(self.lanes)])
         self._queue = AdmissionQueue(max_pending=max_pending)
         self._results: Dict[int, Any] = {}
         self._latencies: List[float] = []
         self._next_rid = 0
-        self._dispatches = 0
-        self._padded = 0
-        self._completed = 0
-        self._admitted = 0
+        self._counts = dict.fromkeys(ENGINE_COUNTERS, 0)
+        self._at_drain = dict(self._counts)
         self._retried = 0
         self._failed = 0
         self._trips = 0
@@ -155,6 +167,25 @@ class ShardedServingEngine:
     def capacity(self) -> int:
         """Requests per dispatch: replicas × lanes."""
         return self.replicas * self.lanes
+
+    @property
+    def counters(self) -> Dict[str, int]:
+        """The running counts, read now: the engine's ``ENGINE_COUNTERS``
+        and, summed over the replicas' executors, their
+        ``EXECUTOR_COUNTERS`` (everything run on those executors counts,
+        ``Deployment.run`` too).  Take differences between two reads."""
+        out = dict(self._counts)
+        for prog in self._fn.programs:
+            for name, n in prog.executor.counters.items():
+                out[name] = out.get(name, 0) + n
+        return out
+
+    @property
+    def capture_s(self) -> float:
+        """Host seconds the replicas' CUDA graphs took to warm up and
+        capture (0 on the CPU and before the first dispatch)."""
+        return sum((p.graph.warmup_ms + p.graph.capture_ms) / 1e3
+                   for p in self._fn.programs if p.graph is not None)
 
     def submit(self, inputs: Dict[str, Any], *, priority: int = 0,
                deadline: Optional[float] = None) -> int:
@@ -220,17 +251,22 @@ class ShardedServingEngine:
         Returns how many completed successfully."""
         if not self._queue:
             return 0
-        ex = self.executor
-        now = self._clock()
-        admitted, expired = self._queue.pop_ready(self.capacity, now)
-        for req in expired:
-            self._results[req.rid] = RequestError(
-                req.rid, "expired",
-                f"deadline {req.deadline:.6f} passed at {now:.6f}")
+        with span("dispatch"):
+            return self._dispatch()
+
+    def _dispatch(self) -> int:
+        counts = self._counts
+        with span("admit"):
+            now = self._clock()
+            admitted, expired = self._queue.pop_ready(self.capacity, now)
+            for req in expired:
+                self._results[req.rid] = RequestError(
+                    req.rid, "expired",
+                    f"deadline {req.deadline:.6f} passed at {now:.6f}")
         if not admitted:
             return 0
-        self._admitted += len(admitted)
-        self._padded += self.capacity - len(admitted)
+        counts["admitted"] += len(admitted)
+        counts["pad_lanes"] += self.capacity - len(admitted)
         inputs = [req.inputs for req in admitted]
 
         # each attempt zeroes the static arenas and writes the requests
@@ -250,9 +286,18 @@ class ShardedServingEngine:
             return 0
         self._retried += r
         self._trips += w
-        self._dispatches += 1
+        counts["dispatches"] += 1
         t_done = self._clock()
+        with span("read_outputs"):
+            done = self._complete(admitted, arenas, t_done)
+        counts["completed"] += done
+        return done
 
+    def _complete(self, admitted: List[QueuedRequest],
+                  arenas: List[Any], t_done: float) -> int:
+        """Read the admitted requests' outputs out of ``arenas``; returns
+        how many completed."""
+        ex = self.executor
         lane_faults = (self._faults is not None
                        and self._faults.plan.any_lane_faults())
         if not lane_faults and not ex.guard_regions:
@@ -262,7 +307,6 @@ class ShardedServingEngine:
                 r_, b_ = divmod(i, self.lanes)
                 self._results[req.rid] = ex.outputs_from(arenas[r_], b_)
                 self._latencies.append(t_done - req.t_submit)
-            self._completed += len(admitted)
             return len(admitted)
 
         # fault/guard path: a writable host copy of each admitted lane (the
@@ -290,7 +334,6 @@ class ShardedServingEngine:
             self._results[req.rid] = ex.outputs_from(host[i])
             self._latencies.append(t_done - req.t_submit)
             done += 1
-        self._completed += done
         return done
 
     def take(self, rid: int):
@@ -308,24 +351,23 @@ class ShardedServingEngine:
             self.step()
         wall = (self._clock() - self._t_first_submit
                 if self._t_first_submit is not None else 0.0)
+        now, before = dict(self._counts), self._at_drain
         self.stats.record_serve(
-            requests=self._completed, padded_lanes=self._padded,
-            dispatches=self._dispatches, wall_s=wall,
-            latencies_s=self._latencies)
-        self.stats.admitted = self._admitted
+            requests=now["completed"] - before["completed"],
+            padded_lanes=now["pad_lanes"] - before["pad_lanes"],
+            dispatches=now["dispatches"] - before["dispatches"],
+            wall_s=wall, latencies_s=self._latencies)
+        self.stats.admitted = now["admitted"] - before["admitted"]
         self.stats.expired = self._queue.expired
         self.stats.shed = self._queue.shed
         self.stats.retried = self._retried
         self.stats.failed = self._failed
         self.stats.watchdog_trips = self._trips
         self.stats.degraded = list(self._degraded) or None
-        self._completed = 0
-        self._admitted = 0
+        self._at_drain = now
         self._retried = 0
         self._failed = 0
         self._trips = 0
-        self._dispatches = 0
-        self._padded = 0
         self._latencies = []
         self._queue.expired = 0
         self._queue.shed = 0
