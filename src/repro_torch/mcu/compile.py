@@ -45,9 +45,15 @@ and ``batched_fn(lanes)`` are its compiled forms, the reference's
 ``jit(raw_fn)`` and ``jit(vmap(raw_fn))``: on the card, the whole program
 over a static ``[lanes, pitch]`` arena that the executor owns, captured as
 one CUDA graph at first call (``repro_torch.cuda_graphs``) and cached per
-lane count.  A dispatch zeroes that arena, writes the requests' inputs,
-replays the graph and returns the arena; on the CPU it runs ``execute``
-on it.  Rolled loops, ring windows and the ``pending`` hand-offs are
+lane count.  A dispatch stages the requests' inputs: each request's bytes
+go into its row of a pinned host buffer, and the rows into a device
+buffer in one upload.  The graph zeroes the arena, scatters those rows
+into each lane's input slots, runs the program and gathers each lane's
+outputs into a device buffer, which comes back in one download; the
+dispatch returns the arena.  On the CPU the same steps run eagerly, with
+plain host buffers.  A plan with guard regions writes lane by lane
+(``write_inputs``, its canaries with it) and its graph holds the program
+only.  Rolled loops, ring windows and the ``pending`` hand-offs are
 Python-side, so they unroll into the graph.  An operator that runs its
 ``op.fn`` (host code) cannot be captured: ``fn``/``batched_fn`` refuse
 such a program on the card with ``CaptureError``.
@@ -69,6 +75,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -98,11 +105,14 @@ TORCH_DTYPES = {
 CANARY_BYTE = 0xA5
 
 # What an executor counts where the work happens (``CompiledExecutor.
-# counters``; they only ever grow): lanes written, host-to-arena copies
-# and their bytes, arena-to-host copies and their bytes, graph replays and
-# captures.
+# counters``; they only ever grow): lanes written, host-to-device
+# transfers made and the requests' bytes they carried, device-to-host
+# transfers made and the bytes of the outputs read, graph replays,
+# captures, and program calls that staged their lanes (one upload and one
+# download a call, where a guard-byte plan makes one of each a lane).
 EXECUTOR_COUNTERS = ("lanes_written", "uploads", "upload_bytes",
-                     "downloads", "download_bytes", "replays", "captures")
+                     "downloads", "download_bytes", "replays", "captures",
+                     "staged_dispatches")
 
 
 # ----------------------------------------------------------- lowering registry
@@ -453,24 +463,34 @@ class CompiledExecutor:
 
     def _view(self, arena: torch.Tensor, name: str) -> torch.Tensor:
         off, size = self.offsets[name]
+        return self._typed(arena[:, off:off + size], name)
+
+    def _typed(self, cols: torch.Tensor, name: str) -> torch.Tensor:
+        """``[lanes, bytes]`` uint8 columns as tensor ``name``'s ``[lanes,
+        *shape]`` of its dtype."""
         t = self.graph.tensors[name]
         shape = tuple(t.shape) if t.shape else (t.elements,)
-        return arena[:, off:off + size].view(TORCH_DTYPES[t.dtype]).view(
-            arena.shape[0], *shape)
+        return cols.view(TORCH_DTYPES[t.dtype]).view(cols.shape[0], *shape)
 
-    def write_inputs(self, arena: torch.Tensor, lane: int,
-                     inputs: Dict[str, Any]) -> None:
-        """Write one request's graph inputs (as bytes) into ``lane`` and
-        its guard canaries.  Values must already be in the tensor's
-        declared dtype — an int8 graph takes quantized int8 inputs."""
+    @functools.cached_property
+    def arena_inputs(self) -> Tuple[str, ...]:
+        """The graph inputs the plan keeps in the arena (those with a
+        consumer), in arena order: what every request must give."""
         g = self.graph
-        needed = {c for c in g.constants() if g.consumers(c)}
-        missing = needed - set(inputs)
+        return tuple(sorted((c for c in g.constants() if g.consumers(c)),
+                            key=lambda n: self.offsets[n][0]))
+
+    def input_bytes(self, inputs: Dict[str, Any]
+                    ) -> List[Tuple[str, torch.Tensor]]:
+        """One request's arena-resident graph inputs as ``(name, uint8
+        bytes)``, checked before any is written.  Values must already be
+        in the tensor's declared dtype — an int8 graph takes quantized int8
+        inputs."""
+        g = self.graph
+        missing = set(self.arena_inputs) - set(inputs)
         if missing:
             raise ValueError(f"missing graph inputs: {sorted(missing)}")
-        row = arena[lane]
-        for off, size in self.guard_regions:   # () in production plans
-            row[off:off + size] = CANARY_BYTE
+        out = []
         for name, value in inputs.items():
             if name not in g.tensors:
                 raise ValueError(f"unknown tensor {name!r}")
@@ -478,7 +498,6 @@ class CompiledExecutor:
                 raise ValueError(f"{name!r} is not a graph input")
             if not g.consumers(name):
                 continue       # unused input: not arena-resident in the plan
-            off, size = self.offsets[name]
             t = g.tensors[name]
             val = torch.as_tensor(value)
             if val.dtype != TORCH_DTYPES[t.dtype]:
@@ -488,9 +507,22 @@ class CompiledExecutor:
             if val.numel() != t.elements:
                 raise ValueError(
                     f"input {name!r}: got {val.numel()} elements, plan "
-                    f"expects {t.elements} ({size} bytes as {t.dtype})")
-            row[off:off + size] = val.reshape(-1).view(torch.uint8).to(
-                self.device)
+                    f"expects {t.elements} ({self.offsets[name][1]} bytes "
+                    f"as {t.dtype})")
+            out.append((name, val.reshape(-1).view(torch.uint8)))
+        return out
+
+    def write_inputs(self, arena: torch.Tensor, lane: int,
+                     inputs: Dict[str, Any]) -> None:
+        """Write one request's graph inputs (as bytes, ``input_bytes``)
+        into ``lane`` and its guard canaries: one upload per input."""
+        values = self.input_bytes(inputs)
+        row = arena[lane]
+        for off, size in self.guard_regions:   # () in production plans
+            row[off:off + size] = CANARY_BYTE
+        for name, val in values:
+            off, size = self.offsets[name]
+            row[off:off + size] = val.to(self.device)
             self.counters["uploads"] += 1
             self.counters["upload_bytes"] += size
 
@@ -546,9 +578,16 @@ class CompiledExecutor:
     # ----------------------------------------------------------- results
     def outputs_from(self, arena, lane: int = 0,
                      as_numpy: bool = True) -> Dict[str, Any]:
-        """One lane's graph outputs, copied out of ``arena`` (a ``[lanes,
-        pitch]`` or ``[pitch]`` tensor or numpy array; the compiled forms
-        overwrite theirs at the next dispatch)."""
+        """One lane's graph outputs, copied out of ``arena``: a ``[lanes,
+        pitch]`` or ``[pitch]`` tensor or numpy array, or an
+        ``ArenaProgram``, whose last dispatch's lane is read from its
+        staged host rows where that dispatch staged the lane (no transfer)
+        and from its arena otherwise.  The compiled forms overwrite both
+        at the next dispatch."""
+        if isinstance(arena, ArenaProgram):
+            if as_numpy and lane < arena.staged_rows:
+                return arena.staged_outputs(lane)
+            arena = arena.arena
         arena = torch.as_tensor(arena)
         if arena.dim() == 1:
             arena = arena[None]
@@ -586,9 +625,9 @@ class CompiledExecutor:
     def run(self, inputs: Dict[str, Any], as_numpy: bool = True
             ) -> Dict[str, Any]:
         """One request through ``fn``."""
-        arena = self.fn([inputs])
-        self.verify_guards(arena)
-        return self.outputs_from(arena, 0, as_numpy)
+        prog = self.fn
+        self.verify_guards(prog([inputs]))
+        return self.outputs_from(prog, 0, as_numpy)
 
     # ---------------------------------------------------- compiled forms
     def check_capturable(self) -> None:
@@ -661,48 +700,162 @@ class CompiledExecutor:
 class ArenaProgram:
     """``batched_fn(lanes)``: the arena program over ``arena``, a static
     ``[lanes, pitch]`` arena.  Calling it with up to ``lanes`` requests'
-    input dicts zeroes the arena, writes one request per lane (the rest
-    stay all zero: pad lanes), runs the program and returns the arena,
-    which the next call overwrites.  On the card the run is a replay of
-    ``graph``, captured at the first call; on the CPU, ``execute``."""
+    input dicts runs one dispatch: request i in lane i, the other lanes
+    all zero (pad lanes), and returns the arena, which the next call
+    overwrites.  On the card the device work is a replay of ``graph``,
+    captured at the first call; on the CPU it runs eagerly.
+
+    A dispatch is staged (``staged``) unless the plan has guard regions:
+    each request's input bytes go into its row of ``host_in`` (pinned on
+    the card), rows ``[0, n)`` into ``dev_in`` in one upload, and
+    ``device_work`` zeroes the arena, scatters ``dev_in``'s rows into the
+    lanes' input slots, runs ``execute`` and gathers the lanes' outputs
+    into ``dev_out``, whose rows ``[0, n)`` come back into ``host_out`` in
+    one download (``staged_rows`` = n; ``outputs_from(program, lane)``
+    reads them).  A guard-byte plan zeroes the arena and writes each lane
+    on the host (``write_inputs``: its canaries with it); its device work
+    is ``execute`` alone."""
 
     def __init__(self, executor: CompiledExecutor, lanes: int) -> None:
         self.executor = executor
         self.lanes = lanes
         self.arena = executor.new_arena(lanes)
         self.graph: Optional[CapturedGraph] = None
+        self.staged = not executor.guard_regions
+        self.staged_rows = 0
+        if self.staged:
+            self._stage_buffers()
+
+    def _stage_buffers(self) -> None:
+        """The staging buffers, ``[lanes, bytes]`` each, and the views the
+        host and the device work copy through."""
+        ex, arena, lanes = self.executor, self.arena, self.lanes
+        on_card = ex.device.type == "cuda"
+
+        def columns(names):
+            """(name, column, (arena offset, bytes)) of each of ``names``
+            in a row, each column aligned as the arena's offsets are, so
+            that typed views stay views; the row's width."""
+            isz, cols, at = ex.graph.max_itemsize(), [], 0
+            for n in names:
+                at = -(-at // isz) * isz
+                cols.append((n, at, ex.offsets[n]))
+                at += ex.offsets[n][1]
+            return cols, -(-at // isz) * isz
+
+        def pair(width):
+            host = torch.zeros((lanes, width), dtype=torch.uint8,
+                               pin_memory=on_card)
+            return host, torch.zeros((lanes, width), dtype=torch.uint8,
+                                     device=ex.device)
+        ins, width_in = columns(ex.arena_inputs)
+        outs, width_out = columns(ex.graph.outputs)
+        # a request's bytes and a lane's output bytes, as the counters take
+        self.in_bytes = sum(size for *_, (_, size) in ins)
+        self.out_bytes = sum(size for *_, (_, size) in outs)
+        self.host_in, self.dev_in = pair(width_in)
+        self.host_out, self.dev_out = pair(width_out)
+        self._scatter = [(arena[:, off:off + size],
+                          self.dev_in[:, at:at + size])
+                         for _, at, (off, size) in ins]
+        self._gather = [(self.dev_out[:, at:at + size],
+                         arena[:, off:off + size])
+                        for _, at, (off, size) in outs]
+        self._host_rows = [{n: self.host_in[lane, at:at + size]
+                            for n, at, (_, size) in ins}
+                           for lane in range(lanes)]
+        self._out_views = {n: ex._typed(self.host_out[:, at:at + size], n)
+                           for n, at, (_, size) in outs}
+        # recorded after each download: the last dispatch's transfers of
+        # both host buffers are over once it has passed
+        self._downloaded = torch.cuda.Event() if on_card else None
+
+    def device_work(self) -> torch.Tensor:
+        """What a dispatch runs on the device, captured as one graph on
+        the card; the arena holds the outputs after it."""
+        ex, arena = self.executor, self.arena
+        if not self.staged:
+            return ex.execute(arena)
+        arena.zero_()
+        for slot, rows in self._scatter:
+            slot.copy_(rows)
+        ex.execute(arena)
+        for rows, slot in self._gather:
+            rows.copy_(slot)
+        return arena
 
     def capture(self) -> CapturedGraph:
         """Capture the program on the card, once."""
         if self.graph is None:
-            ex, arena = self.executor, self.arena
+            ex = self.executor
             with span("capture"):
                 self.graph = capture(
-                    lambda: ex.execute(arena), ex.device,
+                    self.device_work, ex.device,
                     what=f"the arena program ({self.lanes} lanes, "
                          f"{ex.steps} ops)")
             ex.counters["captures"] += 1
         return self.graph
+
+    def _upload(self, requests: Sequence[Dict[str, Any]]) -> None:
+        """Stage the requests' bytes into ``host_in`` and upload its rows;
+        the device's pad rows are zeroed."""
+        ex, n = self.executor, len(requests)
+        self.staged_rows = 0
+        if self._downloaded is not None:   # the last upload read host_in
+            self._downloaded.synchronize()
+        for rows, inputs in zip(self._host_rows, requests):
+            for name, val in ex.input_bytes(inputs):
+                rows[name].copy_(val)
+        if n:
+            self.dev_in[:n].copy_(self.host_in[:n], non_blocking=True)
+            ex.counters["uploads"] += 1
+            ex.counters["upload_bytes"] += n * self.in_bytes
+        if n < self.lanes:
+            self.dev_in[n:].zero_()
+
+    def _download(self, n: int) -> None:
+        """Download ``dev_out``'s rows ``[0, n)`` into ``host_out``."""
+        ex = self.executor
+        if n:
+            self.host_out[:n].copy_(self.dev_out[:n], non_blocking=True)
+            if self._downloaded is not None:
+                self._downloaded.record(
+                    torch.cuda.current_stream(ex.device))
+            ex.counters["downloads"] += 1
+            ex.counters["download_bytes"] += n * self.out_bytes
+        self.staged_rows = n
+        ex.counters["staged_dispatches"] += 1
+
+    def staged_outputs(self, lane: int) -> Dict[str, np.ndarray]:
+        """Lane ``lane``'s outputs of the last dispatch, numpy copies of
+        its row of ``host_out`` (the next dispatch overwrites the row)."""
+        if self._downloaded is not None:
+            self._downloaded.synchronize()
+        return {n: v[lane].numpy().copy() for n, v in self._out_views.items()}
 
     def __call__(self, requests: Sequence[Dict[str, Any]]) -> torch.Tensor:
         if len(requests) > self.lanes:
             raise ValueError(f"{len(requests)} requests for {self.lanes} "
                              f"lanes")
         ex, arena = self.executor, self.arena
-        on_card = ex.device.type == "cuda"
-        if on_card:
+        if ex.device.type == "cuda":
             self.capture()
         with span("write_inputs"):
-            arena.zero_()
-            for lane, inputs in enumerate(requests):
-                ex.write_inputs(arena, lane, inputs)
+            if self.staged:
+                self._upload(requests)
+            else:
+                arena.zero_()
+                for lane, inputs in enumerate(requests):
+                    ex.write_inputs(arena, lane, inputs)
         ex.counters["lanes_written"] += len(requests)
         with span("run"):
-            if on_card:
+            if self.graph is not None:
                 self.graph.replay()
                 ex.counters["replays"] += 1
             else:
-                ex.execute(arena)
+                self.device_work()
+            if self.staged:
+                self._download(len(requests))
         return arena
 
 

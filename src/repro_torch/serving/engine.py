@@ -6,10 +6,12 @@ Deployment`` in **micro-batches**: each batch is one dispatch of the
 executor's ``batched_fn(micro_batch)`` — its static ``[micro_batch,
 arena]`` uint8 arena zeroed and written with one request per lane, then
 one run of the arena program over all lanes (a CUDA-graph replay on the
-card).  A ragged final batch keeps its unused lanes all zero: pad lanes
-are executed (every dispatch has the same geometry) but are **accounted
-separately** (``stats.padded_lanes``) and never read back — they are not
-requests, and per-request stats never count them.
+card); each answer is a copy of its lane's staged output row
+(``outputs_from`` of the program).  A ragged final batch keeps its
+unused lanes all zero: pad lanes are executed (every dispatch has the
+same geometry) but are **accounted separately** (``stats.padded_lanes``)
+and never read back — they are not requests, and per-request stats never
+count them.
 
 ``ServingEngine`` runs prefill + greedy decode over batches of LLM
 requests (the reference's ``serving/engine.py:170-270``), on the card
@@ -124,8 +126,9 @@ class GraphServingEngine:
             trips += w
             n_batches += 1
             ex.verify_guards(arena[:len(chunk)])  # no-op without guards
+            prog = ex.batched_fn(self.micro_batch)
             for lane in range(len(chunk)):        # pad lanes never read
-                results.append(ex.outputs_from(arena, lane))
+                results.append(ex.outputs_from(prog, lane))
             # one-shot serve admits everything at t_start, so a request's
             # latency is its batch's completion time
             latencies.extend([time.perf_counter() - t_start] * len(chunk))

@@ -49,15 +49,17 @@ and opens the batch boundary:
   counts that only ever grow: the engine's own (``ENGINE_COUNTERS``:
   dispatches, requests admitted and completed, pad lanes) and the
   replicas' executors' (``EXECUTOR_COUNTERS``: lanes written, uploads,
-  downloads and their bytes, replays, captures), summed.  ``drain()``
-  derives its dispatch, pad-lane, admitted and request counts from them.
+  downloads and their bytes, replays, captures, staged dispatches),
+  summed.  ``drain()`` derives its dispatch, pad-lane, admitted and
+  request counts from them.
   Each dispatch opens the spans ``rt.dispatch`` > ``rt.admit``,
   ``rt.write_inputs``, ``rt.run``, ``rt.wait``, ``rt.read_outputs`` while
   ``repro_torch.tracing`` is enabled.
 
 With no faults, no guards, and default admission (no deadlines, no bound)
-outputs are read straight from the replicas' arenas with
-``outputs_from`` (a copy), bit-identical under any arrival interleaving.
+outputs are read from each replica's staged output rows (``outputs_from``
+of its ``ArenaProgram``: one download a replica a dispatch, then a copy a
+request), bit-identical under any arrival interleaving.
 """
 from __future__ import annotations
 
@@ -301,11 +303,13 @@ class ShardedServingEngine:
         lane_faults = (self._faults is not None
                        and self._faults.plan.any_lane_faults())
         if not lane_faults and not ex.guard_regions:
-            # production path: outputs copied straight out of the replicas'
-            # arenas; lanes i >= len(admitted) are pads, never read
+            # production path: each answer a copy of its lane's row of its
+            # replica's staged outputs; lanes i >= len(admitted) are pads,
+            # never read
+            progs = self._fn.programs
             for i, req in enumerate(admitted):
                 r_, b_ = divmod(i, self.lanes)
-                self._results[req.rid] = ex.outputs_from(arenas[r_], b_)
+                self._results[req.rid] = ex.outputs_from(progs[r_], b_)
                 self._latencies.append(t_done - req.t_submit)
             return len(admitted)
 

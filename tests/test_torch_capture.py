@@ -19,7 +19,9 @@ on the CPU, where the same code runs eagerly:
 * ``fn``/``batched_fn`` refuse a program with an ``op.fn`` fallback with
   ``CaptureError`` naming the operator, before anything touches CUDA;
 * on the CPU, ``fn``/``batched_fn`` run ``execute`` over their static
-  arena and carry nothing from one dispatch to the next.
+  arena and carry nothing from one dispatch to the next;
+* a staged dispatch's zero, scatter and gather are inside the recorded
+  program: the host only stages, uploads, replays and downloads.
 """
 import contextlib
 import dataclasses
@@ -291,3 +293,68 @@ def test_fn_and_batched_fn_on_the_cpu(int8_mobilenet, monkeypatch):
     np.testing.assert_array_equal(ex.run(xs[0])[name], val)
     with pytest.raises(ValueError, match="4 requests for 3 lanes"):
         prog(xs[:4])
+
+
+def test_staged_lanes_move_inside_the_captured_graph(int8_mobilenet,
+                                                     monkeypatch):
+    """Under fake CUDA calls the device work of a staged dispatch is what
+    the graph recorded: the host stages the rows, uploads them, replays
+    and downloads, and leaves the arena alone; inside the replay the arena
+    is zeroed, the rows are scattered into the lanes' input slots (a pad
+    lane stays all zero), the program runs and the outputs are gathered
+    into the device rows that come back."""
+    recorded = []
+
+    def record(fn, device):
+        recorded.append(fn)
+        out = fn()
+        return _FakeGraph(fn, out), out
+    _fake_cuda(monkeypatch, record)
+    ex = _program("int8-reorder", int8_mobilenet)
+    xs = [random_input(ex.graph, seed=s) for s in range(5)]
+    one = [ex.outputs_from(ex.execute(ex.make_arena(x))) for x in xs]
+    prog = ex.batched_fn(3)
+    prog.capture()
+    assert recorded == [prog.device_work]
+    (inp,) = ex.arena_inputs
+    off, size = ex.offsets[inp]
+    (out,) = ex.graph.outputs
+    seen = {}
+    replay = _FakeGraph.replay
+
+    def spy_replay(self):
+        seen["arena"] = prog.arena.clone()
+        seen["rows"] = prog.dev_in.clone()
+        seen["gathered"] = prog.dev_out.clone()
+        replay(self)
+        seen["after"] = prog.dev_out.clone()
+    monkeypatch.setattr(_FakeGraph, "replay", spy_replay)
+    started = []
+    execute = ex.execute
+    monkeypatch.setattr(ex, "execute", lambda a: (started.append(a.clone()),
+                                                  execute(a))[1])
+    replays = _FakeGraph.replays
+    for first in (0, 3):
+        chunk = xs[first:first + 3]
+        prog.arena.fill_(0xFF)
+        prog.dev_out.fill_(0xFF)
+        assert prog(chunk) is prog.arena
+        # the host left the arena and the gathered rows alone
+        assert (seen["arena"] == 0xFF).all()
+        assert (seen["gathered"] == 0xFF).all()
+        for lane in range(3):
+            want = (torch.as_tensor(chunk[lane][inp]).reshape(-1)
+                    .view(torch.uint8) if lane < len(chunk)
+                    else torch.zeros(size, dtype=torch.uint8))
+            assert torch.equal(seen["rows"][lane], want)
+            assert torch.equal(started[-1][lane, off:off + size], want)
+        assert not started[-1][len(chunk):].any()     # pad lanes: all zero
+        assert prog.staged_rows == len(chunk)
+        for lane in range(len(chunk)):
+            got = ex.outputs_from(prog, lane)[out]
+            np.testing.assert_array_equal(got, one[first + lane][out])
+            np.testing.assert_array_equal(          # gathered in the replay
+                seen["after"][lane, :got.nbytes].numpy(),
+                got.reshape(-1).view(np.uint8))
+    assert _FakeGraph.replays == replays + 2 and len(started) == 2
+    assert ex.counters["replays"] == ex.counters["staged_dispatches"] == 2

@@ -628,3 +628,115 @@ def test_graph_engine_retries_and_guards(d_int8):
     dg = deploy.build(figure1_int8_graph(), guard_bytes=16, device="cpu")
     outs2 = GraphServingEngine(deployment=dg, micro_batch=2).serve(reqs)
     _assert_ok_lanes_bit_identical(d_int8, reqs, outs2)
+
+
+# ------------------------------------------------------------ staged lanes
+def _spy_execute(monkeypatch, ex):
+    """Each arena as ``ex.execute`` receives it, cloned."""
+    started = []
+    run = ex.execute
+    monkeypatch.setattr(ex, "execute", lambda a: (started.append(a.clone()),
+                                                  run(a))[1])
+    return started
+
+
+def _moved(ex, before):
+    return {k: ex.counters[k] - before[k] for k in before}
+
+
+@pytest.mark.parametrize("engine", ["sharded", "graph"])
+def test_staged_full_then_ragged_dispatch(engine, d_int8, monkeypatch):
+    """A full dispatch, then a ragged one, through the staged rows: every
+    answer equals ``Deployment.run``, the ragged dispatch's pad lane
+    starts all zero (nothing of the full dispatch's row is left in it),
+    and each dispatch makes one upload and one download."""
+    ex = d_int8.executor
+    reqs = _reqs(d_int8.exec_graph, 5, seed0=60)
+    refs = [d_int8.run(r) for r in reqs]
+    eng = (ShardedServingEngine(d_int8, replicas=1, lanes=3)
+           if engine == "sharded"
+           else GraphServingEngine(deployment=d_int8, micro_batch=3))
+    prog = ex.batched_fn(3)
+    assert prog.staged and prog.in_bytes == sum(
+        ex.offsets[n][1] for n in ex.arena_inputs)
+    started = _spy_execute(monkeypatch, ex)
+    before = dict(ex.counters)
+    outs = eng.serve(reqs)                    # 3, then 2 and a pad lane
+    for out, ref in zip(outs, refs):
+        _same(out, ref, exact=True)
+    assert _moved(ex, before) == {
+        "lanes_written": 5, "uploads": 2, "upload_bytes": 5 * prog.in_bytes,
+        "downloads": 2, "download_bytes": 5 * prog.out_bytes, "replays": 0,
+        "captures": 0, "staged_dispatches": 2}
+    assert prog.staged_rows == 2
+    assert [len(a) for a in started] == [3, 3]
+    assert all(lane.any() for lane in started[0])
+    assert all(lane.any() for lane in started[1][:2])
+    assert torch.equal(started[1][2], ex.pad_arena())
+
+
+_BAD_INPUTS = {
+    "dtype": lambda x, g: {n: v.astype(np.float64) for n, v in x.items()},
+    "count": lambda x, g: {n: v.reshape(-1)[:-1] for n, v in x.items()},
+    "missing": lambda x, g: {},
+    "unknown": lambda x, g: {**x, "no_such_tensor": next(iter(x.values()))},
+    "produced": lambda x, g: {**x, g.outputs[0]: next(iter(x.values()))},
+}
+
+
+@pytest.mark.parametrize("bad", sorted(_BAD_INPUTS))
+def test_staged_and_per_lane_writes_refuse_alike(bad, d_float,
+                                                 d_float_guarded):
+    """A malformed request is refused with the same ``ValueError`` by the
+    staged rows, by ``write_inputs`` and by a guard-byte plan's per-lane
+    writes, before anything is uploaded; a refused dispatch leaves no
+    staged row to read."""
+    g = d_float.exec_graph
+    good = random_input(g, seed=1)
+    req = _BAD_INPUTS[bad](good, g)
+    said = []
+    for d in (d_float, d_float_guarded):
+        ex = d.executor
+        prog = ex.batched_fn(2)
+        prog([good])
+        assert prog.staged_rows == (1 if prog.staged else 0)
+        uploads = ex.counters["uploads"]
+        with pytest.raises(ValueError) as e:
+            prog([good, req])
+        said.append(str(e.value))
+        assert ex.counters["uploads"] == uploads + (0 if prog.staged else 1)
+        assert prog.staged_rows == 0
+        with pytest.raises(ValueError) as e:
+            ex.write_inputs(ex.new_arena(1), 0, req)
+        said.append(str(e.value))
+    assert len(set(said)) == 1, said
+
+
+def test_guard_plan_keeps_the_per_lane_path(d_float, d_float_guarded,
+                                           monkeypatch):
+    """A guard-byte plan writes lane by lane: every written lane holds its
+    canaries when the program starts, each answered lane's canaries are
+    verified after it, and nothing is staged."""
+    ex = d_float_guarded.executor
+    assert not ex.batched_fn(2).staged
+    reqs = _reqs(d_float_guarded.exec_graph, 3, seed0=95)
+    refs = [d_float.run(r) for r in reqs]
+    started = _spy_execute(monkeypatch, ex)
+    verified = []
+    verify = ex.verify_guards
+    monkeypatch.setattr(ex, "verify_guards", lambda a: (verified.append(1),
+                                                        verify(a))[1])
+    before = dict(ex.counters)
+    outs = ShardedServingEngine(d_float_guarded, replicas=1,
+                                lanes=2).serve(reqs)
+    for out, ref in zip(outs, refs):
+        _same(out, ref, exact=True)
+    moved = _moved(ex, before)
+    assert moved["staged_dispatches"] == 0
+    assert (moved["lanes_written"], moved["uploads"]) == (3, 3)
+    assert len(verified) == 3
+    written = [started[0][0], started[0][1], started[1][0]]
+    for lane in written:
+        for off, size in ex.guard_regions:
+            assert (lane[off:off + size] == CANARY_BYTE).all()
+    assert not started[1][1].any()            # the pad lane

@@ -112,11 +112,13 @@ def test_counters_count_where_the_work_happens(dep):
     in_bytes = dep.quantize_inputs(images[0])["input"].nbytes
     out_bytes = sum(v.nbytes for v in outs[0].values())
     assert in_bytes == 24 * 24 * 3
+    # one upload and one download a dispatch (the staged rows); their
+    # bytes are the admitted requests' inputs and outputs
     assert moved == {"dispatches": 2, "admitted": 6, "completed": 6,
-                     "pad_lanes": 2, "lanes_written": 6, "uploads": 6,
-                     "upload_bytes": 6 * in_bytes, "downloads": 6,
+                     "pad_lanes": 2, "lanes_written": 6, "uploads": 2,
+                     "upload_bytes": 6 * in_bytes, "downloads": 2,
                      "download_bytes": 6 * out_bytes, "replays": 0,
-                     "captures": 0}
+                     "captures": 0, "staged_dispatches": 2}
     # the counters only grow; drain's stats are their differences
     st = eng.stats
     assert (st.dispatches, st.padded_lanes, st.admitted, st.requests) == \
