@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Builds the eight Hopper kernels from ``src/repro_torch/kernels/*/csrc``
+Builds the nine Hopper kernels from ``src/repro_torch/kernels/*/csrc``
 with ``nvcc`` (one process per source, all at once) — the int8 convs
 K1–K3, the fused conv→add kernels K4/K5, the float32 pointwise conv K6,
-flash attention K7 and decode attention K8 — and holds each against its
+flash attention K7, decode attention K8 and the int8 residual add K9 —
+and holds each against its
 plain PyTorch version on the card, at every distinct launch configuration
 of the paths below plus hostile shapes (the split-K edges of K1/K4, K6
 and K8 among them; K2/K3/K5 reading cascade ring windows in place, at
@@ -20,7 +21,7 @@ shapes).  Integer kernels must be bit-exact;
 K6 must stay within the worst-case float32 dot-product error bound (see
 ``F32_BOUND``); K7/K8 within ``F32_ATTN`` of max|want| in float32 and one
 bf16 ulp in bf16.  The build phase prints ``ptxas -v``'s registers and
-spills of all eight kernels.
+spills of all nine kernels.
 
 Then it drives the port's paths, random weights from fixed seeds, each
 with every kernel's launch count set to 0 just before it and read just
@@ -45,7 +46,13 @@ after (the launches of the kernel checks above do not count):
   compiled executor's;
 * the public entry point ``kernels.qconv_add_fused`` (K4/K5) at every int8
   conv shape of the SwiftNet and reorder-only MobileNet schedules with a
-  seeded residual, bit-exact against ``qconv_fused`` then ``qadd``;
+  seeded residual, bit-exact against ``qconv_fused`` then ``qadd``; in the
+  same phase, MobileNetV2 1.0@224 int8 in 320 KB (the 1-D row-ring
+  cascade): K9 at every add shape of its schedule, and K1–K5 at every
+  conv shape with the linear clamp pair and a ReLU6 pair whose ceiling
+  binds inside the grid, each bit-exact against its plain version on the
+  card; then that deployment's main path (K9 launched for its adds,
+  bit-exact against the CPU plain path);
 * LLM serving of Llama-3.2-3B at full width and depth (28 layers, bf16,
   random weights drawn on the card) through ``repro_torch.launch.serve``'s
   ``ServingEngine``: the reference launcher's traffic (8 prompts of 4–23
@@ -233,6 +240,9 @@ BUDGETS = ((None, 884736), (512 * KB, 322560), (224 * KB, 221696))
 F32_BUDGETS = ((None, 3538944, 13), (2048 * KB, 1290240, 79),
                (1024 * KB, 995328, 200))
 SWIFT_F32, SWIFT_F32_K6, SWIFT_INT8 = 1253376, 17, 313344
+# MobileNetV2 (alpha, resolution, classes), its budget (the STM32F746's
+# 320 KB) and the arena it must plan to
+MNV2, MNV2_BUDGET, MNV2_INT8 = (1.0, 224, 1000), 320 * KB, 295680
 ZERO_COPY_224 = 312     # ring windows the 224 KB int8 schedule never writes
 TABLE1_CAPACITY = 512 * KB - 200 * KB   # NUCLEO-F767ZI SRAM less framework
 # (peak_sram, bytes_moved, defrag_passes, steps) of the reference
@@ -260,6 +270,8 @@ REPLACES = {
     "conv1x1": "src/repro/kernels/conv_pointwise/kernel.py:44",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:70",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:64",
+    "qadd": "none: the reference's qadd (src/repro/graphs/cnn_ops.py:386) "
+            "is XLA element-wise ops",
 }
 SOURCES = {n: f"src/repro_torch/kernels/conv_quant/csrc/{n}.cu"
            for n in REPLACES}
@@ -270,7 +282,7 @@ ATTENTION = ("flash_attention", "decode_attention")
 # the kernels whose `ptxas -v` registers and spills the build phase prints
 PTXAS_KERNELS = ("qconv1x1", "qdwconv", "qconv", "qconv1x1_add",
                  "qconv_add", "conv1x1", "flash_attention",
-                 "decode_attention")
+                 "decode_attention", "qadd")
 # ---- the LLM serving phases: Llama-3.2-3B at full width and depth, bf16,
 # random weights drawn on the card by the launcher (torch.Generator seed 0)
 LLM_ARCH = "llama3.2-3b"
@@ -629,6 +641,11 @@ HOSTILE_RING = [
 HOSTILE_SPLITK = [(1, 1, 1, 5), (7, 9, 1, 65), (1, 1, 1030, 65),
                   (6, 6, 1024, 1024), (6, 6, 1030, 5), (3, 5, 1030, 65)]
 SPLITK_ZP = ((-128, -3), (127, 4))                # (zp_in, zp_out)
+# K9's hostile shapes (H, W, C): one element, odd counts (one byte a
+# thread), multiples of 4 and of 16 (4- and 16-byte words where the lanes
+# are aligned), MobileNetV2's widest add at 224
+HOSTILE_ADD = [(1, 1, 1), (3, 5, 7), (2, 3, 12), (4, 4, 16), (7, 7, 160),
+               (56, 56, 24)]
 # fused add params (mult_a, mult_b, zp_a, zp_b, zp_out); zp_a None = the
 # conv's zp_out.  Plain; saturating both rails; a negative multiplier.
 ADD_QP = ((0.71, 0.39, None, 2, -7), (23.5, 17.25, 60, 0, 100),
@@ -892,20 +909,21 @@ class Checks:
 
     def case(self, tag, kind, h, w, cin, cout, k, stride, hpad, wpad,
              mult, zp_in, zp_out, addp=None, lanes=2, ring=None,
-             aligned=False):
+             aligned=False, clamp=None):
         """Route one int8 configuration as ``qconv_fused``/
         ``qdwconv_fused``/``qconv_add_fused`` (``addp`` given) do and
         compare the kernel with the plain version (once per ``tag`` and
         shape), over ``lanes`` lanes a byte stride apart (``aligned``: 16
         bytes).  ``ring = (ring_rows, src)``: K2/K3/K5 read the H-row input
         as the window (src, H) of a ring of ``ring_rows`` rows, held
-        against the ring-view plain versions."""
+        against the ring-view plain versions.  ``clamp = (lo, hi)``: the
+        conv's int8 clamp pair (None: the fused ReLU's)."""
         hp = self._pads(h, k, stride, hpad)
         wp = self._pads(w, k, stride, wpad)
         oh = (h + hp[0] + hp[1] - k) // stride + 1
         ow = (w + wp[0] + wp[1] - k) // stride + 1
         key = (tag, kind, h, w, cin, cout, k, stride, hp, wp, addp, ring,
-               aligned)
+               aligned, clamp)
         if key in self.configs:
             return
         rows, src = ring or (h, 0)
@@ -915,6 +933,8 @@ class Checks:
         rk = dict(src=src, n=h) if ring else {}
         rs = "_ring" if ring else ""
         qp = dict(mult=mult, zp_in=zp_in, zp_out=zp_out)
+        if clamp is not None:
+            qp.update(lo=clamp[0], hi=clamp[1])
         pw = k == 1 and stride == 1 and hp == (0, 0) and wp == (0, 0)
         assert not (pw and ring), "K1 takes no ring window"
         extra = 0
@@ -1003,6 +1023,64 @@ class Checks:
         self.configs[key] = (name, h * w * cin * cout, nbytes,
                              (h, w, cin, cout, bias, relu))
 
+    def case_add(self, tag, h, w, c, addp, lanes=2, aligned=False,
+                 inplace=False):
+        """K9 against ``ref.qadd`` over ``lanes`` lanes a byte stride apart
+        (``aligned``: 16 bytes); ``inplace``: the output is leg a's own
+        bytes, as a plan may place it."""
+        key = (tag, "qadd", h, w, c, addp, lanes, aligned, inplace)
+        if key in self.configs:
+            return
+        a = self._lanes((h, w, c), lanes, aligned)
+        b = self._lanes((h, w, c), lanes, aligned)
+        ap = add_params(addp, -3)
+        want = self.ref.qadd(a, b, *ap)
+        out = a if inplace else self._lanes((h, w, c), lanes, aligned)
+        got = self.ops.qadd(a, b, mult_a=ap[0], mult_b=ap[1], zp_a=ap[2],
+                            zp_b=ap[3], zp_out=ap[4], out=out)
+        self.torch.cuda.synchronize()
+        assert got is out
+        diff = (got.to(self.torch.int32) - want.to(self.torch.int32)).abs()
+        self.max_err["qadd"] = max(self.max_err["qadd"], int(diff.max()))
+        self.mismatches["qadd"] += int((diff != 0).sum())
+        self.checked["qadd"] += 1
+        self.configs[key] = ("qadd", 0, 3 * h * w * c, (h, w, c, addp))
+
+    def clamps_and_adds(self, d):
+        """MobileNetV2's deployment: K9 at every add shape of its schedule
+        (its own add params, lanes aligned as the arena's and not, and in
+        place), and K1–K5 at every int8 conv shape with the linear clamp
+        pair and a ReLU6 pair whose ceiling binds inside the grid (a range
+        wider than 6: ``zp_out + 40``).  Returns the shapes and cases."""
+        g, shapes = d.exec_graph, set()
+        before = sum(self.checked.values())
+        for op in d.schedule:
+            a = op.attrs
+            if op.kind == "qadd":
+                h, w, c = g.tensors[op.output].shape
+                addp = (a["mult_a"], a["mult_b"], a["zp_a"], a["zp_b"],
+                        a["zp_out"])
+                shapes.add(("qadd", h, w, c))
+                for aligned in (False, True):
+                    self.case_add("clamp", h, w, c, addp, aligned=aligned)
+                self.case_add("clamp", h, w, c, addp, aligned=True,
+                              inplace=True)
+            if op.kind not in ("qconv", "qdwconv"):
+                continue
+            h, w, cin = g.tensors[op.inputs[0]].shape
+            wq = a["weight_q"]
+            args = (op.kind, h, w, cin,
+                    wq.shape[3] if op.kind == "qconv" else 0, wq.shape[0],
+                    a["stride"], a.get("pex_pads"), a.get("pex_wpads"),
+                    a["mult"], a["zp_in"], a["zp_out"])
+            shapes.add(args[:9])
+            for clamp in ((-128, 127),
+                          (a["zp_out"], min(127, a["zp_out"] + 40))):
+                self.case("clamp", *args, clamp=clamp, aligned=True)
+                if op.kind == "qconv":
+                    self.case("clamp", *args, clamp=clamp, addp=ADD_QP[0])
+        return len(shapes), sum(self.checked.values()) - before
+
     def from_deployment(self, d):
         """The int8 convs of a deployment's schedule — each also as K4/K5
         with a residual — or its k=1, stride-1 float32 convs."""
@@ -1062,6 +1140,13 @@ class Checks:
                               None, None, mult, zi, zo, addp=addp, lanes=3)
         for (h, w, cin, cout, bias, relu, lanes) in HOSTILE_F32:
             self.case_f32("hostile", h, w, cin, cout, bias, relu, lanes)
+        for (h, w, c) in HOSTILE_ADD:
+            for addp in ADD_QP:
+                for aligned in (False, True):
+                    self.case_add("hostile", h, w, c, addp, lanes=3,
+                                  aligned=aligned)
+            self.case_add("hostile", h, w, c, ADD_QP[2], aligned=True,
+                          inplace=True)
         for i, (mult, zi, zo) in enumerate(HOSTILE_QP):
             for (h, w, cin, cout, k, s, hp, wp, ring) in HOSTILE_RING:
                 kind = "qdwconv" if cout == 0 else "qconv"
@@ -4273,7 +4358,8 @@ def main() -> int:
         return 2
 
     import repro_torch.deploy as deploy
-    from repro_torch.graphs import mobilenet_v1_graph, swiftnet_cell_graph
+    from repro_torch.graphs import (mobilenet_v1_graph, mobilenet_v2_graph,
+                                    swiftnet_cell_graph)
     from repro_torch.kernels import build
     from repro_torch.kernels.conv_pointwise import ops as pw_ops
     from repro_torch.kernels.conv_quant import ops
@@ -4326,6 +4412,8 @@ def main() -> int:
     swift_f32 = planned("swiftnet f32", swiftnet_cell_graph(), SWIFT_F32)
     swift_int8 = planned("swiftnet int8", swiftnet_cell_graph(), SWIFT_INT8,
                          quantize=True)
+    mnv2 = planned("mnv2 int8 budget=320K", mobilenet_v2_graph(*MNV2),
+                   MNV2_INT8, quantize=True, arena_budget=MNV2_BUDGET)
     assert sum(map(is_pointwise, swift_f32.schedule)) == SWIFT_F32_K6
 
     # ------------------------------------- kernels vs plain, on the card
@@ -4346,7 +4434,10 @@ def main() -> int:
     assert all(v == 0 for v in checks.mismatches.values()), checks.mismatches
     assert all(v > 0 for v in checks.checked.values()), checks.checked
     assert checks.ring_checked > 0
-    timings = {name: checks.timing(name, card) for name in cnn_wrappers}
+    # K9 gets no timing line: its device time is the benchmark's
+    # add_roofline (portbench/, the mnv2_int8_320k cell)
+    timings = {name: checks.timing(name, card) for name in cnn_wrappers
+               if name != "qadd"}
     checks.k1_shapes(card, int8[0][1])
     checks.k6_shapes(card, f32[0][1])
     checks.conv_shapes(card, [(f"int8 budget={b}", d) for b, d in int8]
@@ -4382,6 +4473,18 @@ def main() -> int:
     paths.graphs("swiftnet int8", swift_int8, 620, exact=True)
     paths.table1(swift_int8, device)
     paths.fused_add([swift_int8, int8[0][1]], device)
+    t0 = time.perf_counter()
+    n_shapes, n_cases = checks.clamps_and_adds(mnv2)
+    log(f"phase fused-add mnv2: {mnv2.schedule_result.method}, "
+        f"{n_shapes} add and conv shapes, {n_cases} cases: K9 == ref.qadd, "
+        f"K1-K5 with the linear and a binding ReLU6 clamp pair == their "
+        f"plain versions; checked {checks.checked}, mismatches "
+        f"{checks.mismatches} ({time.perf_counter() - t0:.2f} s)")
+    assert all(v == 0 for v in checks.mismatches.values()), checks.mismatches
+    per_inf = paths.deployment("mnv2 int8 budget=320K", mnv2, 302,
+                               exact=True)
+    assert per_inf.get("qadd", 0) == sum(
+        op.kind == "qadd" for op in mnv2.schedule), per_inf
     # sharded continuous batching over the same deployments
     t0 = time.perf_counter()
     for i, (budget, d) in enumerate(int8):

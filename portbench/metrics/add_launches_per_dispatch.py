@@ -1,0 +1,14 @@
+"""Launches of K9 (the residual add, ``qadd_kernel``) per dispatch over the
+traced stretch: its wrapper's ``launches`` counter over the traced
+dispatches, given only where the trace holds as many ``qadd_kernel``
+activities as the counter moved.  It equals the executed schedule's
+``qadd`` count where every add of a dispatch is one launch."""
+
+
+def read(rec):
+    n, t = getattr(rec, "add_launches", 0), rec.trace
+    if not n or t is None or not rec.traced_dispatches:
+        return None
+    if t.count(lambda name: name == "qadd_kernel") != n:
+        return None
+    return n / rec.traced_dispatches

@@ -14,13 +14,21 @@ regular convolution and max-pooling are sliceable (``pex_spec``); global
 op's callable from its attrs; builders, the int8 rewrite, the
 receptive-field edits and ``params.apply_params`` all go through it.
 
+Activations: every conv and depthwise conv ends in its ``act`` attribute,
+``"relu"`` (the default, and every graph's before MobileNetV2), ``"relu6"``
+or ``"none"`` (a linear conv, as MobileNetV2's projections).  The float
+ops clamp to [0, inf), to [0, 6] or not at all; the int8 rewrite
+(``graphs/quantize.py``) turns ``act`` into the int8 clamp pair ``lo,
+hi`` that the int8 ops and kernels apply after requantizing.
+
 Numerics: int8 ops are bit-identical to the JAX package's.  Integer
 convolutions accumulate as an exact float64 convolution (``kernels/
 conv_quant/ref.py``), requantization replays ``round(f32(acc) *
 f32(mult)) + zp_out`` literally, and ``qadd`` (also in ``ref.py``, as the
-plain half of the fused conv→add kernels) is the same integer fixed-point
-sequence.  ``qconv2d``/``qdwconv2d`` go through the kernel wrappers, so on
-the card the int8 ops run the Hopper kernels.  Float32 ops agree
+plain half of the fused conv→add kernels and of K9) is the same integer
+fixed-point sequence.  ``qconv2d``/``qdwconv2d`` go through the kernel
+wrappers, so on the card the int8 ops run the Hopper kernels, and the
+compiled program's ``qadd`` runs K9.  Float32 ops agree
 with XLA within accumulation order; TF32 is switched off for them on the
 card.
 """
@@ -36,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.core.graph import Graph, Operator
 from repro_torch.core.partition import PEX_ATTR, SliceSpec, same_pads
 from repro_torch.kernels.conv_pointwise.ops import conv1x1_fused
+from repro_torch.kernels.conv_quant import ops as conv_quant_ops
 from repro_torch.kernels.conv_quant.ops import (RingWindow, qconv_fused,
                                                 qdwconv_fused)
 from repro_torch.kernels.conv_quant.ref import (INT8_MAX, INT8_MIN,
@@ -57,22 +66,26 @@ def _pads(n: int, k: int, stride: int) -> Tuple[int, int]:
 
 
 # ----------------------------------------------------- slice-spec factories
-def _windowed_slice_fn(kernel_name: str, attr_names: Tuple[str, ...]):
+def _windowed_slice_fn(kernel_name: str, attr_names: Tuple[str, ...],
+                       kw_names: Tuple[str, ...] = ()):
     """make_fn factory for windowed kernels: reads the kernel's extra args
-    from op.attrs and rebuilds it with explicit height padding — and, for
+    from op.attrs (``kw_names`` by keyword, where the op has them: the
+    activation) and rebuilds it with explicit height padding — and, for
     2-D tile clones, explicit width padding."""
     def make(op: Operator, pad_top: int, pad_bottom: int,
              pad_left: Optional[int] = None, pad_right: Optional[int] = None):
         kernel = globals()[kernel_name]
         args = tuple(op.attrs[a] for a in attr_names)
+        kws = {a: op.attrs[a] for a in kw_names if a in op.attrs}
 
         if pad_left is None:
-            def fn(x, kernel=kernel, args=args, hpad=(pad_top, pad_bottom)):
-                return kernel(x, *args, hpad=hpad)
+            def fn(x, kernel=kernel, args=args, kws=kws,
+                   hpad=(pad_top, pad_bottom)):
+                return kernel(x, *args, hpad=hpad, **kws)
         else:
-            def fn(x, kernel=kernel, args=args, hpad=(pad_top, pad_bottom),
-                   wpad=(pad_left, pad_right)):
-                return kernel(x, *args, hpad=hpad, wpad=wpad)
+            def fn(x, kernel=kernel, args=args, kws=kws,
+                   hpad=(pad_top, pad_bottom), wpad=(pad_left, pad_right)):
+                return kernel(x, *args, hpad=hpad, wpad=wpad, **kws)
         return fn
     return make
 
@@ -85,6 +98,10 @@ def _elementwise_slice_fn(op: Operator, pad_top: int, pad_bottom: int,
 
 
 _QCONV_ATTRS = ("weight_q", "stride", "mult", "zp_in", "zp_out")
+# the activation: the float convs' ``act``, the int8 convs' clamp pair
+_ACT_KW = ("act",)
+_CLAMP_KW = ("lo", "hi")
+ACTIVATIONS = ("relu", "relu6", "none")
 
 
 def pex_spec(kind: str, out_shape: Tuple[int, int, int], cin: int,
@@ -96,11 +113,13 @@ def pex_spec(kind: str, out_shape: Tuple[int, int, int], cin: int,
     oh, ow, cout = out_shape
     if kind == "conv":
         return SliceSpec(k, stride, (0,),
-                         _windowed_slice_fn("conv2d", ("weight", "stride")),
+                         _windowed_slice_fn("conv2d", ("weight", "stride"),
+                                            _ACT_KW),
                          macs_per_row=ow * cout * k * k * cin)
     if kind == "dwconv":
         return SliceSpec(k, stride, (0,),
-                         _windowed_slice_fn("dwconv2d", ("weight", "stride")),
+                         _windowed_slice_fn("dwconv2d", ("weight", "stride"),
+                                            _ACT_KW),
                          macs_per_row=ow * cout * k * k)
     if kind == "maxpool":
         return SliceSpec(k, stride, (0,),
@@ -111,11 +130,13 @@ def pex_spec(kind: str, out_shape: Tuple[int, int, int], cin: int,
                          macs_per_row=ow * cout)
     if kind == "qconv":
         return SliceSpec(k, stride, (0,),
-                         _windowed_slice_fn("qconv2d", _QCONV_ATTRS),
+                         _windowed_slice_fn("qconv2d", _QCONV_ATTRS,
+                                            _CLAMP_KW),
                          macs_per_row=ow * cout * k * k * cin)
     if kind == "qdwconv":
         return SliceSpec(k, stride, (0,),
-                         _windowed_slice_fn("qdwconv2d", _QCONV_ATTRS),
+                         _windowed_slice_fn("qdwconv2d", _QCONV_ATTRS,
+                                            _CLAMP_KW),
                          macs_per_row=ow * cout * k * k)
     if kind == "qmaxpool":
         return SliceSpec(k, stride, (0,),
@@ -133,9 +154,11 @@ def op_semantics(kind: str, attrs: Dict[str, Any]
     closure over the attr values (None for kinds without semantics)."""
     a = dict(attrs)
     if kind == "conv":
-        return lambda x: conv2d(x, a["weight"], a["stride"])
+        return lambda x: conv2d(x, a["weight"], a["stride"],
+                                act=a.get("act", "relu"))
     if kind == "dwconv":
-        return lambda x: dwconv2d(x, a["weight"], a["stride"])
+        return lambda x: dwconv2d(x, a["weight"], a["stride"],
+                                  act=a.get("act", "relu"))
     if kind == "maxpool":
         return lambda x: maxpool2d(x, a["k"], a["stride"])
     if kind == "add":
@@ -149,7 +172,8 @@ def op_semantics(kind: str, attrs: Dict[str, Any]
     if kind in ("qconv", "qdwconv"):
         kern = qconv2d if kind == "qconv" else qdwconv2d
         return lambda x: kern(x, a["weight_q"], a["stride"], a["mult"],
-                              a["zp_in"], a["zp_out"])
+                              a["zp_in"], a["zp_out"], lo=a.get("lo"),
+                              hi=a.get("hi"))
     if kind == "qmaxpool":
         return lambda x: qmaxpool2d(x, a["k"], a["stride"])
     if kind == "qavgpool":
@@ -208,21 +232,25 @@ class CNNBuilder:
                             fn=op_semantics(kind, attrs), **attrs)
         return out
 
-    def conv(self, x: str, cout: int, k: int = 1, stride: int = 1) -> str:
+    def conv(self, x: str, cout: int, k: int = 1, stride: int = 1,
+             act: str = "relu") -> str:
+        """A SAME-padded k x k conv, no bias, ending in ``act`` (one of
+        ``ACTIVATIONS``)."""
         h, w, cin = self.shapes[x]
         oh, ow = conv_out_hw(h, w, stride)
         wgt = _weight(f"conv{self._n + 1}_w", (k, k, cin, cout))
         return self._emit("conv", [x], (oh, ow, cout), cin=cin,
                           weight_bytes=wgt.nbytes, weight=wgt, k=k,
-                          stride=stride)
+                          stride=stride, act=_activation(act))
 
-    def dwconv(self, x: str, k: int = 3, stride: int = 1) -> str:
+    def dwconv(self, x: str, k: int = 3, stride: int = 1,
+               act: str = "relu") -> str:
         h, w, cin = self.shapes[x]
         oh, ow = conv_out_hw(h, w, stride)
         wgt = _weight(f"dw{self._n + 1}_w", (k, k, cin, 1))
         return self._emit("dwconv", [x], (oh, ow, cin), cin=cin,
                           weight_bytes=wgt.nbytes, weight=wgt, k=k,
-                          stride=stride)
+                          stride=stride, act=_activation(act))
 
     def maxpool(self, x: str, k: int = 2, stride: int = 2) -> str:
         h, w, c = self.shapes[x]
@@ -251,7 +279,25 @@ class CNNBuilder:
                           weight_bytes=wgt.nbytes)
 
 
+def _activation(act: str) -> str:
+    if act not in ACTIVATIONS:
+        raise ValueError(f"activation {act!r} is not one of {ACTIVATIONS}")
+    return act
+
+
 # ---------------------------------------------------------- float32 ops
+def activate(y: torch.Tensor, act: str) -> torch.Tensor:
+    """A conv's activation on its float32 output: ReLU, ReLU6 (clamped at
+    exactly 6.0) or none."""
+    if act == "relu":
+        return torch.clamp_min(y, 0.0)
+    if act == "relu6":
+        return torch.clamp(y, 0.0, 6.0)
+    if act == "none":
+        return y
+    raise ValueError(f"activation {act!r} is not one of {ACTIVATIONS}")
+
+
 def _const(w, like: torch.Tensor) -> torch.Tensor:
     """An op constant (numpy or tensor) on ``like``'s device."""
     return torch.as_tensor(w, device=like.device)
@@ -259,20 +305,21 @@ def _const(w, like: torch.Tensor) -> torch.Tensor:
 
 def _conv_f32(x: torch.Tensor, w_oihw: torch.Tensor, stride: int,
               hp: Tuple[int, int], wp: Tuple[int, int],
-              groups: int) -> torch.Tensor:
+              groups: int, act: str) -> torch.Tensor:
     squeeze = x.dim() == 3
     x4 = (x[None] if squeeze else x).permute(0, 3, 1, 2)
     x4 = F.pad(x4, (wp[0], wp[1], hp[0], hp[1]))
     # TF32 off: full float32 products, as on the reference
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         y = F.conv2d(x4, w_oihw, stride=stride, groups=groups)
-    y = torch.clamp_min(y.permute(0, 2, 3, 1), 0.0)
+    y = activate(y.permute(0, 2, 3, 1), act)
     return y[0] if squeeze else y
 
 
 def conv2d(x, w, stride: int, hpad: Optional[Tuple[int, int]] = None,
-           wpad: Optional[Tuple[int, int]] = None):
-    """x: (..., H, W, Cin) f32; w: (k, k, Cin, Cout); SAME padding; relu.
+           wpad: Optional[Tuple[int, int]] = None, act: str = "relu"):
+    """x: (..., H, W, Cin) f32; w: (k, k, Cin, Cout); SAME padding; then
+    ``act`` (relu unless given).
 
     ``hpad``/``wpad`` override the height/width padding with explicit
     (before, after) pairs — a Pex slice or 2-D tile clone gets its halo
@@ -281,18 +328,19 @@ def conv2d(x, w, stride: int, hpad: Optional[Tuple[int, int]] = None,
     hp = _pads(x.shape[-3], k, stride) if hpad is None else tuple(hpad)
     wp = _pads(x.shape[-2], w.shape[1], stride) if wpad is None else \
         tuple(wpad)
-    return _conv_f32(x, _const(w, x).permute(3, 2, 0, 1), stride, hp, wp, 1)
+    return _conv_f32(x, _const(w, x).permute(3, 2, 0, 1), stride, hp, wp, 1,
+                     act)
 
 
 def dwconv2d(x, w, stride: int, hpad: Optional[Tuple[int, int]] = None,
-             wpad: Optional[Tuple[int, int]] = None):
+             wpad: Optional[Tuple[int, int]] = None, act: str = "relu"):
     """Depthwise: w (k, k, Cin, 1)."""
     k = w.shape[0]
     hp = _pads(x.shape[-3], k, stride) if hpad is None else tuple(hpad)
     wp = _pads(x.shape[-2], w.shape[1], stride) if wpad is None else \
         tuple(wpad)
     return _conv_f32(x, _const(w, x).permute(2, 3, 0, 1), stride, hp, wp,
-                     x.shape[-1])
+                     x.shape[-1], act)
 
 
 def _window_max(x, k: int, stride: int, hp: Tuple[int, int],
@@ -361,21 +409,26 @@ def dequantize_array(q, scale: float, zp: int):
 
 def qconv2d(x, w, stride: int, mult: float, zp_in: int, zp_out: int,
             hpad: Optional[Tuple[int, int]] = None,
-            wpad: Optional[Tuple[int, int]] = None):
+            wpad: Optional[Tuple[int, int]] = None,
+            lo: Optional[int] = None, hi: Optional[int] = None):
     """x: (..., H, W, Cin) int8; w: (k, k, Cin, Cout) int8; SAME padding;
-    fused relu (lower clamp at ``zp_out``).  Through ``qconv_fused``: K1 or
-    K3 on a CUDA tensor, their plain versions on a CPU one."""
+    the activation as the int8 clamp ``[lo, hi]`` (default the fused relu:
+    ``[zp_out, 127]``).  Through ``qconv_fused``: K1 or K3 on a CUDA
+    tensor, their plain versions on a CPU one."""
     return qconv_fused(x, _const(w, x), stride=stride, mult=mult,
-                       zp_in=zp_in, zp_out=zp_out, hpad=hpad, wpad=wpad)
+                       zp_in=zp_in, zp_out=zp_out, hpad=hpad, wpad=wpad,
+                       lo=lo, hi=hi)
 
 
 def qdwconv2d(x, w, stride: int, mult: float, zp_in: int, zp_out: int,
               hpad: Optional[Tuple[int, int]] = None,
-              wpad: Optional[Tuple[int, int]] = None):
+              wpad: Optional[Tuple[int, int]] = None,
+              lo: Optional[int] = None, hi: Optional[int] = None):
     """Depthwise twin of ``qconv2d``: w (k, k, C, 1) int8; K2 on a CUDA
     tensor."""
     return qdwconv_fused(x, _const(w, x), stride=stride, mult=mult,
-                         zp_in=zp_in, zp_out=zp_out, hpad=hpad, wpad=wpad)
+                         zp_in=zp_in, zp_out=zp_out, hpad=hpad, wpad=wpad,
+                         lo=lo, hi=hi)
 
 
 def qmaxpool2d(x, k: int, stride: int,
@@ -531,36 +584,40 @@ def redistribute_receptive_field(graph: Graph, shrink: str, grow: str,
 # Rules for the arena executor (mcu/compile.py) live next to the semantics
 # they mirror.  Each rebuilds the op's computation from attrs (weights from
 # the executor's device cache, plus the explicit pads a partial-execution
-# clone carries in ``pex_pads``/``pex_wpads``).  The int8 convs and the
-# k=1, stride-1 f32 convs go through the kernel wrappers, which launch the
-# Hopper kernels on a CUDA arena and run the plain versions on a CPU one —
-# writing straight into the output's arena view either way.  Every other
-# f32 conv is ``F.conv2d`` with TF32 off, as the reference computes those
-# outside any Pallas kernel.  A zero-copy ring read reaches qconv/qdwconv/
-# qmaxpool as a ``RingWindow``: the int8 conv drop-ins hand it to K2/K3 in
-# place on the card, qmaxpool gathers it.
+# clone carries in ``pex_pads``/``pex_wpads``).  The int8 convs, the int8
+# add and the k=1, stride-1 f32 convs go through the kernel wrappers, which
+# launch the Hopper kernels on a CUDA arena and run the plain versions on a
+# CPU one — writing straight into the output's arena view either way.
+# Every other f32 conv is ``F.conv2d`` with TF32 off, as the reference
+# computes those outside any Pallas kernel.  A zero-copy ring read reaches
+# qconv/qdwconv/qmaxpool as a ``RingWindow``: the int8 conv drop-ins hand
+# it to K2/K3 in place on the card, qmaxpool gathers it.
 from repro_torch.mcu.compile import register_lowering  # noqa: E402
 
 
 @register_lowering("conv")
 def _lower_conv(ctx, op: Operator, x, *, out):
     a = op.attrs
+    act = a.get("act", "relu")
     if a.get("k", 1) == 1 and a["stride"] == 1:
         # the reference's use_pallas branch: every k=1, stride-1 f32 conv is
-        # the pointwise kernel K6 (ReLU, no bias), writing into the arena
+        # the pointwise kernel K6 (ReLU or linear, no bias), writing into
+        # the arena; a ReLU6 clamps its ceiling there afterwards
         for key in ("pex_pads", "pex_wpads"):
             assert tuple(a.get(key) or (0, 0)) == (0, 0), (op.name, key)
-        return conv1x1_fused(x, ctx.param(op, "weight")[0, 0], relu=True,
-                             out=out)
+        y = conv1x1_fused(x, ctx.param(op, "weight")[0, 0],
+                          relu=act != "none", out=out)
+        return y.clamp_max_(6.0) if act == "relu6" else y
     return conv2d(x, ctx.param(op, "weight"), a["stride"],
-                  hpad=a.get("pex_pads"), wpad=a.get("pex_wpads"))
+                  hpad=a.get("pex_pads"), wpad=a.get("pex_wpads"), act=act)
 
 
 @register_lowering("dwconv")
 def _lower_dwconv(ctx, op: Operator, x, *, out):
     return dwconv2d(x, ctx.param(op, "weight"), op.attrs["stride"],
                     hpad=op.attrs.get("pex_pads"),
-                    wpad=op.attrs.get("pex_wpads"))
+                    wpad=op.attrs.get("pex_wpads"),
+                    act=op.attrs.get("act", "relu"))
 
 
 @register_lowering("maxpool")
@@ -596,7 +653,7 @@ def _lower_qconv(ctx, op: Operator, x, *, out):
     return qconv_fused(x, ctx.param(op, "weight_q"), stride=a["stride"],
                        mult=a["mult"], zp_in=a["zp_in"], zp_out=a["zp_out"],
                        hpad=a.get("pex_pads"), wpad=a.get("pex_wpads"),
-                       out=out)
+                       out=out, lo=a.get("lo"), hi=a.get("hi"))
 
 
 @register_lowering("qdwconv")
@@ -605,7 +662,8 @@ def _lower_qdwconv(ctx, op: Operator, x, *, out):
     return qdwconv_fused(x, ctx.param(op, "weight_q"), stride=a["stride"],
                          mult=a["mult"], zp_in=a["zp_in"],
                          zp_out=a["zp_out"], hpad=a.get("pex_pads"),
-                         wpad=a.get("pex_wpads"), out=out)
+                         wpad=a.get("pex_wpads"), out=out, lo=a.get("lo"),
+                         hi=a.get("hi"))
 
 
 @register_lowering("qmaxpool")
@@ -619,9 +677,14 @@ def _lower_qmaxpool(ctx, op: Operator, x, *, out):
 
 @register_lowering("qadd")
 def _lower_qadd(ctx, op: Operator, x, y, *, out):
+    # K9 on a CUDA arena, ref.qadd on a CPU one; a ring window handed as a
+    # leg is gathered (the executor hands the add none: it is not among
+    # the zero-copy consumers)
     a = op.attrs
-    return qadd(x, y, a["mult_a"], a["mult_b"], a["zp_a"], a["zp_b"],
-                a["zp_out"])
+    x, y = (v.gather() if isinstance(v, RingWindow) else v for v in (x, y))
+    return conv_quant_ops.qadd(x, y, mult_a=a["mult_a"], mult_b=a["mult_b"],
+                               zp_a=a["zp_a"], zp_b=a["zp_b"],
+                               zp_out=a["zp_out"], out=out)
 
 
 @register_lowering("qavgpool")

@@ -17,7 +17,10 @@ _BLOCKS = [(1, 64), (2, 128), (1, 128), (2, 256), (1, 256),
            (2, 1024), (1, 1024)]
 
 
-def mobilenet_v1_graph(alpha: float = 0.25, resolution: int = 96) -> Graph:
+def mobilenet_v1_graph(alpha: float = 0.25, resolution: int = 96,
+                       num_classes: int = 2) -> Graph:
+    """Width ``alpha`` at ``resolution``; the head is ``num_classes`` wide
+    (the person detector's 2 by default, the published 1 000)."""
     g = Graph()
     b = CNNBuilder(g)
     x = b.input("input", resolution, resolution, 3)
@@ -26,6 +29,6 @@ def mobilenet_v1_graph(alpha: float = 0.25, resolution: int = 96) -> Graph:
         x = b.dwconv(x, k=3, stride=stride)
         x = b.conv(x, int(cout * alpha), k=1)
     x = b.avgpool(x)
-    x = b.fc(x, 2)
+    x = b.fc(x, num_classes)
     g.set_outputs([x])
     return g

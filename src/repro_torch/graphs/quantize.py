@@ -9,7 +9,9 @@ per-tensor activation ranges, and rewrites the graph with
 * quantized operator semantics (``graphs/cnn_ops.py``: ``qconv`` /
   ``qdwconv`` / ``qmaxpool`` / ``qadd`` / ``qavgpool`` / ``qfc`` /
   ``qconcat``) with per-tensor (scale, zero-point) requantization, exact
-  integer accumulation and round-half-even.
+  integer accumulation and round-half-even.  A conv's activation
+  (``act``) becomes its int8 clamp pair ``lo, hi`` (``int8_clamp``), as
+  TFLite's ``activation_min/max``.
 
 Topology, tensor names and operator names are preserved, so any schedule
 found for the float graph maps 1:1, and the scheduling/partition machinery
@@ -59,6 +61,28 @@ def activation_qparams(lo: float, hi: float) -> QParams:
         scale = 1.0    # degenerate all-zero tensor
     zp = int(round(INT8_MIN - lo / scale))
     return QParams(scale, max(INT8_MIN, min(INT8_MAX, zp)))
+
+
+def int8_clamp(act: str, out: QParams) -> Tuple[int, int]:
+    """The int8 ``(lo, hi)`` a conv ending in ``act`` clamps its
+    requantized output to, at the output's params: ReLU ``[zp, 127]``,
+    ReLU6 ``[zp, min(127, zp + round(6 / scale))]`` (``round`` half to
+    even), none ``[-128, 127]``.
+
+    A calibrated ReLU6 range is ``[0, m]`` with ``0 < m <= 6``, so its
+    ceiling is the grid's top.  ``hi`` is kept for where it is not: a
+    ReLU6 tensor that calibrated all zero gets scale 1.0 and ``hi`` = zp +
+    6, and params set other than by calibration may give a range wider
+    than 6; there the ceiling must still be real 6.0, as TFLite's
+    ``activation_max`` keeps it."""
+    zp = out.zero_point
+    if act == "relu":
+        return zp, INT8_MAX
+    if act == "relu6":
+        return zp, min(INT8_MAX, zp + int(round(6.0 / out.scale)))
+    if act == "none":
+        return INT8_MIN, INT8_MAX
+    raise ValueError(f"no int8 clamp for activation {act!r}")
 
 
 def weight_qparams(w: np.ndarray) -> Tuple[np.ndarray, float]:
@@ -194,9 +218,11 @@ def _quantize_op(old: Graph, new: Graph, op, qp: Dict[str, QParams]) -> None:
         wq, sw = weight_qparams(op.attrs["weight"])
         s_in, zp_in = qp[ins[0]].scale, qp[ins[0]].zero_point
         s_out, zp_out = qp[out].scale, qp[out].zero_point
+        act = op.attrs.get("act", "relu")
+        lo, hi = int8_clamp(act, qp[out])
         attrs = dict(weight_q=wq, weight_bytes=wq.nbytes, k=op.attrs["k"],
                      stride=op.attrs["stride"], mult=s_in * sw / s_out,
-                     zp_in=zp_in, zp_out=zp_out)
+                     zp_in=zp_in, zp_out=zp_out, act=act, lo=lo, hi=hi)
     elif op.kind == "maxpool":
         attrs = dict(k=op.attrs["k"], stride=op.attrs["stride"])
     elif op.kind == "avgpool":

@@ -1,4 +1,5 @@
-// The fused conv -> add epilogue of K4 and K5.
+// The fixed-point residual add: the fused conv -> add epilogue of K4 and
+// K5, and the body of K9 (qadd.cu).
 //
 // It replays the reference's fixed-point qadd bit for bit
 // (repro/kernels/conv_quant/kernel.py:_qadd_replay, cnn_ops.qadd): with
@@ -37,17 +38,17 @@ __device__ __forceinline__ int8_t qadd_replay(int y, int r, int ma, int mb,
   return (int8_t)min(max(z + zp_out, -128), 127);
 }
 
-// Requantize the conv's accumulator with the fused ReLU, then add the
-// residual lane r (lanes r_bs bytes apart, same layout as the output).
+// Requantize the conv's accumulator and clamp it to [lo, hi], then add
+// the residual lane r (lanes r_bs bytes apart, same layout as the output).
 struct RequantAdd {
   float mult;
-  int zp_out;
+  int zp_out, lo, hi;
   const int8_t* r;
   long long r_bs;
   int ma, mb, zp_a, zp_b, zp_add;
   __device__ __forceinline__ int8_t operator()(int acc, long long lane,
                                                long long idx) const {
-    const int y = requant_relu(acc, mult, zp_out);
+    const int y = requant_clamp(acc, mult, zp_out, lo, hi);
     return qadd_replay(y, r[lane * r_bs + idx], ma, mb, zp_a, zp_b, zp_add);
   }
 };

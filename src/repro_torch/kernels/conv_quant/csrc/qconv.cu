@@ -1,4 +1,4 @@
-// K3: general k x k, stride-s int8 convolution + requantize + ReLU for
+// K3: general k x k, stride-s int8 convolution + requantize + clamp for
 // Hopper (sm_90a).
 //
 // Replaces repro/kernels/conv_quant/kernel.py:qconv_pallas (via
@@ -16,9 +16,10 @@ extern "C" int qconv_launch(const void* x, const void* w, void* out, int B,
                             int Cout, int OH, int OW, int k, int stride,
                             int pad_top, int pad_left, long long x_bs,
                             long long o_bs, float mult, int zp_in,
-                            int zp_out, int bn, int ck, int device,
-                            void* stream) {
+                            int zp_out, int lo, int hi, int bn, int ck,
+                            int device, void* stream) {
   return qconv_run(x, w, out, B, H, ring_rows, src, W, Cin, Cout, OH, OW, k,
                    stride, pad_top, pad_left, x_bs, o_bs, zp_in,
-                   RequantRelu{mult, zp_out}, bn, ck, device, stream);
+                   RequantClamp{mult, zp_out, lo, hi}, bn, ck, device,
+                   stream);
 }

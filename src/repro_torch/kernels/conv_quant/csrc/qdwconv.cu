@@ -1,4 +1,4 @@
-// K2: depthwise k x k, stride-s int8 convolution + requantize + ReLU for
+// K2: depthwise k x k, stride-s int8 convolution + requantize + clamp for
 // Hopper (sm_90a).
 //
 // Replaces repro/kernels/conv_quant/kernel.py:qdwconv_pallas (via
@@ -90,8 +90,8 @@ qdwconv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                int8_t* __restrict__ out, int H, int ring_rows, int src,
                int W, int C, int OH, int OW, int k_rt, int stride,
                int pad_top, int pad_left, long long x_bs, long long o_bs,
-               float mult, int zp_in, int zp_out, int cq, int gx, int gy,
-               int ppt, int tiles_x, int tiles_c) {
+               float mult, int zp_in, int zp_out, int lo, int hi, int cq,
+               int gx, int gy, int ppt, int tiles_x, int tiles_c) {
   extern __shared__ __align__(16) int8_t smem[];
   const int k = KC ? KC : k_rt;
   const int tc = cq;                        // channels a block
@@ -226,7 +226,8 @@ qdwconv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   for (int j = 0; j < 4; ++j) {
     const int ox = ox0 + gxi * ppt + j;
     if (j >= ppt || ox >= OW) break;
-    ob[(long long)ox * C] = requant_relu(acc[j] - zp_in * wsum, mult, zp_out);
+    ob[(long long)ox * C] =
+        requant_clamp(acc[j] - zp_in * wsum, mult, zp_out, lo, hi);
   }
 }
 
@@ -240,7 +241,7 @@ struct Args {
   int H, ring_rows, src, W, C, OH, OW, k, stride, pad_top, pad_left;
   long long x_bs, o_bs;
   float mult;
-  int zp_in, zp_out, cq, gx, gy, ppt, tiles_x, tiles_c;
+  int zp_in, zp_out, lo, hi, cq, gx, gy, ppt, tiles_x, tiles_c;
 };
 
 template <int KC, int LD>
@@ -254,7 +255,7 @@ int launch(const Args& a) {
   kern<<<a.grid, THREADS, a.smem, a.stream>>>(
       a.x, a.w, a.out, a.H, a.ring_rows, a.src, a.W, a.C, a.OH, a.OW, a.k,
       a.stride, a.pad_top, a.pad_left, a.x_bs, a.o_bs, a.mult, a.zp_in,
-      a.zp_out, a.cq, a.gx, a.gy, a.ppt, a.tiles_x, a.tiles_c);
+      a.zp_out, a.lo, a.hi, a.cq, a.gx, a.gy, a.ppt, a.tiles_x, a.tiles_c);
   return (int)cudaGetLastError();
 }
 
@@ -274,8 +275,9 @@ extern "C" int qdwconv_launch(const void* x, const void* w, void* out,
                               int C, int OH, int OW, int k, int stride,
                               int pad_top, int pad_left, long long x_bs,
                               long long o_bs, float mult, int zp_in,
-                              int zp_out, int ld, int cq, int gx, int gy,
-                              int ppt, int device, void* stream) {
+                              int zp_out, int lo, int hi, int ld, int cq,
+                              int gx, int gy, int ppt, int device,
+                              void* stream) {
   if (cq * gx * gy != THREADS || ppt < 1 || ppt > 4 ||
       (ld != 16 && ld != 4 && ld != 1) || (ld > 1 && C % ld) || cq % ld ||
       src < 0 || src >= ring_rows || H < 1)
@@ -297,7 +299,7 @@ extern "C" int qdwconv_launch(const void* x, const void* w, void* out,
   a.H = H, a.ring_rows = ring_rows, a.src = src, a.W = W, a.C = C;
   a.OH = OH, a.OW = OW, a.k = k, a.stride = stride, a.pad_top = pad_top;
   a.pad_left = pad_left, a.x_bs = x_bs, a.o_bs = o_bs, a.mult = mult;
-  a.zp_in = zp_in, a.zp_out = zp_out, a.cq = cq;
+  a.zp_in = zp_in, a.zp_out = zp_out, a.lo = lo, a.hi = hi, a.cq = cq;
   a.gx = gx, a.gy = gy, a.ppt = ppt;
   return k == 3 ? launch_ld<3>(ld, a) : launch_ld<0>(ld, a);
 }

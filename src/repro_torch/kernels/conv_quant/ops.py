@@ -1,7 +1,13 @@
-"""Host wrappers of the int8 conv kernels K1–K5, and the q-op drop-ins
-``qconv_fused``/``qdwconv_fused``/``qconv_add_fused`` with the reference's
-routing rule (k=1, stride 1 and no pads to the 1x1 kernel K1/K4,
-everything else to the implicit-GEMM kernel K3/K5).
+"""Host wrappers of the int8 conv kernels K1–K5 and of the residual add
+K9, and the q-op drop-ins ``qconv_fused``/``qdwconv_fused``/
+``qconv_add_fused`` with the reference's routing rule (k=1, stride 1 and
+no pads to the 1x1 kernel K1/K4, everything else to the implicit-GEMM
+kernel K3/K5).
+
+Every conv clamps its requantized output to the activation's int8 pair
+``[lo, hi]`` (``ref.clamp_pair``: ``lo`` None is the fused ReLU's
+``zp_out``, ``hi`` None is 127); K4/K5 clamp their conv leg so, before the
+add.
 
 The device decides, not a knob (the reference's ``use_pallas`` and
 ``interpret`` are gone): on a CUDA tensor a wrapper launches its Hopper
@@ -347,9 +353,12 @@ def plan_qconv(oh: int, ow: int, cin: int, cout: int, k: int,
 
 # ------------------------------------------------------------------ kernels
 def qconv1x1(x: torch.Tensor, w: torch.Tensor, *, mult: float, zp_in: int,
-             zp_out: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+             zp_out: int, out: Optional[torch.Tensor] = None,
+             lo: Optional[int] = None, hi: Optional[int] = None
+             ) -> torch.Tensor:
     """K1: x [..., H, W, Cin] int8, w [Cin, Cout] int8 -> [..., H, W, Cout]
-    int8; the stride-1, unpadded 1x1 case of ``qconv2d`` with fused ReLU."""
+    int8; the stride-1, unpadded 1x1 case of ``qconv2d``, clamped to
+    ``[lo, hi]``."""
     _require_int8("x", x)
     _require_int8("w", w)
     lanes, x_bs = _lanes("x", x)
@@ -360,13 +369,14 @@ def qconv1x1(x: torch.Tensor, w: torch.Tensor, *, mult: float, zp_in: int,
     shape = (*xs[:-1], ws[1])
     if x.is_cpu:
         return _plain(ref.qconv1x1_ref(x, w, mult=mult, zp_in=zp_in,
-                                       zp_out=zp_out), out)
+                                       zp_out=zp_out, lo=lo, hi=hi), out)
     out = _destination(out, shape, x)
     _, o_bs = _lanes("out", out)
     if out.numel():
         # ctypes rounds mult to float32 as np.float32 does (to nearest)
         _launch("qconv1x1", x, w, out, lanes, m, cin, ws[1], x_bs, o_bs,
-                float(mult), zp_in, zp_out, split_k=(lanes, m, cin, ws[1]))
+                float(mult), zp_in, zp_out, *ref.clamp_pair(zp_out, lo, hi),
+                split_k=(lanes, m, cin, ws[1]))
         qconv1x1.launches += 1
     return out
 
@@ -375,13 +385,14 @@ def _launch_qconv(name: str, x: torch.Tensor, w: torch.Tensor,
                   out: torch.Tensor, lanes: int, x_bs: int, o_bs: int,
                   h: int, src: int, cout: int, oh: int, ow: int, k: int,
                   stride: int, hpad, wpad, mult: float, zp_in: int,
-                  zp_out: int, *res) -> None:
-    """K3 or K5 over ``lanes`` lanes, with their tile plan."""
+                  zp_out: int, clamp: Tuple[int, int], *res) -> None:
+    """K3 or K5 over ``lanes`` lanes, with their tile plan; ``clamp`` is
+    the conv's ``(lo, hi)``."""
     rows, wd, cin = x.shape[-3:]
     bn, ck = _qconv_plan(oh, ow, cin, cout, k, stride)
     _launch(name, x, w, out, lanes, h, rows, src, wd, cin, cout, oh, ow, k,
             stride, hpad[0], wpad[0], x_bs, o_bs, float(np.float32(mult)),
-            zp_in, zp_out, *res, bn, ck)
+            zp_in, zp_out, *clamp, *res, bn, ck)
 
 
 _qconv_plan = functools.lru_cache(maxsize=1024)(plan_qconv)
@@ -390,10 +401,12 @@ _qconv_plan = functools.lru_cache(maxsize=1024)(plan_qconv)
 def qconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
           zp_in: int, zp_out: int, hpad: Tuple[int, int],
           wpad: Tuple[int, int], out: Optional[torch.Tensor] = None,
-          src: int = 0, n: Optional[int] = None) -> torch.Tensor:
+          src: int = 0, n: Optional[int] = None, lo: Optional[int] = None,
+          hi: Optional[int] = None) -> torch.Tensor:
     """K3: x [..., H, W, Cin] int8, w [k, k, Cin, Cout] int8 ->
-    [..., OH, OW, Cout] int8, explicit (before, after) pads, fused ReLU.
-    With ``n``, x is a ring and the input its window (src, n)."""
+    [..., OH, OW, Cout] int8, explicit (before, after) pads, clamped to
+    ``[lo, hi]``.  With ``n``, x is a ring and the input its window (src,
+    n)."""
     _require_int8("x", x)
     _require_int8("w", w)
     lanes, x_bs = _lanes("x", x)
@@ -406,14 +419,15 @@ def qconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
     oh, ow = _out_hw(h, wd, k, stride, hpad, wpad)
     if x.device.type == "cpu":
         qp = dict(stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
-                  hpad=hpad, wpad=wpad)
+                  hpad=hpad, wpad=wpad, lo=lo, hi=hi)
         return _plain(ref.qconv_ref(x, w, **qp) if n is None else
                       ref.qconv_ring_ref(x, w, src=src, n=h, **qp), out)
     out = _destination(out, (*x.shape[:-3], oh, ow, cout), x)
     _, o_bs = _lanes("out", out)
     if out.numel():
         _launch_qconv("qconv", x, w, out, lanes, x_bs, o_bs, h, src, cout,
-                      oh, ow, k, stride, hpad, wpad, mult, zp_in, zp_out)
+                      oh, ow, k, stride, hpad, wpad, mult, zp_in, zp_out,
+                      ref.clamp_pair(zp_out, lo, hi))
         qconv.launches += 1
     return out
 
@@ -421,10 +435,11 @@ def qconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
 def qdwconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
             zp_in: int, zp_out: int, hpad: Tuple[int, int],
             wpad: Tuple[int, int], out: Optional[torch.Tensor] = None,
-            src: int = 0, n: Optional[int] = None) -> torch.Tensor:
+            src: int = 0, n: Optional[int] = None, lo: Optional[int] = None,
+            hi: Optional[int] = None) -> torch.Tensor:
     """K2: x [..., H, W, C] int8, w [k, k, C] int8 -> [..., OH, OW, C] int8
-    (depthwise), explicit (before, after) pads, fused ReLU.  With ``n``,
-    x is a ring and the input its window (src, n)."""
+    (depthwise), explicit (before, after) pads, clamped to ``[lo, hi]``.
+    With ``n``, x is a ring and the input its window (src, n)."""
     _require_int8("x", x)
     _require_int8("w", w)
     lanes, x_bs = _lanes("x", x)
@@ -436,7 +451,7 @@ def qdwconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
     oh, ow = _out_hw(h, wd, k, stride, hpad, wpad)
     if x.device.type == "cpu":
         qp = dict(stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
-                  hpad=hpad, wpad=wpad)
+                  hpad=hpad, wpad=wpad, lo=lo, hi=hi)
         return _plain(ref.qdwconv_ref(x, w, **qp) if n is None else
                       ref.qdwconv_ring_ref(x, w, src=src, n=h, **qp), out)
     out = _destination(out, (*x.shape[:-3], oh, ow, c), x)
@@ -447,6 +462,7 @@ def qdwconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
         _launch("qdwconv", x, w, out, lanes, h, rows, src, wd, c, oh, ow, k,
                 stride, hpad[0], wpad[0], x_bs, o_bs,
                 float(np.float32(mult)), zp_in, zp_out,
+                *ref.clamp_pair(zp_out, lo, hi),
                 load_width(c, x.data_ptr(), x_bs), *plan)
         qdwconv.launches += 1
     return out
@@ -469,10 +485,13 @@ def _dw_plan(lanes: int, oh: int, ow: int, c: int, k: int, stride: int,
 def qconv1x1_add(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
                  mult: float, zp_in: int, zp_out: int,
                  add_params: Tuple[float, float, int, int, int],
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K4: K1, then the fixed-point ``qadd`` with the residual ``r`` [...,
-    H, W, Cout] int8; ``add_params = (mult_a, mult_b, zp_a, zp_b,
-    zp_out)``, leg *a* being the conv's output."""
+                 out: Optional[torch.Tensor] = None,
+                 lo: Optional[int] = None, hi: Optional[int] = None
+                 ) -> torch.Tensor:
+    """K4: K1 (its output clamped to ``[lo, hi]``), then the fixed-point
+    ``qadd`` with the residual ``r`` [..., H, W, Cout] int8; ``add_params
+    = (mult_a, mult_b, zp_a, zp_b, zp_out)``, leg *a* being the conv's
+    output."""
     _require_int8("x", x)
     _require_int8("w", w)
     lanes, x_bs = _lanes("x", x)
@@ -485,12 +504,13 @@ def qconv1x1_add(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
     if x.is_cpu:
         return _plain(ref.qconv1x1_add_ref(
             x, w, r, mult=mult, zp_in=zp_in, zp_out=zp_out,
-            add_params=add_params), out)
+            add_params=add_params, lo=lo, hi=hi), out)
     out = _destination(out, shape, x)
     _, o_bs = _lanes("out", out)
     if out.numel():
         _launch("qconv1x1_add", x, w, out, lanes, m, cin, ws[1], x_bs, o_bs,
-                float(mult), zp_in, zp_out, *res,
+                float(mult), zp_in, zp_out, *ref.clamp_pair(zp_out, lo, hi),
+                *res,
                 split_k=(lanes, m, cin, ws[1]))
         qconv1x1_add.launches += 1
     return out
@@ -501,9 +521,10 @@ def qconv_add(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
               hpad: Tuple[int, int], wpad: Tuple[int, int],
               add_params: Tuple[float, float, int, int, int],
               out: Optional[torch.Tensor] = None, src: int = 0,
-              n: Optional[int] = None) -> torch.Tensor:
-    """K5: K3, then the fixed-point ``qadd`` with the residual ``r`` [...,
-    OH, OW, Cout] int8."""
+              n: Optional[int] = None, lo: Optional[int] = None,
+              hi: Optional[int] = None) -> torch.Tensor:
+    """K5: K3 (its output clamped to ``[lo, hi]``), then the fixed-point
+    ``qadd`` with the residual ``r`` [..., OH, OW, Cout] int8."""
     _require_int8("x", x)
     _require_int8("w", w)
     lanes, x_bs = _lanes("x", x)
@@ -518,7 +539,7 @@ def qconv_add(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
     res = _residual(r, shape, x, add_params)
     if x.device.type == "cpu":
         qp = dict(stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
-                  hpad=hpad, wpad=wpad, add_params=add_params)
+                  hpad=hpad, wpad=wpad, add_params=add_params, lo=lo, hi=hi)
         return _plain(ref.qconv_add_ref(x, w, r, **qp) if n is None else
                       ref.qconv_add_ring_ref(x, w, r, src=src, n=h, **qp),
                       out)
@@ -527,8 +548,43 @@ def qconv_add(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
     if out.numel():
         _launch_qconv("qconv_add", x, w, out, lanes, x_bs, o_bs, h, src,
                       cout, oh, ow, k, stride, hpad, wpad, mult, zp_in,
-                      zp_out, *res)
+                      zp_out, ref.clamp_pair(zp_out, lo, hi), *res)
         qconv_add.launches += 1
+    return out
+
+
+def qadd(a: torch.Tensor, b: torch.Tensor, *, mult_a: float, mult_b: float,
+         zp_a: int, zp_b: int, zp_out: int,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K9: the residual add ``ref.qadd`` (int8 + int8 -> int8, fixed point,
+    no ReLU) as one launch over every lane.  ``a``, ``b`` and ``out`` are
+    [..., H, W, C] int8 of one shape, each lane contiguous, lanes any
+    number of bytes apart: the legs are read and the sum written where
+    they lie in the arena."""
+    _require_int8("a", a)
+    _require_int8("b", b)
+    lanes, a_bs = _lanes("a", a)
+    if b.shape != a.shape or not _same_device(b, a):
+        raise ValueError(f"b is {tuple(b.shape)} on {b.device}, expected "
+                         f"{tuple(a.shape)} on {a.device}")
+    _, b_bs = _lanes("b", b)
+    if a.is_cpu:
+        return _plain(ref.qadd(a, b, mult_a, mult_b, zp_a, zp_b, zp_out),
+                      out)
+    out = _destination(out, a.shape, a)
+    _, o_bs = _lanes("out", out)
+    n = a.numel() // max(lanes, 1)
+    if out.numel():
+        _require_cuda("qadd", a, b, out)
+        ma, mb = ref.qadd_multipliers(mult_a, mult_b)
+        dev = a.get_device()
+        CONV_QUANT.launch(
+            "qadd", a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes, n,
+            a_bs, b_bs, o_bs, ma, mb, int(zp_a), int(zp_b), int(zp_out),
+            load_width(n, a.data_ptr(), a_bs, b.data_ptr(), b_bs,
+                       out.data_ptr(), o_bs),
+            dev, _current_stream(dev))
+        qadd.launches += 1
     return out
 
 
@@ -537,8 +593,10 @@ qconv.launches = 0
 qdwconv.launches = 0
 qconv1x1_add.launches = 0
 qconv_add.launches = 0
+qadd.launches = 0
 KERNEL_WRAPPERS = {"qconv1x1": qconv1x1, "qdwconv": qdwconv, "qconv": qconv,
-                   "qconv1x1_add": qconv1x1_add, "qconv_add": qconv_add}
+                   "qconv1x1_add": qconv1x1_add, "qconv_add": qconv_add,
+                   "qadd": qadd}
 
 
 def _gathered(x: Union[torch.Tensor, RingWindow]) -> torch.Tensor:
@@ -564,22 +622,24 @@ def qconv_fused(x: Union[torch.Tensor, RingWindow], w: torch.Tensor, *,
                 stride: int, mult: float, zp_in: int, zp_out: int,
                 hpad: Optional[Tuple[int, int]] = None,
                 wpad: Optional[Tuple[int, int]] = None,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                out: Optional[torch.Tensor] = None, lo: Optional[int] = None,
+                hi: Optional[int] = None) -> torch.Tensor:
     """Drop-in for ``qconv2d`` (w in the graph's (k, k, Cin, Cout) layout,
-    SAME pads unless ``hpad``/``wpad`` override them), bit-identical.
-    k=1, stride=1 and no pads go to K1, everything else to K3.  ``x`` may
-    be a ``RingWindow``: K3 reads it in place, K1 a gathered copy."""
+    SAME pads unless ``hpad``/``wpad`` override them, clamped to ``[lo,
+    hi]``), bit-identical.  k=1, stride=1 and no pads go to K1,
+    everything else to K3.  ``x`` may be a ``RingWindow``: K3 reads it in
+    place, K1 a gathered copy."""
     hpad = None if hpad is None else tuple(hpad)
     wpad = None if wpad is None else tuple(wpad)
     k = w.shape[0]
     if _is_1x1(k, stride, hpad, wpad):
         return qconv1x1(_gathered(x), w.reshape(w.shape[2:]), mult=mult,
-                        zp_in=zp_in, zp_out=zp_out, out=out)
+                        zp_in=zp_in, zp_out=zp_out, out=out, lo=lo, hi=hi)
     hp = _pads(x.shape[-3], k, stride) if hpad is None else hpad
     wp = _pads(x.shape[-2], w.shape[1], stride) if wpad is None else wpad
     x, ring = _in_place(x)
     return qconv(x, w, stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
-                 hpad=hp, wpad=wp, out=out, **ring)
+                 hpad=hp, wpad=wp, out=out, lo=lo, hi=hi, **ring)
 
 
 def qconv_add_fused(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
@@ -587,12 +647,15 @@ def qconv_add_fused(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
                     add_params: Tuple[float, float, int, int, int],
                     hpad: Optional[Tuple[int, int]] = None,
                     wpad: Optional[Tuple[int, int]] = None,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None,
+                    lo: Optional[int] = None, hi: Optional[int] = None
+                    ) -> torch.Tensor:
     """Drop-in for a ``qconv2d -> qadd`` chain (residual ``r`` is the add's
     second leg), bit-identical to the two q-ops run separately.  ``w`` is
     in the graph's (k, k, Cin, Cout) layout; ``add_params = (mult_a,
-    mult_b, zp_a, zp_b, zp_out)`` in the qadd argument order.  k=1,
-    stride=1 and no pads go to K4, everything else to K5."""
+    mult_b, zp_a, zp_b, zp_out)`` in the qadd argument order; ``lo, hi``
+    the conv's clamp.  k=1, stride=1 and no pads go to K4, everything
+    else to K5."""
     hpad = None if hpad is None else tuple(hpad)
     wpad = None if wpad is None else tuple(wpad)
     add_params = tuple(add_params)
@@ -600,22 +663,24 @@ def qconv_add_fused(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
     if _is_1x1(k, stride, hpad, wpad):
         return qconv1x1_add(x, w.reshape(w.shape[2:]), r, mult=mult,
                             zp_in=zp_in, zp_out=zp_out,
-                            add_params=add_params, out=out)
+                            add_params=add_params, out=out, lo=lo, hi=hi)
     hp = _pads(x.shape[-3], k, stride) if hpad is None else hpad
     wp = _pads(x.shape[-2], w.shape[1], stride) if wpad is None else wpad
     return qconv_add(x, w, r, stride=stride, mult=mult, zp_in=zp_in,
                      zp_out=zp_out, hpad=hp, wpad=wp, add_params=add_params,
-                     out=out)
+                     out=out, lo=lo, hi=hi)
 
 
 def qdwconv_fused(x: Union[torch.Tensor, RingWindow], w: torch.Tensor, *,
                   stride: int, mult: float, zp_in: int, zp_out: int,
                   hpad: Optional[Tuple[int, int]] = None,
                   wpad: Optional[Tuple[int, int]] = None,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Drop-in for ``qdwconv2d`` (w in the graph's (k, k, C, 1) layout),
-    bit-identical; always K2, which reads a ``RingWindow`` ``x`` in
-    place."""
+                  out: Optional[torch.Tensor] = None,
+                  lo: Optional[int] = None, hi: Optional[int] = None
+                  ) -> torch.Tensor:
+    """Drop-in for ``qdwconv2d`` (w in the graph's (k, k, C, 1) layout,
+    clamped to ``[lo, hi]``), bit-identical; always K2, which reads a
+    ``RingWindow`` ``x`` in place."""
     k = w.shape[0]
     hp = _pads(x.shape[-3], k, stride) if hpad is None else tuple(hpad)
     wp = _pads(x.shape[-2], w.shape[1], stride) if wpad is None else \
@@ -623,10 +688,11 @@ def qdwconv_fused(x: Union[torch.Tensor, RingWindow], w: torch.Tensor, *,
     x, ring = _in_place(x)
     return qdwconv(x, w.reshape(k, w.shape[1], x.shape[-1]), stride=stride,
                    mult=mult, zp_in=zp_in, zp_out=zp_out, hpad=hp, wpad=wp,
-                   out=out, **ring)
+                   out=out, lo=lo, hi=hi, **ring)
 
 
 __all__ = ["qconv1x1", "qconv", "qdwconv", "qconv1x1_add", "qconv_add",
+           "qadd",
            "qconv_fused", "qdwconv_fused", "qconv_add_fused",
            "KERNEL_WRAPPERS", "plan_split_k", "RingWindow", "ring_spans",
            "reads_in_place", "plan_dw_tile", "dw_tile", "dw_smem",

@@ -3,8 +3,11 @@
 Each is the q-op written out directly: a **float64** convolution of
 ``x - zp_in`` with the int8 weights, cast to int32, then the literal
 requantize of ``repro``'s ``cnn_ops.requantize``:
-``round(f32(acc) * f32(mult)) + zp_out``, clipped to ``[zp_out, 127]``
-(the fused ReLU) and cast to int8.
+``round(f32(acc) * f32(mult)) + zp_out``, clipped to the activation's
+int8 clamp pair ``[lo, hi]`` and cast to int8.  The pair is TFLite's
+``activation_min/max``: ``[zp_out, 127]`` for a ReLU (the default, ``lo``
+None), ``[zp_out, min(127, zp_out + round(6 / s_out))]`` for a ReLU6 and
+``[-128, 127]`` for a linear conv (``graphs/quantize.py`` sets it).
 
 The float64 convolution is exact: every partial sum is an integer of
 magnitude at most k²·Cin·255·127 < 2**53, so any summation order gives
@@ -30,7 +33,7 @@ it, so that the plain K4/K5 and the graph op are one function).
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,14 +53,27 @@ def f32_scalar(value: float, device: torch.device) -> torch.Tensor:
 
 
 def requantize(acc: torch.Tensor, mult: float, zp_out: int,
-               lo: int = INT8_MIN) -> torch.Tensor:
-    """int32 accumulator -> int8 at the output (scale, zero_point).  ``lo``
-    is the lower clamp: ``zp_out`` for fused relu (real 0), -128 otherwise.
-    ``mult`` is applied as ``np.float32(mult)`` in a float32 tensor, never
-    as a Python float, so the product is the reference's float32 one."""
+               lo: int = INT8_MIN, hi: int = INT8_MAX) -> torch.Tensor:
+    """int32 accumulator -> int8 at the output (scale, zero_point), clamped
+    to ``[lo, hi]``: ``zp_out`` below for a fused relu (real 0), -128
+    otherwise.  ``mult`` is applied as ``np.float32(mult)`` in a float32
+    tensor, never as a Python float, so the product is the reference's
+    float32 one."""
     m = f32_scalar(mult, acc.device)
     y = torch.round(acc.to(torch.float32) * m) + zp_out
-    return torch.clamp(y, lo, INT8_MAX).to(torch.int8)
+    return torch.clamp(y, lo, hi).to(torch.int8)
+
+
+def clamp_pair(zp_out: int, lo: Optional[int] = None,
+               hi: Optional[int] = None) -> Tuple[int, int]:
+    """The conv's int8 clamp ``(lo, hi)``; ``lo`` None is the fused ReLU's
+    ``zp_out`` and ``hi`` None is 127.  Refuses an empty pair."""
+    lo = int(zp_out) if lo is None else int(lo)
+    hi = INT8_MAX if hi is None else int(hi)
+    if not INT8_MIN <= lo <= hi <= INT8_MAX:
+        raise ValueError(f"int8 clamp [{lo}, {hi}] is not within "
+                         f"[{INT8_MIN}, {INT8_MAX}]")
+    return lo, hi
 
 
 def _conv_acc(x: torch.Tensor, w_oihw: torch.Tensor, stride: int, zp_in: int,
@@ -76,30 +92,34 @@ def _conv_acc(x: torch.Tensor, w_oihw: torch.Tensor, stride: int, zp_in: int,
 
 
 def qconv1x1_ref(x: torch.Tensor, w: torch.Tensor, *, mult: float,
-                 zp_in: int, zp_out: int) -> torch.Tensor:
+                 zp_in: int, zp_out: int, lo: Optional[int] = None,
+                 hi: Optional[int] = None) -> torch.Tensor:
     """K1's function: x [..., H, W, Cin] int8, w [Cin, Cout] int8 ->
     [..., H, W, Cout] int8."""
     acc = torch.matmul(x.to(torch.float64) - zp_in, w.to(torch.float64))
-    return requantize(acc.to(torch.int32), mult, zp_out, lo=zp_out)
+    return requantize(acc.to(torch.int32), mult, zp_out,
+                      *clamp_pair(zp_out, lo, hi))
 
 
 def qconv_ref(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
               zp_in: int, zp_out: int, hpad: Tuple[int, int],
-              wpad: Tuple[int, int]) -> torch.Tensor:
+              wpad: Tuple[int, int], lo: Optional[int] = None,
+              hi: Optional[int] = None) -> torch.Tensor:
     """K3's function: x [..., H, W, Cin] int8, w [k, k, Cin, Cout] int8 ->
     [..., OH, OW, Cout] int8 with explicit (before, after) pads."""
     acc = _conv_acc(x, w.permute(3, 2, 0, 1), stride, zp_in, hpad, wpad)
-    return requantize(acc, mult, zp_out, lo=zp_out)
+    return requantize(acc, mult, zp_out, *clamp_pair(zp_out, lo, hi))
 
 
 def qdwconv_ref(x: torch.Tensor, w: torch.Tensor, *, stride: int,
                 mult: float, zp_in: int, zp_out: int, hpad: Tuple[int, int],
-                wpad: Tuple[int, int]) -> torch.Tensor:
+                wpad: Tuple[int, int], lo: Optional[int] = None,
+                hi: Optional[int] = None) -> torch.Tensor:
     """K2's function: x [..., H, W, C] int8, w [k, k, C] int8 (depthwise)
     -> [..., OH, OW, C] int8 with explicit (before, after) pads."""
     acc = _conv_acc(x, w.permute(2, 0, 1)[:, None], stride, zp_in, hpad,
                     wpad, groups=x.shape[-1])
-    return requantize(acc, mult, zp_out, lo=zp_out)
+    return requantize(acc, mult, zp_out, *clamp_pair(zp_out, lo, hi))
 
 
 def ring_window(ring: torch.Tensor, src: int, n: int) -> torch.Tensor:
@@ -154,7 +174,8 @@ def _round_half_even_rshift(acc: torch.Tensor, shift: int) -> torch.Tensor:
 
 def qadd(a: torch.Tensor, b: torch.Tensor, mult_a: float, mult_b: float,
          zp_a: int, zp_b: int, zp_out: int) -> torch.Tensor:
-    """int8 + int8 -> int8 at the output params, no ReLU."""
+    """int8 + int8 -> int8 at the output params, no ReLU.  Also K9's plain
+    version (``ops.qadd``)."""
     ma, mb = qadd_multipliers(mult_a, mult_b)
     acc = ((a.to(torch.int32) - zp_a) * ma
            + (b.to(torch.int32) - zp_b) * mb)
@@ -164,24 +185,27 @@ def qadd(a: torch.Tensor, b: torch.Tensor, mult_a: float, mult_b: float,
 
 def qconv1x1_add_ref(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
                      mult: float, zp_in: int, zp_out: int,
-                     add_params: Tuple[float, float, int, int, int]
+                     add_params: Tuple[float, float, int, int, int],
+                     lo: Optional[int] = None, hi: Optional[int] = None
                      ) -> torch.Tensor:
     """K4's function: K1's, then ``qadd`` with the residual ``r`` [..., H,
     W, Cout] int8.  ``add_params = (mult_a, mult_b, zp_a, zp_b, zp_out)``,
     leg *a* being the conv's output."""
-    y = qconv1x1_ref(x, w, mult=mult, zp_in=zp_in, zp_out=zp_out)
+    y = qconv1x1_ref(x, w, mult=mult, zp_in=zp_in, zp_out=zp_out, lo=lo,
+                     hi=hi)
     return qadd(y, r, *add_params)
 
 
 def qconv_add_ref(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
                   stride: int, mult: float, zp_in: int, zp_out: int,
                   hpad: Tuple[int, int], wpad: Tuple[int, int],
-                  add_params: Tuple[float, float, int, int, int]
+                  add_params: Tuple[float, float, int, int, int],
+                  lo: Optional[int] = None, hi: Optional[int] = None
                   ) -> torch.Tensor:
     """K5's function: K3's, then ``qadd`` with the residual ``r`` [..., OH,
     OW, Cout] int8."""
     y = qconv_ref(x, w, stride=stride, mult=mult, zp_in=zp_in,
-                  zp_out=zp_out, hpad=hpad, wpad=wpad)
+                  zp_out=zp_out, hpad=hpad, wpad=wpad, lo=lo, hi=hi)
     return qadd(y, r, *add_params)
 
 
@@ -191,8 +215,8 @@ def qconv_add_ring_ref(ring: torch.Tensor, w: torch.Tensor, r: torch.Tensor,
     return qconv_add_ref(ring_window(ring, src, n), w, r, **kw)
 
 
-__all__ = ["f32_scalar", "requantize", "qconv1x1_ref", "qconv_ref",
-           "qdwconv_ref", "qadd", "qadd_multipliers", "qconv1x1_add_ref",
-           "qconv_add_ref", "QADD_SHIFT", "INT8_MIN", "INT8_MAX",
-           "ring_window", "qconv_ring_ref", "qdwconv_ring_ref",
+__all__ = ["f32_scalar", "requantize", "clamp_pair", "qconv1x1_ref",
+           "qconv_ref", "qdwconv_ref", "qadd", "qadd_multipliers",
+           "qconv1x1_add_ref", "qconv_add_ref", "QADD_SHIFT", "INT8_MIN",
+           "INT8_MAX", "ring_window", "qconv_ring_ref", "qdwconv_ring_ref",
            "qconv_add_ring_ref"]
