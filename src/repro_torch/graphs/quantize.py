@@ -17,7 +17,10 @@ Topology, tensor names and operator names are preserved, so any schedule
 found for the float graph maps 1:1, and the scheduling/partition machinery
 runs unchanged on the quantized graph — just over 4x smaller byte sizes.
 ``QParams``, ``activation_qparams``, ``weight_qparams`` and
-``int8_scheduling_graph`` are numpy, as in the reference.
+``int8_scheduling_graph`` are numpy, as in the reference, but for
+``QParams.quantize``, the client edge's input quantize: it runs one pass
+of a host kernel (``kernels/host_quant``), bit-identical to the
+reference's numpy expression.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 from repro_torch.core.graph import Graph
 from repro_torch.core.partition import PEX_ATTR
 from repro_torch.device import resolve_device
+from repro_torch.kernels.host_quant import quantize_int8
 
 from .cnn_ops import INT8_MAX, INT8_MIN, op_semantics, pex_spec
 
@@ -42,8 +46,8 @@ class QParams:
     zero_point: int
 
     def quantize(self, x: np.ndarray) -> np.ndarray:
-        q = np.round(np.asarray(x, np.float32) / np.float32(self.scale))
-        return np.clip(q + self.zero_point, INT8_MIN, INT8_MAX).astype(np.int8)
+        """``clip(round(x / scale) + zero_point)`` in float32, as int8."""
+        return quantize_int8(x, self.scale, self.zero_point)
 
     def dequantize(self, q: np.ndarray) -> np.ndarray:
         return ((np.asarray(q, np.float32) - self.zero_point)

@@ -1,16 +1,20 @@
-"""Build and load the port's Hopper kernels (``<package>/csrc/*.cu``) at
-first use.
+"""Build and load the port's kernels at first use: the Hopper kernels
+(``<package>/csrc/*.cu``) and the host kernels (``<package>/csrc/*.cpp``).
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds).  The libraries go under
+Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a``, each ``.cpp``
+source by the host's ``g++`` (``HOST_FLAGS``: ``-O3``, and no flag
+that lets the compiler change the floating-point arithmetic), into its own
+shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  The libraries go under
 ``src/repro_torch/kernels/_build/`` (git-ignored), named by a hash of
 their source, the headers beside it and the flags: a stale library is
-never loaded, and an unchanged one is not rebuilt.  ``build()`` starts one
-``nvcc`` per missing library, all at once, and waits for them;
-``build_all()`` does that for every kernel of every package.  Nothing here
-runs at import.  ``-Xptxas -v`` is on: ``PTXAS`` keeps, per library built
-by this process, each kernel's registers, stack and spill bytes.
+never loaded, and an unchanged one is not rebuilt.  A library is written
+to a temporary file and renamed into place, so processes that build it at
+once each load a whole one.  ``build()`` starts one compiler per missing
+library, all at once, and waits for them; ``build_all()`` does that for
+every card kernel of every package.  Nothing here runs at import.
+``-Xptxas -v`` is on: ``PTXAS`` keeps, per CUDA library built by this
+process, each kernel's registers, stack and spill bytes.
 
 A kernel package declares its kernels as a ``KernelSet``: its ``csrc``
 directory and the C signature of each ``<name>_launch`` function.  Every
@@ -36,6 +40,10 @@ from typing import Any, Dict, List, Sequence, Tuple
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# no -ffast-math or -freciprocal-math: a host kernel's divisions and
+# roundings are the IEEE ones its numpy oracle makes; no FMA contraction
+HOST_FLAGS = ("-std=c++17", "-O3", "-fno-math-errno", "-ffp-contract=off",
+              "-shared", "-fPIC")
 # library name -> "<kernel>: N registers, S B stack, T/L B spill stores/
 # loads" for each kernel ptxas compiled in this process
 PTXAS: Dict[str, List[str]] = {}
@@ -56,11 +64,34 @@ def nvcc() -> str:
                        "need the CUDA toolkit")
 
 
+def cxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("no C++ compiler (g++) found: the port's host "
+                       "kernels are built from "
+                       "src/repro_torch/kernels/*/csrc/*.cpp at first use "
+                       "and need it")
+
+
+# a kernel's source suffix -> the suffix of the headers beside it that
+# its library's hash covers, and its compiler's flags
+_KINDS = {".cu": (".cuh", NVCC_FLAGS), ".cpp": (".h", HOST_FLAGS)}
+
+
+def _source(csrc: Path, name: str) -> Path:
+    """``<name>.cpp`` (a host kernel) where there is one, else
+    ``<name>.cu``."""
+    host = csrc / f"{name}.cpp"
+    return host if host.exists() else csrc / f"{name}.cu"
+
+
 def library_path(csrc: Path, name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    source = _source(csrc, name)
+    header, flags = _KINDS[source.suffix]
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sorted(csrc.iterdir()):
-        if src.suffix in (".cu", ".cuh") and (
-                src.suffix == ".cuh" or src.stem == name):
+        if src.suffix == header or src == source:
             h.update(src.name.encode())
             h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -103,7 +134,7 @@ def ptxas_summary(log: str) -> List[str]:
 
 def build(targets: Sequence[Tuple[Path, str]]) -> Dict[str, float]:
     """Compile every library of ``targets`` (``(csrc, name)`` pairs) that
-    is missing, one ``nvcc`` per source, all started together.  Returns
+    is missing, one compiler per source, all started together.  Returns
     the seconds each build took (0.0 for a library already built); raises
     on any failure."""
     with _lock:
@@ -114,24 +145,28 @@ def build(targets: Sequence[Tuple[Path, str]]) -> Dict[str, float]:
             if target.exists():
                 continue
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(csrc / f"{name}.cu")]
-            procs[name] = (time.perf_counter(), tmp, target,
+            source = _source(csrc, name)
+            compiler = nvcc() if source.suffix == ".cu" else cxx()
+            cmd = [compiler, *_KINDS[source.suffix][1], "-o", str(tmp),
+                   str(source)]
+            procs[name] = (time.perf_counter(), tmp, target, source,
                            subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True))
         seconds = {name: 0.0 for _, name in targets}
         errors = []
-        for name, (t0, tmp, target, proc) in procs.items():
+        for name, (t0, tmp, target, source, proc) in procs.items():
             log, _ = proc.communicate()
             seconds[name] = time.perf_counter() - t0
             if proc.returncode != 0:
-                errors.append(f"nvcc failed for {name}.cu "
-                              f"(exit {proc.returncode}):\n{log}")
+                errors.append(f"{Path(proc.args[0]).name} failed for "
+                              f"{source.name} (exit {proc.returncode}):"
+                              f"\n{log}")
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, target)
-                PTXAS[name] = ptxas_summary(log)
+                if source.suffix == ".cu":
+                    PTXAS[name] = ptxas_summary(log)
         if errors:
             raise RuntimeError("\n".join(errors))
         return seconds
@@ -188,7 +223,8 @@ class KernelSet:
 
 
 def build_all() -> Dict[str, float]:
-    """Build every kernel of the port at once (one ``nvcc`` per source)."""
+    """Build every card kernel of the port at once (one ``nvcc`` per
+    source); a host kernel builds at its first call."""
     from repro_torch.kernels.conv_pointwise.build import CONV_POINTWISE
     from repro_torch.kernels.conv_quant.build import CONV_QUANT
     from repro_torch.kernels.decode_attention.build import DECODE_ATTENTION
@@ -198,5 +234,5 @@ def build_all() -> Dict[str, float]:
                   for n in ks.names])
 
 
-__all__ = ["BUILD_DIR", "KernelSet", "PTXAS", "build", "build_all",
-           "library_path", "nvcc", "ptxas_summary"]
+__all__ = ["BUILD_DIR", "HOST_FLAGS", "KernelSet", "PTXAS", "build",
+           "build_all", "cxx", "library_path", "nvcc", "ptxas_summary"]

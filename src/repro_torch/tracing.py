@@ -28,7 +28,13 @@ so ``Deployment.phase_s`` keeps them always.
 
 Counts live beside the work they count, as the kernel wrappers'
 ``launches`` do: ``CompiledExecutor.counters`` and the engine's own,
-read together through ``ShardedServingEngine.counters``.
+read together through ``ShardedServingEngine.counters``; and the client
+edge's host quantize (``kernels/host_quant``), ``quantize_int8.calls``
+and ``quantize_int8.elements``, one call and the image's elements a
+request ``Deployment.quantize_inputs`` quantizes (none for a float32
+deployment).  Read each as a difference between two reads.  The host
+quantize is not among ``cuda_graphs.kernel_wrappers()``: their launches
+are the card's.
 """
 from __future__ import annotations
 

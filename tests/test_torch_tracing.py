@@ -1,16 +1,18 @@
 """The port's own spans and counters (``repro_torch.tracing``): no span
 while tracing is off, the serving and build spans nested as documented
 while it is on, the executors' and the engine's running counters, the
-build's phase times, and ``EngineStats`` taken from the counters."""
+build's phase times, ``EngineStats`` taken from the counters, and the
+client edge's host quantize counted beside its work."""
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 import repro_torch.deploy as deploy
-from repro_torch import tracing
+from repro_torch import cuda_graphs, tracing
 from repro_torch.core.graph import Graph
 from repro_torch.graphs import random_input
 from repro_torch.graphs.cnn_ops import CNNBuilder
+from repro_torch.kernels.host_quant import quantize_int8
 from repro_torch.serving import ShardedServingEngine
 
 from test_torch_capture import _fake_cuda
@@ -129,6 +131,38 @@ def test_counters_count_where_the_work_happens(dep):
         (1, 1, 3, 3)
     assert eng.counters["dispatches"] == 3
     assert eng.counters["pad_lanes"] == 3
+
+
+def _host_quant_counts():
+    return quantize_int8.calls, quantize_int8.elements
+
+
+def test_host_quantize_counts_each_quantized_request(dep):
+    """The client edge's host kernel counts one call and the image's
+    elements a request that ``quantize_inputs`` quantizes."""
+    images = _images(REQUESTS, seed0=20)
+    calls, elements = _host_quant_counts()
+    _serve(dep, images)
+    assert _host_quant_counts() == (calls + REQUESTS,
+                                    elements + REQUESTS * 24 * 24 * 3)
+
+
+def test_host_quantize_counts_nothing_for_a_float32_deployment():
+    d = deploy.build(_float_cnn(), device="cpu")
+    assert d.qmodel is None
+    images = _images(REQUESTS, seed0=30)
+    before = _host_quant_counts()
+    eng, outs, _ = _serve(d, images)
+    assert len(outs) == REQUESTS
+    assert _host_quant_counts() == before
+
+
+def test_host_quantize_is_not_a_kernel_wrapper():
+    """The launch guard sums the card's launches over
+    ``kernel_wrappers()``: a host call counted there would blank it."""
+    wrappers = cuda_graphs.kernel_wrappers()
+    assert quantize_int8 not in wrappers.values()
+    assert not any("quantize" in name for name in wrappers)
 
 
 def test_build_phases_and_rungs(traced):
