@@ -190,11 +190,12 @@ class Deployment:
     def engine(self, *, micro_batch: int = 8, replicas: Optional[int] = None,
                **kw):
         """A serving engine over this deployment.  ``replicas=None`` gives
-        the single-device micro-batching ``GraphServingEngine``
-        (dispatching through ``batched_fn(micro_batch)``); any other value
-        the sharded continuous-batching ``ShardedServingEngine`` with
-        ``micro_batch`` lanes a replica (``replicas=0`` = one replica per
-        device of the deployment's kind)."""
+        the single-device micro-batching ``GraphServingEngine`` (the
+        sharded engine at one replica of ``micro_batch`` lanes, with the
+        one-shot contract); any other value the sharded
+        continuous-batching ``ShardedServingEngine`` with ``micro_batch``
+        lanes a replica (``replicas=0`` = one replica per device of the
+        deployment's kind)."""
         if replicas is None:
             from repro_torch.serving.engine import GraphServingEngine
             return GraphServingEngine(deployment=self,

@@ -45,16 +45,15 @@ and ``batched_fn(lanes)`` are its compiled forms, the reference's
 ``jit(raw_fn)`` and ``jit(vmap(raw_fn))``: on the card, the whole program
 over a static ``[lanes, pitch]`` arena that the executor owns, captured as
 one CUDA graph at first call (``repro_torch.cuda_graphs``) and cached per
-lane count.  A dispatch stages the requests' inputs: each request's bytes
-go into its row of a pinned host buffer, and the rows into a device
-buffer in one upload.  The graph zeroes the arena, scatters those rows
-into each lane's input slots, runs the program and gathers each lane's
-outputs into a device buffer, which comes back in one download; the
-dispatch returns the arena.  On the CPU the same steps run eagerly, with
-plain host buffers.  A plan with guard regions writes lane by lane
-(``write_inputs``, its canaries with it) and its graph holds the program
-only.  Rolled loops, ring windows and the ``pending`` hand-offs are
-Python-side, so they unroll into the graph.  An operator that runs its
+lane count.  Every dispatch stages the requests' inputs: each request's
+bytes go into its row of a pinned host buffer, and the rows into a
+device buffer in one upload.  The graph zeroes the arena, fills a
+guard-byte plan's canaries in every lane, scatters those rows into each
+lane's input slots, runs the program and gathers each lane's outputs
+into a device buffer, which comes back in one download; the dispatch
+returns the arena.  On the CPU the same steps run eagerly, with plain
+host buffers.  Rolled loops, ring windows and the ``pending`` hand-offs
+are Python-side, so they unroll into the graph.  An operator that runs its
 ``op.fn`` (host code) cannot be captured: ``fn``/``batched_fn`` refuse
 such a program on the card with ``CaptureError``.
 
@@ -98,21 +97,20 @@ TORCH_DTYPES = {
 }
 
 # Guard-byte debug mode: never-placed arena gaps (``ArenaPlan.
-# guard_regions``) are filled with this canary when a lane is written and
-# verified untouched after execution.  0xA5 = 1010_0101 — asymmetric under
-# bit rotation and distinct from 0x00/0xFF, so zero-fills, one-fills and
-# shifted writes all trip it.
+# guard_regions``) are filled with this canary in every lane before the
+# program runs and verified untouched after execution.  0xA5 = 1010_0101
+# — asymmetric under bit rotation and distinct from 0x00/0xFF, so
+# zero-fills, one-fills and shifted writes all trip it.
 CANARY_BYTE = 0xA5
 
 # What an executor counts where the work happens (``CompiledExecutor.
 # counters``; they only ever grow): lanes written, host-to-device
 # transfers made and the requests' bytes they carried, device-to-host
-# transfers made and the bytes of the outputs read, graph replays,
-# captures, and program calls that staged their lanes (one upload and one
-# download a call, where a guard-byte plan makes one of each a lane).
+# transfers made and the bytes of the outputs read, graph replays and
+# captures.  A program call given requests makes one upload and one
+# download.
 EXECUTOR_COUNTERS = ("lanes_written", "uploads", "upload_bytes",
-                     "downloads", "download_bytes", "replays", "captures",
-                     "staged_dispatches")
+                     "downloads", "download_bytes", "replays", "captures")
 
 
 # ----------------------------------------------------------- lowering registry
@@ -518,20 +516,29 @@ class CompiledExecutor:
         into ``lane`` and its guard canaries: one upload per input."""
         values = self.input_bytes(inputs)
         row = arena[lane]
-        for off, size in self.guard_regions:   # () in production plans
-            row[off:off + size] = CANARY_BYTE
+        self.fill_guards(row)
         for name, val in values:
             off, size = self.offsets[name]
             row[off:off + size] = val.to(self.device)
             self.counters["uploads"] += 1
             self.counters["upload_bytes"] += size
 
+    def fill_guards(self, lanes: torch.Tensor) -> None:
+        """Fill the guard regions of a ``[pitch]`` lane or a ``[lanes,
+        pitch]`` arena with ``CANARY_BYTE``; nothing on a plan without
+        guard regions."""
+        for off, size in self.guard_regions:
+            lanes[..., off:off + size] = CANARY_BYTE
+
     def pad_arena(self) -> torch.Tensor:
-        """One all-zero ``[pitch]`` lane: what every lane past the admitted
-        requests holds when a dispatch of ``batched_fn`` or
-        ``replicated_fn`` starts (a serving pad lane: executed, never read
-        back, visibly not a duplicated request)."""
-        return torch.zeros(self.pitch, dtype=torch.uint8, device=self.device)
+        """One ``[pitch]`` lane, all zero but for a guard-byte plan's
+        canaries: what every lane past the admitted requests holds when
+        a dispatch of ``batched_fn`` or ``replicated_fn`` starts (a
+        serving pad lane: executed, never read back, visibly not a
+        duplicated request)."""
+        lane = torch.zeros(self.pitch, dtype=torch.uint8, device=self.device)
+        self.fill_guards(lane)
+        return lane
 
     def make_arena(self, inputs: Dict[str, Any]) -> torch.Tensor:
         """A fresh one-lane arena with ``inputs`` written."""
@@ -580,14 +587,16 @@ class CompiledExecutor:
                      as_numpy: bool = True) -> Dict[str, Any]:
         """One lane's graph outputs, copied out of ``arena``: a ``[lanes,
         pitch]`` or ``[pitch]`` tensor or numpy array, or an
-        ``ArenaProgram``, whose last dispatch's lane is read from its
-        staged host rows where that dispatch staged the lane (no transfer)
-        and from its arena otherwise.  The compiled forms overwrite both
-        at the next dispatch."""
+        ``ArenaProgram``, whose last dispatch's lane is read as numpy from
+        its staged host rows where that dispatch admitted the lane (no
+        transfer) and from its arena otherwise.  The compiled forms
+        overwrite both at the next dispatch.  A tensor's read counts a
+        download an output; a numpy array is already on the host."""
         if isinstance(arena, ArenaProgram):
             if as_numpy and lane < arena.staged_rows:
                 return arena.staged_outputs(lane)
             arena = arena.arena
+        on_host = isinstance(arena, np.ndarray)
         arena = torch.as_tensor(arena)
         if arena.dim() == 1:
             arena = arena[None]
@@ -596,8 +605,9 @@ class CompiledExecutor:
             val = self._view(arena[lane:lane + 1], o)[0]
             if as_numpy:
                 out[o] = val.to("cpu", copy=True).numpy()
-                self.counters["downloads"] += 1
-                self.counters["download_bytes"] += out[o].nbytes
+                if not on_host:
+                    self.counters["downloads"] += 1
+                    self.counters["download_bytes"] += out[o].nbytes
             else:
                 out[o] = val.clone()
         return out
@@ -701,30 +711,25 @@ class ArenaProgram:
     """``batched_fn(lanes)``: the arena program over ``arena``, a static
     ``[lanes, pitch]`` arena.  Calling it with up to ``lanes`` requests'
     input dicts runs one dispatch: request i in lane i, the other lanes
-    all zero (pad lanes), and returns the arena, which the next call
+    pad lanes (``pad_arena``), and returns the arena, which the next call
     overwrites.  On the card the device work is a replay of ``graph``,
     captured at the first call; on the CPU it runs eagerly.
 
-    A dispatch is staged (``staged``) unless the plan has guard regions:
-    each request's input bytes go into its row of ``host_in`` (pinned on
-    the card), rows ``[0, n)`` into ``dev_in`` in one upload, and
-    ``device_work`` zeroes the arena, scatters ``dev_in``'s rows into the
-    lanes' input slots, runs ``execute`` and gathers the lanes' outputs
-    into ``dev_out``, whose rows ``[0, n)`` come back into ``host_out`` in
-    one download (``staged_rows`` = n; ``outputs_from(program, lane)``
-    reads them).  A guard-byte plan zeroes the arena and writes each lane
-    on the host (``write_inputs``: its canaries with it); its device work
-    is ``execute`` alone."""
+    Every dispatch is staged: each request's input bytes go into its row
+    of ``host_in`` (pinned on the card), rows ``[0, n)`` into ``dev_in``
+    in one upload, and ``device_work`` zeroes the arena, fills its guard
+    canaries, scatters ``dev_in``'s rows into the lanes' input slots,
+    runs ``execute`` and gathers the lanes' outputs into ``dev_out``,
+    whose rows ``[0, n)`` come back into ``host_out`` in one download
+    (``staged_rows`` = n; ``outputs_from(program, lane)`` reads them)."""
 
     def __init__(self, executor: CompiledExecutor, lanes: int) -> None:
         self.executor = executor
         self.lanes = lanes
         self.arena = executor.new_arena(lanes)
         self.graph: Optional[CapturedGraph] = None
-        self.staged = not executor.guard_regions
         self.staged_rows = 0
-        if self.staged:
-            self._stage_buffers()
+        self._stage_buffers()
 
     def _stage_buffers(self) -> None:
         """The staging buffers, ``[lanes, bytes]`` each, and the views the
@@ -774,9 +779,8 @@ class ArenaProgram:
         """What a dispatch runs on the device, captured as one graph on
         the card; the arena holds the outputs after it."""
         ex, arena = self.executor, self.arena
-        if not self.staged:
-            return ex.execute(arena)
         arena.zero_()
+        ex.fill_guards(arena)
         for slot, rows in self._scatter:
             slot.copy_(rows)
         ex.execute(arena)
@@ -824,7 +828,6 @@ class ArenaProgram:
             ex.counters["downloads"] += 1
             ex.counters["download_bytes"] += n * self.out_bytes
         self.staged_rows = n
-        ex.counters["staged_dispatches"] += 1
 
     def staged_outputs(self, lane: int) -> Dict[str, np.ndarray]:
         """Lane ``lane``'s outputs of the last dispatch, numpy copies of
@@ -837,16 +840,11 @@ class ArenaProgram:
         if len(requests) > self.lanes:
             raise ValueError(f"{len(requests)} requests for {self.lanes} "
                              f"lanes")
-        ex, arena = self.executor, self.arena
+        ex = self.executor
         if ex.device.type == "cuda":
             self.capture()
         with span("write_inputs"):
-            if self.staged:
-                self._upload(requests)
-            else:
-                arena.zero_()
-                for lane, inputs in enumerate(requests):
-                    ex.write_inputs(arena, lane, inputs)
+            self._upload(requests)
         ex.counters["lanes_written"] += len(requests)
         with span("run"):
             if self.graph is not None:
@@ -854,9 +852,8 @@ class ArenaProgram:
                 ex.counters["replays"] += 1
             else:
                 self.device_work()
-            if self.staged:
-                self._download(len(requests))
-        return arena
+            self._download(len(requests))
+        return self.arena
 
 
 class ReplicatedProgram:

@@ -1,17 +1,13 @@
 """Serving engines on one device: micro-batched CNN graphs, and LLM
 prefill + greedy decode.
 
-``GraphServingEngine`` runs requests through a ``repro_torch.deploy.
-Deployment`` in **micro-batches**: each batch is one dispatch of the
-executor's ``batched_fn(micro_batch)`` — its static ``[micro_batch,
-arena]`` uint8 arena zeroed and written with one request per lane, then
-one run of the arena program over all lanes (a CUDA-graph replay on the
-card); each answer is a copy of its lane's staged output row
-(``outputs_from`` of the program).  A ragged final batch keeps its
-unused lanes all zero: pad lanes are executed (every dispatch has the
-same geometry) but are **accounted separately** (``stats.padded_lanes``)
-and never read back — they are not requests, and per-request stats never
-count them.
+``GraphServingEngine`` is ``ShardedServingEngine`` at one replica of
+``micro_batch`` lanes: each micro-batch is one dispatch of the executor's
+``batched_fn(micro_batch)``, staged as every dispatch is, and each answer
+a copy of its lane's staged output row.  A ragged final batch's unused
+lanes are pad lanes, executed but counted apart (``stats.padded_lanes``)
+and never read back.  Its ``serve`` keeps the one-shot contract: one
+outputs dict per request, or an exception.
 
 ``ServingEngine`` runs prefill + greedy decode over batches of LLM
 requests (the reference's ``serving/engine.py:170-270``), on the card
@@ -52,22 +48,26 @@ from repro_torch.core.fx_reorder import ReorderReport, reorder_graph_module
 from repro_torch.core.graph import Graph
 from repro_torch.cuda_graphs import CapturedGraph, capture
 from repro_torch.device import resolve_device
+from repro_torch.errors import DispatchFailedError
 from repro_torch.models.model import (Model, UnsupportedConfigError,
                                       init_cache)
 from repro_torch.models.sharding import full
-from repro_torch.serving.faults import (FaultInjector, FaultPlan,
-                                        dispatch_with_retry)
+from repro_torch.serving.admission import RequestError
+from repro_torch.serving.faults import FaultInjector
+from repro_torch.serving.sharded import ShardedServingEngine
 from repro_torch.serving.stats import EngineStats
 
 
-class GraphServingEngine:
+class GraphServingEngine(ShardedServingEngine):
     """Micro-batched single-device serving of a deployed CNN graph.
 
     Construct from a graph (the facade runs schedule→plan→compile on
     ``device``, None = the card) or pass an existing ``deployment=``.
     ``serve`` runs micro-batches of ``micro_batch`` lanes; ``stats`` is a
-    typed ``EngineStats``.  ``faults`` (a ``FaultPlan``; test-only) wraps
-    each dispatch in seeded fault injection with bounded retry.
+    typed ``EngineStats``.  ``faults`` (a ``FaultPlan``; test-only)
+    injects device faults only, each dispatch retried up to
+    ``max_retries``; a plan with lane faults (``corrupt_rate``,
+    ``nan_rate``) is refused.
     """
 
     def __init__(self, graph: Optional[Graph] = None, *,
@@ -83,63 +83,32 @@ class GraphServingEngine:
                                partition=partition, device=device)
         if micro_batch < 1:
             raise ValueError(f"micro_batch must be >= 1, got {micro_batch}")
-        self.deployment = deployment
-        self.faults = (FaultInjector(faults)
-                       if isinstance(faults, FaultPlan) else faults)
-        self.max_retries = int(max_retries)
-        self.dispatch_timeout = dispatch_timeout
+        plan = faults.plan if isinstance(faults, FaultInjector) else faults
+        if plan is not None and plan.any_lane_faults():
+            raise ValueError(
+                "GraphServingEngine injects device faults only; serve a "
+                "plan with corrupt_rate or nan_rate through "
+                "ShardedServingEngine")
+        super().__init__(deployment, replicas=1, lanes=micro_batch,
+                         faults=faults, max_retries=max_retries,
+                         dispatch_timeout=dispatch_timeout)
+        self.micro_batch = micro_batch
         self.result = deployment.schedule_result
         self.exec_graph = deployment.exec_graph
         self.plan = deployment.plan
-        self.executor = deployment.executor
-        self.micro_batch = micro_batch
-        self.stats = EngineStats(
-            arena_bytes=int(self.plan.arena_size),
-            schedule_peak_bytes=int(self.result.peak),
-            schedule_method=self.result.method,
-            replicas=1, lanes=micro_batch)
-
-    def _dispatch(self, chunk: Sequence[Dict[str, Any]]):
-        # the static arena of batched_fn(micro_batch), zeroed and written
-        # with the chunk (lanes >= len(chunk): pads), then replayed
-        return self.executor.batched_fn(self.micro_batch)(chunk)
 
     def serve(self, requests: Sequence[Dict[str, Any]]
               ) -> List[Dict[str, Any]]:
         """Run every request's input dict through the deployed graph;
-        returns one output dict per request, in order."""
-        ex = self.executor
-        results: List[Dict[str, Any]] = []
-        latencies: List[float] = []
-        padded = n_batches = retried = trips = 0
-        t_start = time.perf_counter()
-        for i in range(0, len(requests), self.micro_batch):
-            chunk = requests[i:i + self.micro_batch]
-            padded += self.micro_batch - len(chunk)
-            # each attempt rebuilds its arena: a retried dispatch starts
-            # from the requests, never from a half-executed arena
-            arena, r, w = dispatch_with_retry(
-                lambda c=chunk: self._dispatch(c), faults=self.faults,
-                max_retries=self.max_retries,
-                dispatch_timeout=self.dispatch_timeout)
-            retried += r
-            trips += w
-            n_batches += 1
-            ex.verify_guards(arena[:len(chunk)])  # no-op without guards
-            prog = ex.batched_fn(self.micro_batch)
-            for lane in range(len(chunk)):        # pad lanes never read
-                results.append(ex.outputs_from(prog, lane))
-            # one-shot serve admits everything at t_start, so a request's
-            # latency is its batch's completion time
-            latencies.extend([time.perf_counter() - t_start] * len(chunk))
-        wall = time.perf_counter() - t_start
-        self.stats.record_serve(requests=len(requests), padded_lanes=padded,
-                                dispatches=n_batches, wall_s=wall,
-                                latencies_s=latencies)
-        self.stats.admitted = len(requests)
-        self.stats.retried = retried
-        self.stats.watchdog_trips = trips
-        return results
+        returns one output dict per request, in order.  Raises
+        ``DispatchFailedError`` when a request ends as a ``RequestError``
+        (a dispatch spent its retry budget)."""
+        outs = super().serve(requests)
+        for out in outs:
+            if isinstance(out, RequestError):
+                raise DispatchFailedError(
+                    f"request {out.rid}: {out.code} ({out.detail})")
+        return outs
 
 
 @dataclasses.dataclass

@@ -1,9 +1,8 @@
-"""Sharded continuous-batching serving engine (the production tier).
+"""Sharded continuous-batching serving engine: the one engine that serves
+CNN requests (``GraphServingEngine`` is this engine at one replica).
 
-``GraphServingEngine`` amortises launches across the lanes of one
-``batched_fn`` but runs every batch on one device and makes late requests
-wait for the whole serve loop.  ``ShardedServingEngine`` scales that out
-and opens the batch boundary:
+It amortises launches across the lanes of one ``batched_fn``, scales out
+over replicas and opens the batch boundary:
 
 * **Replica sharding** — the deployed arena program is
   ``executor.replicated_fn(replicas, lanes)``: one ``batched_fn(lanes)``
@@ -47,19 +46,20 @@ and opens the batch boundary:
   ``EngineStats``.
 * **Running counters and spans** — ``counters`` reads, at any moment, the
   counts that only ever grow: the engine's own (``ENGINE_COUNTERS``:
-  dispatches, requests admitted and completed, pad lanes) and the
-  replicas' executors' (``EXECUTOR_COUNTERS``: lanes written, uploads,
-  downloads and their bytes, replays, captures, staged dispatches),
-  summed.  ``drain()`` derives its dispatch, pad-lane, admitted and
-  request counts from them.
+  dispatches, requests admitted and completed, pad lanes, retries,
+  failed requests, watchdog trips) and the replicas' executors'
+  (``EXECUTOR_COUNTERS``: lanes written, uploads, downloads and their
+  bytes, replays, captures), summed.  ``drain()``'s stats are their
+  differences since the last drain.
   Each dispatch opens the spans ``rt.dispatch`` > ``rt.admit``,
   ``rt.write_inputs``, ``rt.run``, ``rt.wait``, ``rt.read_outputs`` while
   ``repro_torch.tracing`` is enabled.
 
-With no faults, no guards, and default admission (no deadlines, no bound)
-outputs are read from each replica's staged output rows (``outputs_from``
-of its ``ArenaProgram``: one download a replica a dispatch, then a copy a
-request), bit-identical under any arrival interleaving.
+Every dispatch stages its lanes (``ArenaProgram``: one upload and one
+download a replica that was given requests).  With no lane faults and no guards, each answer is
+a copy of its lane's staged output row (``outputs_from`` of its
+replica's program), bit-identical under any arrival interleaving; the
+guard and fault path copies each admitted lane to the host first.
 """
 from __future__ import annotations
 
@@ -80,7 +80,8 @@ from repro_torch.serving.stats import EngineStats
 from repro_torch.tracing import span
 
 # What the engine itself counts, in ``step`` (they only ever grow).
-ENGINE_COUNTERS = ("dispatches", "admitted", "completed", "pad_lanes")
+ENGINE_COUNTERS = ("dispatches", "admitted", "completed", "pad_lanes",
+                   "retried", "failed", "watchdog_trips")
 
 
 class ShardedServingEngine:
@@ -150,9 +151,6 @@ class ShardedServingEngine:
         self._next_rid = 0
         self._counts = dict.fromkeys(ENGINE_COUNTERS, 0)
         self._at_drain = dict(self._counts)
-        self._retried = 0
-        self._failed = 0
-        self._trips = 0
         self._t_first_submit: Optional[float] = None
         self.stats = EngineStats(
             arena_bytes=deployment.arena_bytes,
@@ -236,13 +234,13 @@ class ShardedServingEngine:
         """A poisoned lane either re-queues (bounded) or fails typed."""
         if req.retries < self.max_retries:
             req.retries += 1
-            self._retried += 1
+            self._counts["retried"] += 1
             self._queue.requeue(req)
         else:
             self._results[req.rid] = RequestError(
                 req.rid, code,
                 f"retry budget ({self.max_retries}) exhausted")
-            self._failed += 1
+            self._counts["failed"] += 1
 
     # -------------------------------------------------------------- serving
     def step(self) -> int:
@@ -282,12 +280,12 @@ class ShardedServingEngine:
             for req in admitted:
                 self._results[req.rid] = RequestError(
                     req.rid, "dispatch_failed", str(e))
-            self._failed += len(admitted)
-            self._retried += getattr(e, "retried", self.max_retries)
-            self._trips += getattr(e, "watchdog_trips", 0)
+            counts["failed"] += len(admitted)
+            counts["retried"] += getattr(e, "retried", self.max_retries)
+            counts["watchdog_trips"] += getattr(e, "watchdog_trips", 0)
             return 0
-        self._retried += r
-        self._trips += w
+        counts["retried"] += r
+        counts["watchdog_trips"] += w
         counts["dispatches"] += 1
         t_done = self._clock()
         with span("read_outputs"):
@@ -355,23 +353,20 @@ class ShardedServingEngine:
             self.step()
         wall = (self._clock() - self._t_first_submit
                 if self._t_first_submit is not None else 0.0)
-        now, before = dict(self._counts), self._at_drain
+        now = dict(self._counts)
+        moved = {k: now[k] - self._at_drain[k] for k in now}
         self.stats.record_serve(
-            requests=now["completed"] - before["completed"],
-            padded_lanes=now["pad_lanes"] - before["pad_lanes"],
-            dispatches=now["dispatches"] - before["dispatches"],
-            wall_s=wall, latencies_s=self._latencies)
-        self.stats.admitted = now["admitted"] - before["admitted"]
+            requests=moved["completed"], padded_lanes=moved["pad_lanes"],
+            dispatches=moved["dispatches"], wall_s=wall,
+            latencies_s=self._latencies)
+        self.stats.admitted = moved["admitted"]
         self.stats.expired = self._queue.expired
         self.stats.shed = self._queue.shed
-        self.stats.retried = self._retried
-        self.stats.failed = self._failed
-        self.stats.watchdog_trips = self._trips
+        self.stats.retried = moved["retried"]
+        self.stats.failed = moved["failed"]
+        self.stats.watchdog_trips = moved["watchdog_trips"]
         self.stats.degraded = list(self._degraded) or None
         self._at_drain = now
-        self._retried = 0
-        self._failed = 0
-        self._trips = 0
         self._latencies = []
         self._queue.expired = 0
         self._queue.shed = 0
@@ -382,8 +377,8 @@ class ShardedServingEngine:
     # -------------------------------------------------------- one-shot API
     def serve(self, requests: Sequence[Dict[str, Any]]
               ) -> List[Dict[str, Any]]:
-        """Submit every request, drain, return outputs in request order
-        (same contract as ``GraphServingEngine.serve``)."""
+        """Submit every request, drain, return the results in request
+        order: outputs dicts and typed ``RequestError`` entries."""
         rids = [self.submit(r) for r in requests]
         done = self.drain()
         return [done[rid] for rid in rids]

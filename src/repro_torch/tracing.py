@@ -14,9 +14,11 @@ encloses it.
 
 Spans the port opens (``rt.`` + name):
 
-* serving, once a dispatch: ``dispatch`` (``ShardedServingEngine.step``)
-  around ``admit``, ``write_inputs`` and ``run`` (``ArenaProgram``),
-  ``wait`` (``ReplicatedProgram``, on the card) and ``read_outputs``;
+* serving, once a dispatch: ``dispatch`` (``ShardedServingEngine.step``,
+  also under ``GraphServingEngine``) around ``admit``, ``write_inputs``
+  (``ArenaProgram``: staging the lanes' rows and their one upload),
+  ``run`` (the replay and the one download), ``wait``
+  (``ReplicatedProgram``, on the card) and ``read_outputs``;
   once a request, ``quantize_inputs`` (``Deployment.quantize_inputs``);
 * the build: ``build`` around ``calibrate``, ``schedule`` (around one
   ``rung.<name>`` per scheduler rung that runs), ``plan`` and
@@ -27,8 +29,9 @@ Spans the port opens (``rt.`` + name):
 so ``Deployment.phase_s`` keeps them always.
 
 Counts live beside the work they count, as the kernel wrappers'
-``launches`` do: ``CompiledExecutor.counters`` and the engine's own,
-read together through ``ShardedServingEngine.counters``; and the client
+``launches`` do: ``CompiledExecutor.counters`` and the engine's own
+(retries, failures and watchdog trips among them), read together
+through ``ShardedServingEngine.counters``; and the client
 edge's host quantize (``kernels/host_quant``), ``quantize_int8.calls``
 and ``quantize_int8.elements``, one call and the image's elements a
 request ``Deployment.quantize_inputs`` quantizes (none for a float32

@@ -357,4 +357,4 @@ def test_staged_lanes_move_inside_the_captured_graph(int8_mobilenet,
                 seen["after"][lane, :got.nbytes].numpy(),
                 got.reshape(-1).view(np.uint8))
     assert _FakeGraph.replays == replays + 2 and len(started) == 2
-    assert ex.counters["replays"] == ex.counters["staged_dispatches"] == 2
+    assert ex.counters["replays"] == 2

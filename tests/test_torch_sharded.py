@@ -657,7 +657,7 @@ def test_staged_full_then_ragged_dispatch(engine, d_int8, monkeypatch):
            if engine == "sharded"
            else GraphServingEngine(deployment=d_int8, micro_batch=3))
     prog = ex.batched_fn(3)
-    assert prog.staged and prog.in_bytes == sum(
+    assert prog.in_bytes == sum(
         ex.offsets[n][1] for n in ex.arena_inputs)
     started = _spy_execute(monkeypatch, ex)
     before = dict(ex.counters)
@@ -667,7 +667,7 @@ def test_staged_full_then_ragged_dispatch(engine, d_int8, monkeypatch):
     assert _moved(ex, before) == {
         "lanes_written": 5, "uploads": 2, "upload_bytes": 5 * prog.in_bytes,
         "downloads": 2, "download_bytes": 5 * prog.out_bytes, "replays": 0,
-        "captures": 0, "staged_dispatches": 2}
+        "captures": 0}
     assert prog.staged_rows == 2
     assert [len(a) for a in started] == [3, 3]
     assert all(lane.any() for lane in started[0])
@@ -688,9 +688,9 @@ _BAD_INPUTS = {
 def test_staged_and_per_lane_writes_refuse_alike(bad, d_float,
                                                  d_float_guarded):
     """A malformed request is refused with the same ``ValueError`` by the
-    staged rows, by ``write_inputs`` and by a guard-byte plan's per-lane
-    writes, before anything is uploaded; a refused dispatch leaves no
-    staged row to read."""
+    staged rows of a guard-less and of a guard-byte plan and by the
+    per-lane ``write_inputs``, before anything is uploaded; a refused
+    dispatch leaves no staged row to read."""
     g = d_float.exec_graph
     good = random_input(g, seed=1)
     req = _BAD_INPUTS[bad](good, g)
@@ -699,12 +699,12 @@ def test_staged_and_per_lane_writes_refuse_alike(bad, d_float,
         ex = d.executor
         prog = ex.batched_fn(2)
         prog([good])
-        assert prog.staged_rows == (1 if prog.staged else 0)
+        assert prog.staged_rows == 1
         uploads = ex.counters["uploads"]
         with pytest.raises(ValueError) as e:
             prog([good, req])
         said.append(str(e.value))
-        assert ex.counters["uploads"] == uploads + (0 if prog.staged else 1)
+        assert ex.counters["uploads"] == uploads
         assert prog.staged_rows == 0
         with pytest.raises(ValueError) as e:
             ex.write_inputs(ex.new_arena(1), 0, req)
@@ -712,13 +712,14 @@ def test_staged_and_per_lane_writes_refuse_alike(bad, d_float,
     assert len(set(said)) == 1, said
 
 
-def test_guard_plan_keeps_the_per_lane_path(d_float, d_float_guarded,
-                                           monkeypatch):
-    """A guard-byte plan writes lane by lane: every written lane holds its
-    canaries when the program starts, each answered lane's canaries are
-    verified after it, and nothing is staged."""
+def test_guard_plan_stages_with_its_canaries(d_float, d_float_guarded,
+                                             monkeypatch):
+    """A guard-byte plan stages like any other: its answers are
+    bit-identical to the guard-less deployment's, every lane holds its
+    canaries when the program starts (the pad lane nothing else but
+    zeros), each answered lane's canaries are verified after it, and a
+    dispatch makes one upload and one download."""
     ex = d_float_guarded.executor
-    assert not ex.batched_fn(2).staged
     reqs = _reqs(d_float_guarded.exec_graph, 3, seed0=95)
     refs = [d_float.run(r) for r in reqs]
     started = _spy_execute(monkeypatch, ex)
@@ -732,11 +733,44 @@ def test_guard_plan_keeps_the_per_lane_path(d_float, d_float_guarded,
     for out, ref in zip(outs, refs):
         _same(out, ref, exact=True)
     moved = _moved(ex, before)
-    assert moved["staged_dispatches"] == 0
-    assert (moved["lanes_written"], moved["uploads"]) == (3, 3)
+    assert (moved["lanes_written"], moved["uploads"],
+            moved["downloads"]) == (3, 2, 2)
     assert len(verified) == 3
-    written = [started[0][0], started[0][1], started[1][0]]
-    for lane in written:
-        for off, size in ex.guard_regions:
-            assert (lane[off:off + size] == CANARY_BYTE).all()
-    assert not started[1][1].any()            # the pad lane
+    guard = torch.zeros(ex.pitch, dtype=torch.bool)
+    for off, size in ex.guard_regions:
+        guard[off:off + size] = True
+    assert [len(a) for a in started] == [2, 2]
+    for lane in (*started[0], *started[1]):
+        assert (lane[guard] == CANARY_BYTE).all()
+    pad = started[1][1]
+    assert not pad[~guard].any()
+    assert torch.equal(pad, ex.pad_arena())
+
+
+@pytest.mark.parametrize("case", ["retry_budget", "lane_faults"])
+def test_graph_engine_is_the_sharded_engine_at_one_replica(case, d_int8):
+    """``GraphServingEngine`` is ``ShardedServingEngine`` at one replica
+    of ``micro_batch`` lanes that keeps its own contract: a spent retry
+    budget raises ``DispatchFailedError`` (each serve's stats the
+    difference of the running counters), and a plan with lane faults is
+    refused when the engine is built."""
+    if case == "lane_faults":
+        for plan in (FaultPlan(seed=1, corrupt_rate=0.25),
+                     FaultPlan(seed=1, nan_rate=0.25),
+                     FaultInjector(FaultPlan(seed=1, nan_rate=1.0))):
+            with pytest.raises(ValueError, match="device faults only"):
+                GraphServingEngine(deployment=d_int8, micro_batch=2,
+                                   faults=plan)
+        return
+    eng = GraphServingEngine(
+        deployment=d_int8, micro_batch=2, max_retries=1,
+        faults=FaultPlan(seed=5, device_error_rate=1.0))
+    assert isinstance(eng, ShardedServingEngine)
+    assert (eng.replicas, eng.lanes, eng.micro_batch) == (1, 2, 2)
+    reqs = _reqs(d_int8.exec_graph, 3, seed0=130)
+    for served in (1, 2):
+        with pytest.raises(DispatchFailedError, match="dispatch_failed"):
+            eng.serve(reqs)
+        s = eng.stats
+        assert (s.admitted, s.failed, s.retried, s.requests) == (3, 3, 4, 0)
+        assert eng.counters["failed"] == 3 * served

@@ -120,7 +120,8 @@ def test_counters_count_where_the_work_happens(dep):
                      "pad_lanes": 2, "lanes_written": 6, "uploads": 2,
                      "upload_bytes": 6 * in_bytes, "downloads": 2,
                      "download_bytes": 6 * out_bytes, "replays": 0,
-                     "captures": 0, "staged_dispatches": 2}
+                     "captures": 0, "retried": 0, "failed": 0,
+                     "watchdog_trips": 0}
     # the counters only grow; drain's stats are their differences
     st = eng.stats
     assert (st.dispatches, st.padded_lanes, st.admitted, st.requests) == \
