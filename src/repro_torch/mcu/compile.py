@@ -63,7 +63,10 @@ own static arena (on ``cuda:i`` also its own copy of the constants and
 its own captured graph).  A dispatch launches every replica on its own
 device's stream before it waits for any of them; there are no
 collectives.  On the CPU the host replicas (``device.force_host_devices``)
-run one after another.
+run one after another.  Both forms split a dispatch into ``launch`` and
+``finish``, which waits on that dispatch's own events: a caller may launch
+the next dispatch before it finishes the current one, into the program's
+second pair of host staging buffers.
 
 What the reference needed only for XLA is gone: the optimization barriers
 between operators (eager PyTorch already materialises each output) and
@@ -75,7 +78,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -587,9 +591,9 @@ class CompiledExecutor:
                      as_numpy: bool = True) -> Dict[str, Any]:
         """One lane's graph outputs, copied out of ``arena``: a ``[lanes,
         pitch]`` or ``[pitch]`` tensor or numpy array, or an
-        ``ArenaProgram``, whose last dispatch's lane is read as numpy from
-        its staged host rows where that dispatch admitted the lane (no
-        transfer) and from its arena otherwise.  The compiled forms
+        ``ArenaProgram``, whose last finished dispatch's lane is read as
+        numpy from its staged host rows where that dispatch admitted the
+        lane (no transfer) and from its arena otherwise.  The compiled forms
         overwrite both at the next dispatch.  A tensor's read counts a
         download an output; a numpy array is already on the host."""
         if isinstance(arena, ArenaProgram):
@@ -707,6 +711,19 @@ class CompiledExecutor:
             counters=dict.fromkeys(EXECUTOR_COUNTERS, 0))
 
 
+class Launched(NamedTuple):
+    """One dispatch of an ``ArenaProgram``, launched and not yet waited
+    for: the staging pair it used (0 or 1), its admitted rows, its number
+    among the program's dispatches, and the event recorded after its
+    download (None on the CPU, where the dispatch is complete when
+    ``launch`` returns)."""
+
+    pair: int
+    rows: int
+    seq: int
+    done: Optional["torch.cuda.Event"]
+
+
 class ArenaProgram:
     """``batched_fn(lanes)``: the arena program over ``arena``, a static
     ``[lanes, pitch]`` arena.  Calling it with up to ``lanes`` requests'
@@ -720,8 +737,19 @@ class ArenaProgram:
     in one upload, and ``device_work`` zeroes the arena, fills its guard
     canaries, scatters ``dev_in``'s rows into the lanes' input slots,
     runs ``execute`` and gathers the lanes' outputs into ``dev_out``,
-    whose rows ``[0, n)`` come back into ``host_out`` in one download
-    (``staged_rows`` = n; ``outputs_from(program, lane)`` reads them)."""
+    whose rows ``[0, n)`` come back into ``host_out`` in one download.
+
+    A call is ``launch`` then ``finish``.  ``launch`` enqueues the
+    dispatch and returns without waiting for the card; ``finish`` waits
+    for that dispatch's own event and makes its rows the ones
+    ``outputs_from(program, lane)`` reads (``staged_rows`` = n).  Two
+    host pairs ``host_in[k]``/``host_out[k]`` are used in turn, so a
+    second dispatch can be launched before the first is finished: its
+    download lands in the other pair.  ``dev_in``, ``dev_out``, the arena
+    and the graph stay single; the card's stream runs one dispatch's
+    graph before the next one's upload.  At most two dispatches may be
+    in flight: a third takes the first one's pair, and finishing the
+    first then raises."""
 
     def __init__(self, executor: CompiledExecutor, lanes: int) -> None:
         self.executor = executor
@@ -748,9 +776,11 @@ class ArenaProgram:
                 at += ex.offsets[n][1]
             return cols, -(-at // isz) * isz
 
-        def pair(width):
-            host = torch.zeros((lanes, width), dtype=torch.uint8,
-                               pin_memory=on_card)
+        def buffers(width):
+            """Two host buffers (pinned on the card) and one device
+            buffer, ``[lanes, width]`` each."""
+            host = [torch.zeros((lanes, width), dtype=torch.uint8,
+                                pin_memory=on_card) for _ in range(2)]
             return host, torch.zeros((lanes, width), dtype=torch.uint8,
                                      device=ex.device)
         ins, width_in = columns(ex.arena_inputs)
@@ -758,22 +788,29 @@ class ArenaProgram:
         # a request's bytes and a lane's output bytes, as the counters take
         self.in_bytes = sum(size for *_, (_, size) in ins)
         self.out_bytes = sum(size for *_, (_, size) in outs)
-        self.host_in, self.dev_in = pair(width_in)
-        self.host_out, self.dev_out = pair(width_out)
+        self.host_in, self.dev_in = buffers(width_in)
+        self.host_out, self.dev_out = buffers(width_out)
         self._scatter = [(arena[:, off:off + size],
                           self.dev_in[:, at:at + size])
                          for _, at, (off, size) in ins]
         self._gather = [(self.dev_out[:, at:at + size],
                          arena[:, off:off + size])
                         for _, at, (off, size) in outs]
-        self._host_rows = [{n: self.host_in[lane, at:at + size]
-                            for n, at, (_, size) in ins}
-                           for lane in range(lanes)]
-        self._out_views = {n: ex._typed(self.host_out[:, at:at + size], n)
-                           for n, at, (_, size) in outs}
-        # recorded after each download: the last dispatch's transfers of
-        # both host buffers are over once it has passed
-        self._downloaded = torch.cuda.Event() if on_card else None
+        self._host_rows = [[{n: host[lane, at:at + size]
+                             for n, at, (_, size) in ins}
+                            for lane in range(lanes)]
+                           for host in self.host_in]
+        self._out_views = [{n: ex._typed(host[:, at:at + size], n)
+                            for n, at, (_, size) in outs}
+                           for host in self.host_out]
+        # recorded after each dispatch's download: that dispatch's
+        # transfers of its pair and its device work are over once it has
+        # passed
+        self._done = ([torch.cuda.Event(), torch.cuda.Event()] if on_card
+                      else [None, None])
+        self._seq = [0, 0]      # the dispatch whose rows each pair holds
+        self._launched = 0      # dispatches launched so far
+        self._read = 0          # the pair of the last finished dispatch
 
     def device_work(self) -> torch.Tensor:
         """What a dispatch runs on the device, captured as one graph on
@@ -800,60 +837,81 @@ class ArenaProgram:
             ex.counters["captures"] += 1
         return self.graph
 
-    def _upload(self, requests: Sequence[Dict[str, Any]]) -> None:
-        """Stage the requests' bytes into ``host_in`` and upload its rows;
-        the device's pad rows are zeroed."""
+    def _upload(self, k: int, requests: Sequence[Dict[str, Any]]) -> None:
+        """Stage the requests' bytes into ``host_in[k]`` and upload its
+        rows; the device's pad rows are zeroed."""
         ex, n = self.executor, len(requests)
-        self.staged_rows = 0
-        if self._downloaded is not None:   # the last upload read host_in
-            self._downloaded.synchronize()
-        for rows, inputs in zip(self._host_rows, requests):
+        if self._done[k] is not None:   # the pair's last upload read it
+            self._done[k].synchronize()
+        for rows, inputs in zip(self._host_rows[k], requests):
             for name, val in ex.input_bytes(inputs):
                 rows[name].copy_(val)
         if n:
-            self.dev_in[:n].copy_(self.host_in[:n], non_blocking=True)
+            self.dev_in[:n].copy_(self.host_in[k][:n], non_blocking=True)
             ex.counters["uploads"] += 1
             ex.counters["upload_bytes"] += n * self.in_bytes
         if n < self.lanes:
             self.dev_in[n:].zero_()
 
-    def _download(self, n: int) -> None:
-        """Download ``dev_out``'s rows ``[0, n)`` into ``host_out``."""
+    def _download(self, k: int, n: int) -> None:
+        """Download ``dev_out``'s rows ``[0, n)`` into ``host_out[k]``,
+        then record the pair's event."""
         ex = self.executor
         if n:
-            self.host_out[:n].copy_(self.dev_out[:n], non_blocking=True)
-            if self._downloaded is not None:
-                self._downloaded.record(
-                    torch.cuda.current_stream(ex.device))
+            self.host_out[k][:n].copy_(self.dev_out[:n], non_blocking=True)
             ex.counters["downloads"] += 1
             ex.counters["download_bytes"] += n * self.out_bytes
-        self.staged_rows = n
+        if self._done[k] is not None:
+            self._done[k].record(torch.cuda.current_stream(ex.device))
 
     def staged_outputs(self, lane: int) -> Dict[str, np.ndarray]:
-        """Lane ``lane``'s outputs of the last dispatch, numpy copies of
-        its row of ``host_out`` (the next dispatch overwrites the row)."""
-        if self._downloaded is not None:
-            self._downloaded.synchronize()
-        return {n: v[lane].numpy().copy() for n, v in self._out_views.items()}
+        """Lane ``lane``'s outputs of the last finished dispatch, numpy
+        copies of its row of that dispatch's ``host_out`` (the dispatch
+        after the next overwrites the row)."""
+        return {n: v[lane].numpy().copy()
+                for n, v in self._out_views[self._read].items()}
 
-    def __call__(self, requests: Sequence[Dict[str, Any]]) -> torch.Tensor:
+    def launch(self, requests: Sequence[Dict[str, Any]]) -> Launched:
+        """Stage, upload, replay and download one dispatch, and return
+        without waiting for the card."""
         if len(requests) > self.lanes:
             raise ValueError(f"{len(requests)} requests for {self.lanes} "
                              f"lanes")
-        ex = self.executor
+        ex, n = self.executor, len(requests)
         if ex.device.type == "cuda":
             self.capture()
+        k = self._launched % 2
+        self.staged_rows = 0
         with span("write_inputs"):
-            self._upload(requests)
-        ex.counters["lanes_written"] += len(requests)
+            self._upload(k, requests)
+        ex.counters["lanes_written"] += n
         with span("run"):
             if self.graph is not None:
                 self.graph.replay()
                 ex.counters["replays"] += 1
             else:
                 self.device_work()
-            self._download(len(requests))
+            self._download(k, n)
+        self._launched += 1
+        self._seq[k] = self._launched
+        return Launched(k, n, self._launched, self._done[k])
+
+    def finish(self, launched: Launched) -> torch.Tensor:
+        """Wait for ``launched``'s event (not for the device), make its
+        rows the ones ``outputs_from(program, lane)`` reads, and return
+        the arena (a dispatch launched since may be overwriting it)."""
+        if self._seq[launched.pair] != launched.seq:
+            raise RuntimeError(
+                f"dispatch {launched.seq}'s staging rows were taken by "
+                f"dispatch {self._seq[launched.pair]}: at most two "
+                f"dispatches of a program may be in flight")
+        if launched.done is not None:
+            launched.done.synchronize()
+        self.staged_rows, self._read = launched.rows, launched.pair
         return self.arena
+
+    def __call__(self, requests: Sequence[Dict[str, Any]]) -> torch.Tensor:
+        return self.finish(self.launch(requests))
 
 
 class ReplicatedProgram:
@@ -862,7 +920,8 @@ class ReplicatedProgram:
     dicts hands request i to replica ``i // lanes``, lane ``i % lanes``,
     launches every replica on its own device's current stream, then waits
     for all of them, and returns the replicas' ``[lanes, pitch]`` arenas
-    in replica order (each overwritten by the next call)."""
+    in replica order (each overwritten by the next call).  A call is
+    ``launch`` then ``finish``, as on each replica's program."""
 
     def __init__(self, programs: Sequence[ArenaProgram]) -> None:
         self.programs = list(programs)
@@ -872,25 +931,32 @@ class ReplicatedProgram:
     def capacity(self) -> int:
         return len(self.programs) * self.lanes
 
-    def __call__(self, requests: Sequence[Dict[str, Any]]
-                 ) -> List[torch.Tensor]:
+    def launch(self, requests: Sequence[Dict[str, Any]]) -> List[Launched]:
+        """Launch one dispatch on every replica without waiting; its
+        ``Launched`` on each, in replica order."""
         if len(requests) > self.capacity:
             raise ValueError(f"{len(requests)} requests for {self.capacity} "
                              f"lanes")
-        arenas = []
+        launched = []
         for r, prog in enumerate(self.programs):
             chunk = requests[r * self.lanes:(r + 1) * self.lanes]
             dev = prog.executor.device
             with (torch.cuda.device(dev) if dev.type == "cuda"
                   else contextlib.nullcontext()):
-                arenas.append(prog(chunk))
-        cards = [prog.executor.device for prog in self.programs
-                 if prog.executor.device.type == "cuda"]
-        if cards:
-            with span("wait"):
-                for dev in cards:
-                    torch.cuda.synchronize(dev)
-        return arenas
+                launched.append(prog.launch(chunk))
+        return launched
+
+    def finish(self, launched: Sequence[Launched]) -> List[torch.Tensor]:
+        """Wait for the dispatch ``launched`` names, on each replica's own
+        event (``rt.wait``), and return the replicas' arenas."""
+        waits = any(h.done is not None for h in launched)
+        with (span("wait") if waits else contextlib.nullcontext()):
+            return [prog.finish(h)
+                    for prog, h in zip(self.programs, launched)]
+
+    def __call__(self, requests: Sequence[Dict[str, Any]]
+                 ) -> List[torch.Tensor]:
+        return self.finish(self.launch(requests))
 
 
 def compile_schedule(graph: Graph,
@@ -943,6 +1009,6 @@ def compile_schedule(graph: Graph,
 
 
 __all__ = ["ArenaProgram", "CANARY_BYTE", "CompiledExecutor",
-           "EXECUTOR_COUNTERS", "LoweringCtx",
+           "EXECUTOR_COUNTERS", "Launched", "LoweringCtx",
            "ReplicatedProgram", "TORCH_DTYPES", "compile_schedule",
            "lower_op", "register_lowering"]

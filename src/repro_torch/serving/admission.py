@@ -101,6 +101,19 @@ class AdmissionQueue:
         heapq.heappush(self._heap, (-req.priority, self._seq, req))
         self._seq += 1
 
+    def can_fill(self, k: int, now: float) -> bool:
+        """Whether ``pop_ready(k, now)`` would admit ``k`` requests: ``k``
+        or more queued ones whose deadline has not passed at ``now``."""
+        if len(self._heap) < k:
+            return False
+        ready = 0
+        for *_, req in self._heap:
+            if req.deadline is None or now < req.deadline:
+                ready += 1
+                if ready >= k:
+                    return True
+        return False
+
     def pop_ready(self, k: int, now: float
                   ) -> Tuple[List[QueuedRequest], List[QueuedRequest]]:
         """Admit up to ``k`` requests by (priority desc, arrival asc) at

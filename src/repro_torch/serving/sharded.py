@@ -23,7 +23,20 @@ over replicas and opens the batch boundary:
   complete as typed ``RequestError("expired")`` results.  ``max_pending``
   bounds the queue — excess submissions shed immediately as
   ``RequestError("shed")``.
-* **Bounded retry + watchdog** — each dispatch runs through
+* **Dispatch run-ahead** — ``step`` completes exactly one dispatch, the
+  oldest.  When the queue still holds a full batch (``capacity`` ready
+  requests) behind the dispatch it is about to wait for, it launches that
+  batch first (``ReplicatedProgram.launch``: staged, uploaded, replayed,
+  downloaded into the programs' other host staging pair) and only then
+  waits on the older dispatch's own events.  The next dispatch's staging
+  and graph launch, the reading of the current answers and whatever the
+  caller does until the next ``step`` then run while the card works.
+  Only full batches run ahead, so a late arrival still joins the next
+  dispatch after a ragged one.  An engine with a fault plan, a guard-byte
+  plan or a ``dispatch_timeout`` dispatches synchronously instead: those
+  paths read the arena the next dispatch would overwrite, or time one
+  dispatch alone.
+* **Bounded retry + watchdog** — each synchronous dispatch runs through
   ``faults.dispatch_with_retry``: transient device errors retry up to
   ``max_retries``; a ``dispatch_timeout`` turns persistent slowness into a
   typed failure (post-hoc watchdog — see that function's honesty note).
@@ -47,7 +60,8 @@ over replicas and opens the batch boundary:
 * **Running counters and spans** — ``counters`` reads, at any moment, the
   counts that only ever grow: the engine's own (``ENGINE_COUNTERS``:
   dispatches, requests admitted and completed, pad lanes, retries,
-  failed requests, watchdog trips) and the replicas' executors'
+  failed requests, watchdog trips, dispatches launched while an earlier
+  one was in flight) and the replicas' executors'
   (``EXECUTOR_COUNTERS``: lanes written, uploads, downloads and their
   bytes, replays, captures), summed.  ``drain()``'s stats are their
   differences since the last drain.
@@ -63,15 +77,17 @@ guard and fault path copies each admitted lane to the host first.
 """
 from __future__ import annotations
 
+import collections
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 
 from repro_torch.device import device_count
 from repro_torch.errors import (DeviceInitError, DispatchFailedError,
                                 GuardViolation)
-from repro_torch.mcu.compile import ReplicatedProgram
+from repro_torch.mcu.compile import Launched, ReplicatedProgram
 from repro_torch.serving.admission import (AdmissionQueue, QueuedRequest,
                                            RequestError)
 from repro_torch.serving.faults import (FaultInjector, FaultPlan,
@@ -81,7 +97,7 @@ from repro_torch.tracing import span
 
 # What the engine itself counts, in ``step`` (they only ever grow).
 ENGINE_COUNTERS = ("dispatches", "admitted", "completed", "pad_lanes",
-                   "retried", "failed", "watchdog_trips")
+                   "retried", "failed", "watchdog_trips", "run_ahead")
 
 
 class ShardedServingEngine:
@@ -146,6 +162,12 @@ class ShardedServingEngine:
             self._fn = ReplicatedProgram(
                 [self.executor.batched_fn(self.lanes)])
         self._queue = AdmissionQueue(max_pending=max_pending)
+        # run-ahead where no fault layer reads the arena or times a
+        # dispatch alone; the dispatches launched and not yet finished
+        self._run_ahead = (self._faults is None and dispatch_timeout is None
+                           and not self.executor.guard_regions)
+        self._inflight: Deque[Tuple[List[QueuedRequest],
+                                    List[Launched]]] = collections.deque()
         self._results: Dict[int, Any] = {}
         self._latencies: List[float] = []
         self._next_rid = 0
@@ -161,7 +183,9 @@ class ShardedServingEngine:
     # ------------------------------------------------------ admission queue
     @property
     def pending(self) -> int:
-        return len(self._queue)
+        """Requests submitted and not yet answered: queued, or in a
+        dispatch in flight."""
+        return len(self._queue) + sum(len(a) for a, _ in self._inflight)
 
     @property
     def capacity(self) -> int:
@@ -244,29 +268,66 @@ class ShardedServingEngine:
 
     # -------------------------------------------------------------- serving
     def step(self) -> int:
-        """One dispatch: admit up to ``capacity`` queued requests by
-        (priority, arrival) — expiring past-deadline ones — write them into
-        the replicas' lanes (the rest are pad lanes), execute under
-        retry/watchdog, detect injected poison, complete the survivors.
-        Returns how many completed successfully."""
-        if not self._queue:
+        """Complete one dispatch, the oldest: admit up to ``capacity``
+        queued requests by (priority, arrival) — expiring past-deadline
+        ones — write them into the replicas' lanes (the rest are pad
+        lanes), execute, and complete them.  With run-ahead (see the
+        module docstring) a dispatch launched by the last ``step`` is the
+        one completed, and the next full batch is launched before it is
+        waited for; otherwise the dispatch runs synchronously under
+        retry/watchdog and its injected poison is detected.  Returns how
+        many completed successfully."""
+        if not self._queue and not self._inflight:
             return 0
         with span("dispatch"):
+            if self._run_ahead:
+                return self._step_ahead()
             return self._dispatch()
 
-    def _dispatch(self) -> int:
-        counts = self._counts
+    def _admit(self, now: float) -> List[QueuedRequest]:
+        """Pop up to ``capacity`` requests at ``now``; the past-deadline
+        ones complete as ``expired``."""
         with span("admit"):
-            now = self._clock()
             admitted, expired = self._queue.pop_ready(self.capacity, now)
             for req in expired:
                 self._results[req.rid] = RequestError(
                     req.rid, "expired",
                     f"deadline {req.deadline:.6f} passed at {now:.6f}")
+        if admitted:
+            self._counts["admitted"] += len(admitted)
+            self._counts["pad_lanes"] += self.capacity - len(admitted)
+        return admitted
+
+    def _step_ahead(self) -> int:
+        if not self._inflight and not self._launch(self._clock()):
+            return 0                      # everything queued had expired
+        now = self._clock()
+        if self._queue.can_fill(self.capacity, now):
+            self._launch(now)
+            self._counts["run_ahead"] += 1
+        return self._finish()
+
+    def _launch(self, now: float) -> bool:
+        """Admit a dispatch at ``now`` and launch it without waiting for
+        it; False when nothing was admitted."""
+        admitted = self._admit(now)
+        if not admitted:
+            return False
+        launched = self._fn.launch([req.inputs for req in admitted])
+        self._inflight.append((admitted, launched))
+        self._counts["dispatches"] += 1
+        return True
+
+    def _finish(self) -> int:
+        """Wait for the oldest dispatch in flight and complete it."""
+        admitted, launched = self._inflight.popleft()
+        return self._complete(admitted, self._fn.finish(launched))
+
+    def _dispatch(self) -> int:
+        counts = self._counts
+        admitted = self._admit(self._clock())
         if not admitted:
             return 0
-        counts["admitted"] += len(admitted)
-        counts["pad_lanes"] += self.capacity - len(admitted)
         inputs = [req.inputs for req in admitted]
 
         # each attempt zeroes the static arenas and writes the requests
@@ -287,14 +348,20 @@ class ShardedServingEngine:
         counts["retried"] += r
         counts["watchdog_trips"] += w
         counts["dispatches"] += 1
-        t_done = self._clock()
-        with span("read_outputs"):
-            done = self._complete(admitted, arenas, t_done)
-        counts["completed"] += done
-        return done
+        return self._complete(admitted, arenas)
 
     def _complete(self, admitted: List[QueuedRequest],
-                  arenas: List[Any], t_done: float) -> int:
+                  arenas: List[Any]) -> int:
+        """Read the admitted requests' outputs (``rt.read_outputs``);
+        returns how many completed."""
+        t_done = self._clock()
+        with span("read_outputs"):
+            done = self._read_outputs(admitted, arenas, t_done)
+        self._counts["completed"] += done
+        return done
+
+    def _read_outputs(self, admitted: List[QueuedRequest],
+                      arenas: List[Any], t_done: float) -> int:
         """Read the admitted requests' outputs out of ``arenas``; returns
         how many completed."""
         ex = self.executor
@@ -340,16 +407,26 @@ class ShardedServingEngine:
 
     def take(self, rid: int):
         """The completed result for ``rid`` (pops it): an outputs dict, or
-        a typed ``RequestError`` for expired/shed/failed requests."""
+        a typed ``RequestError`` for expired/shed/failed requests.  A rid
+        in a dispatch still in flight finishes that dispatch (and any
+        older one) first."""
+        if rid not in self._results:
+            for i, (admitted, _) in enumerate(self._inflight):
+                if any(req.rid == rid for req in admitted):
+                    with span("dispatch"):
+                        for _ in range(i + 1):
+                            self._finish()
+                    break
         return self._results.pop(rid)
 
     def drain(self) -> Dict[int, Any]:
-        """Step until the queue is empty; returns {rid: result} for every
+        """Step until the queue is empty and no dispatch is in flight;
+        returns {rid: result} for every
         result completed and not yet taken (outputs dicts and typed
         ``RequestError`` entries), and records serve stats — including the
         failure-layer counters — over the window since the first
         un-drained submit."""
-        while self._queue:
+        while self._queue or self._inflight:
             self.step()
         wall = (self._clock() - self._t_first_submit
                 if self._t_first_submit is not None else 0.0)

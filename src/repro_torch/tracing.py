@@ -18,7 +18,10 @@ Spans the port opens (``rt.`` + name):
   also under ``GraphServingEngine``) around ``admit``, ``write_inputs``
   (``ArenaProgram``: staging the lanes' rows and their one upload),
   ``run`` (the replay and the one download), ``wait``
-  (``ReplicatedProgram``, on the card) and ``read_outputs``;
+  (``ReplicatedProgram.finish``, on the card: the wait on the finished
+  dispatch's own events) and ``read_outputs``; a step that runs ahead
+  holds a second ``admit``, ``write_inputs`` and ``run``, those of the
+  dispatch it launches before it waits;
   once a request, ``quantize_inputs`` (``Deployment.quantize_inputs``);
 * the build: ``build`` around ``calibrate``, ``schedule`` (around one
   ``rung.<name>`` per scheduler rung that runs), ``plan`` and
@@ -30,8 +33,10 @@ so ``Deployment.phase_s`` keeps them always.
 
 Counts live beside the work they count, as the kernel wrappers'
 ``launches`` do: ``CompiledExecutor.counters`` and the engine's own
-(retries, failures and watchdog trips among them), read together
-through ``ShardedServingEngine.counters``; and the client
+(retries, failures and watchdog trips among them, and ``run_ahead``:
+dispatches launched while an earlier one was still in flight, so
+``run_ahead / dispatches`` is the share run-ahead engaged on), read
+together through ``ShardedServingEngine.counters``; and the client
 edge's host quantize (``kernels/host_quant``), ``quantize_int8.calls``
 and ``quantize_int8.elements``, one call and the image's elements a
 request ``Deployment.quantize_inputs`` quantizes (none for a float32

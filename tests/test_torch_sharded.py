@@ -12,6 +12,11 @@ same seeds.
 * ``force_host_devices(3)`` gives three host replicas: capacity 6, every
   replica with its own arena, outputs bit-identical to the reference's
   3-replica run (a subprocess with a forced 3-device host mesh).
+* Dispatch run-ahead: each ``step`` completes the oldest dispatch, a
+  full batch queued behind it launched first; ``pending`` counts the
+  requests in flight, ``take`` and ``drain`` finish them, and every
+  answer is its own request's.  Fault, guard-byte and watchdog engines
+  stay synchronous, with the reference engine's answers and stats.
 * The chaos invariant: every request ends as a result or a typed
   ``RequestError``, counters exact; the seeded sweep's codes, counters and
   fault ledger equal the reference engine's on the same seed.
@@ -175,6 +180,198 @@ def test_sharded_admission_is_fifo_at_boundaries():
     out_c = eng.drain()[c]                  # drain returns what's left
     for out, seed in ((out_a, 1), (out_b, 2), (out_c, 3)):
         _same(out, d.run(random_input(g, seed=seed)), exact=True)
+
+
+# ------------------------------------------------------ dispatch run-ahead
+def _rids_in_flight(eng):
+    return [[req.rid for req in admitted] for admitted, _ in eng._inflight]
+
+
+def test_each_step_completes_the_oldest_dispatch(d_int8):
+    """With a full batch queued behind it, a step launches that batch and
+    then completes the dispatch launched before it, exactly: the oldest
+    requests, FIFO.  ``pending`` counts queued and in-flight requests, so
+    ``before - pending`` is the completed dispatch's size."""
+    g = d_int8.exec_graph
+    eng = ShardedServingEngine(d_int8, replicas=1, lanes=2)
+    rids = [eng.submit(r) for r in _reqs(g, 7, seed0=170)]
+    # (completed by the step, in flight after it, pending after it)
+    want = [(rids[0:2], [rids[2:4]], 5), (rids[2:4], [rids[4:6]], 3),
+            (rids[4:6], [], 1), (rids[6:7], [], 0)]
+    for done, flying, pending in want:
+        before = eng.pending
+        assert eng.step() == len(done)
+        assert sorted(eng._results) == done
+        assert _rids_in_flight(eng) == flying
+        assert eng.pending == pending == before - len(done)
+        for rid in done:
+            eng.take(rid)
+    assert eng.step() == 0
+
+
+@pytest.mark.parametrize("queued", [4, 5, 3])
+def test_run_ahead_engages_on_full_batches_only(queued, d_int8):
+    """A queue of two dispatches' worth runs ahead once; a ragged
+    remainder never runs ahead, so a late arrival still joins it."""
+    g = d_int8.exec_graph
+    eng = ShardedServingEngine(d_int8, replicas=1, lanes=2)
+    for r in _reqs(g, queued, seed0=180):
+        eng.submit(r)
+    eng.step()
+    ahead = 1 if queued >= 4 else 0
+    c = eng.counters
+    assert (c["run_ahead"], c["dispatches"]) == (ahead, 1 + ahead)
+    eng.drain()
+    c = eng.counters
+    assert c["run_ahead"] == ahead and c["dispatches"] == -(-queued // 2)
+    assert eng.stats.dispatches == c["dispatches"]
+
+
+def test_run_ahead_skips_a_batch_that_expiry_would_leave_ragged(d_int8):
+    """Three requests queued behind a full dispatch, two of them past
+    their deadline: no full batch is ready, so nothing runs ahead, and
+    the one fresh request is admitted with a late arrival next step."""
+    clk = FakeClock(0.0)
+    g = d_int8.exec_graph
+    eng = ShardedServingEngine(d_int8, replicas=1, lanes=2, clock=clk)
+    reqs = _reqs(g, 6, seed0=185)
+    first = [eng.submit(r) for r in reqs[:2]]
+    stale = [eng.submit(r, deadline=1.0) for r in reqs[2:4]]
+    fresh = eng.submit(reqs[4])
+    clk.t = 5.0
+    assert eng.step() == 2 and sorted(eng._results) == first
+    assert eng.counters["run_ahead"] == 0 and not eng._inflight
+    late = eng.submit(reqs[5])
+    assert eng.step() == 2
+    for rid in stale:
+        assert eng.take(rid).code == "expired"
+    for rid, r in zip(first + [fresh, late], reqs[:2] + reqs[4:]):
+        _same(eng.take(rid), d_int8.run(r), exact=True)
+    assert eng.counters["run_ahead"] == 0
+
+
+def test_take_of_an_in_flight_rid_finishes_its_dispatch(d_int8):
+    g = d_int8.exec_graph
+    reqs = _reqs(g, 4, seed0=190)
+    eng = ShardedServingEngine(d_int8, replicas=1, lanes=2)
+    rids = [eng.submit(r) for r in reqs]
+    eng.step()
+    assert _rids_in_flight(eng) == [rids[2:4]]
+    _same(eng.take(rids[3]), d_int8.run(reqs[3]), exact=True)
+    assert eng.pending == 0 and not eng._inflight
+    for rid, r in zip(rids[:3], reqs[:3]):
+        _same(eng.take(rid), d_int8.run(r), exact=True)
+
+
+def test_drain_finishes_the_in_flight_dispatch(d_int8):
+    g = d_int8.exec_graph
+    reqs = _reqs(g, 4, seed0=200)
+    eng = ShardedServingEngine(d_int8, replicas=1, lanes=2)
+    rids = [eng.submit(r) for r in reqs]
+    eng.step()
+    assert eng.pending == 2 and not eng._queue
+    done = eng.drain()
+    assert sorted(done) == rids and eng.pending == 0 and not eng._inflight
+    for rid, r in zip(rids, reqs):
+        _same(done[rid], d_int8.run(r), exact=True)
+    s = eng.stats
+    assert (s.dispatches, s.requests, s.padded_lanes) == (2, 4, 0)
+    assert eng.counters["run_ahead"] == 1
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_run_ahead_answers_equal_deployment_run(replicas, d_int8,
+                                                host_devices):
+    """Five full dispatches and a ragged tail, each step launching the
+    next batch before it reads the current one: every answer is its own
+    request's, bit-identical to ``Deployment.run`` (each dispatch's rows
+    come back into its own host staging pair)."""
+    host_devices(replicas)
+    g = d_int8.exec_graph
+    eng = ShardedServingEngine(d_int8, replicas=replicas, lanes=2)
+    n = 5 * eng.capacity + 1
+    reqs = _reqs(g, n, seed0=210)
+    outs = eng.serve(reqs)
+    for out, r in zip(outs, reqs):
+        _same(out, d_int8.run(r), exact=True)
+    s = eng.stats
+    assert (s.dispatches, s.requests, s.padded_lanes) == \
+        (6, n, eng.capacity - 1)
+    assert eng.counters["run_ahead"] == 4
+
+
+def test_a_dispatch_whose_pair_was_taken_is_refused_at_finish(d_int8):
+    """Two dispatches of a program may be in flight, each finished into
+    its own rows; one launched while two are in flight takes the older
+    one's staging pair, and finishing that older one then raises rather
+    than read the newer one's rows."""
+    ex = d_int8.executor
+    prog = ex.batched_fn(2)
+    reqs = _reqs(d_int8.exec_graph, 3, seed0=230)
+    first, second = prog.launch(reqs[:1]), prog.launch(reqs[1:2])
+    assert first.pair != second.pair
+    prog.finish(first)
+    _same(ex.outputs_from(prog, 0), d_int8.run(reqs[0]), exact=True)
+    third = prog.launch(reqs[2:])
+    prog.finish(second)
+    _same(ex.outputs_from(prog, 0), d_int8.run(reqs[1]), exact=True)
+    fourth = prog.launch(reqs[:1])
+    fifth = prog.launch(reqs[1:2])        # the third one's pair
+    with pytest.raises(RuntimeError, match="at most two dispatches"):
+        prog.finish(third)
+    for launched, r in ((fourth, reqs[0]), (fifth, reqs[1])):
+        prog.finish(launched)
+        _same(ex.outputs_from(prog, 0), d_int8.run(r), exact=True)
+
+
+_SYNC_ENGINES = {
+    "fault_plan": dict(faults=dict(seed=3, device_error_rate=0.5),
+                       max_retries=4),
+    "guard_plan": dict(guard_bytes=16),
+    "watchdog": dict(dispatch_timeout=60.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SYNC_ENGINES))
+def test_fault_guard_and_watchdog_engines_dispatch_synchronously(case):
+    """An engine with a fault plan, a guard-byte plan or a watchdog never
+    runs ahead: each step runs one dispatch to its end, and the answers
+    and stats equal the reference engine's on the same requests."""
+    opts = dict(_SYNC_ENGINES[case])
+    guard = opts.pop("guard_bytes", 0)
+    plan = opts.pop("faults", None)
+    jg, g = _pair("figure1_int8")
+    d = deploy.build(g, guard_bytes=guard, device="cpu")
+    reqs = _reqs(g, 7, seed0=220)
+    eng = ShardedServingEngine(
+        d, replicas=1, lanes=2,
+        faults=FaultPlan(**plan) if plan else None, **opts)
+    rids = [eng.submit(r) for r in reqs]
+    while eng.pending:
+        queued = len(eng._queue)
+        eng.step()
+        assert not eng._inflight and eng.pending == len(eng._queue)
+        assert eng.pending == max(queued - 2, 0)
+    done = eng.drain()
+    outs = [done[rid] for rid in rids]
+    assert eng.counters["run_ahead"] == 0
+    ref = d if not guard else deploy.build(g, device="cpu")
+    for out, r in zip(outs, reqs):
+        _same(out, ref.run(r), exact=True)
+    jeng = JaxSharded(
+        jax_deploy.build(jg, guard_bytes=guard), replicas=1, lanes=2,
+        faults=JaxFaultPlan(**plan) if plan else None, **opts)
+    jouts = jeng.serve(reqs)
+    for jo, o in zip(jouts, outs):
+        _same(o, {t: np.asarray(v) for t, v in jo.items()}, exact=True)
+    got, want = eng.stats.as_json(), jeng.stats.as_json()
+    for k in ("requests", "admitted", "retried", "failed",
+              "watchdog_trips"):
+        assert got[k] == want[k], k
+    assert (eng.stats.dispatches, eng.stats.padded_lanes) == \
+        (jeng.stats.dispatches, jeng.stats.padded_lanes)
+    if plan:
+        assert got["retried"] > 0
 
 
 def test_sharded_rejects_build_opts_on_deployment():

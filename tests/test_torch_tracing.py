@@ -14,6 +14,7 @@ from repro_torch.graphs import random_input
 from repro_torch.graphs.cnn_ops import CNNBuilder
 from repro_torch.kernels.host_quant import quantize_int8
 from repro_torch.serving import ShardedServingEngine
+from repro_torch.serving.sharded import ENGINE_COUNTERS
 
 from test_torch_capture import _fake_cuda
 
@@ -121,7 +122,7 @@ def test_counters_count_where_the_work_happens(dep):
                      "upload_bytes": 6 * in_bytes, "downloads": 2,
                      "download_bytes": 6 * out_bytes, "replays": 0,
                      "captures": 0, "retried": 0, "failed": 0,
-                     "watchdog_trips": 0}
+                     "watchdog_trips": 0, "run_ahead": 0}
     # the counters only grow; drain's stats are their differences
     st = eng.stats
     assert (st.dispatches, st.padded_lanes, st.admitted, st.requests) == \
@@ -132,6 +133,61 @@ def test_counters_count_where_the_work_happens(dep):
         (1, 1, 3, 3)
     assert eng.counters["dispatches"] == 3
     assert eng.counters["pad_lanes"] == 3
+
+
+class _Event:
+    """A card's event, stood in for on the CPU: each record and wait is
+    logged as ("record" | "wait", staging pair)."""
+
+    def __init__(self, log, pair):
+        self.log, self.pair = log, pair
+
+    def record(self, stream=None):
+        self.log.append(("record", self.pair))
+
+    def synchronize(self):
+        self.log.append(("wait", self.pair))
+
+
+def test_run_ahead_is_counted_and_waits_under_each_dispatch(
+        dep, traced, monkeypatch):
+    """``run_ahead`` is an engine counter, read through ``counters``.
+    With events on the program's two staging pairs, a step launches the
+    next full batch into the other pair, then waits in ``rt.wait``, under
+    ``rt.dispatch``, on the older dispatch's event alone."""
+    assert "run_ahead" in ENGINE_COUNTERS
+    eng = ShardedServingEngine(dep, replicas=1, lanes=LANES)
+    prog, log = eng._fn.programs[0], []
+    monkeypatch.setattr(prog, "_done", [_Event(log, 0), _Event(log, 1)])
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: None)
+    a = prog._launched % 2            # the pair the next dispatch takes
+    b = 1 - a
+    before = eng.counters
+    for x in _images(3 * LANES, seed0=40):
+        eng.submit(dep.quantize_inputs(x))
+
+    def steps():
+        logs = []
+        while eng.pending:
+            eng.step()
+            logs.append(log[:])
+            del log[:]
+        return logs
+    logs, spans = _profiled(steps)
+    w, r = "wait", "record"
+    # each launch waits for its pair's last transfers, then records; each
+    # finish waits on the finished dispatch's pair
+    assert logs == [[(w, a), (r, a), (w, b), (r, b), (w, a)],
+                    [(w, a), (r, a), (w, b)],
+                    [(w, a)]]
+    after = eng.counters
+    assert (after["run_ahead"] - before["run_ahead"],
+            after["dispatches"] - before["dispatches"]) == (2, 3)
+    waits = [e for e in spans if e.name == "rt.wait"]
+    assert len(waits) == 3
+    assert all(_parent(e) == "rt.dispatch" for e in waits)
+    assert len([e for e in spans if e.name == "rt.dispatch"]) == 3
 
 
 def _host_quant_counts():
