@@ -243,6 +243,9 @@ SWIFT_F32, SWIFT_F32_K6, SWIFT_INT8 = 1253376, 17, 313344
 # MobileNetV2 (alpha, resolution, classes), its budget (the STM32F746's
 # 320 KB) and the arena it must plan to
 MNV2, MNV2_BUDGET, MNV2_INT8 = (1.0, 224, 1000), 320 * KB, 295680
+# MobileNetV3-Large (alpha, resolution, classes) in the same 320 KB, and the
+# arena the residual cascade must plan to
+MNV3, MNV3_INT8 = (1.0, 224, 1000), 286048
 ZERO_COPY_224 = 312     # ring windows the 224 KB int8 schedule never writes
 TABLE1_CAPACITY = 512 * KB - 200 * KB   # NUCLEO-F767ZI SRAM less framework
 # (peak_sram, bytes_moved, defrag_passes, steps) of the reference
@@ -272,6 +275,8 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:64",
     "qadd": "none: the reference's qadd (src/repro/graphs/cnn_ops.py:386) "
             "is XLA element-wise ops",
+    "qscale": "none: the reference has no squeeze-and-excite (MobileNetV3's "
+              "channel scale is new to the port)",
 }
 SOURCES = {n: f"src/repro_torch/kernels/conv_quant/csrc/{n}.cu"
            for n in REPLACES}
@@ -282,7 +287,7 @@ ATTENTION = ("flash_attention", "decode_attention")
 # the kernels whose `ptxas -v` registers and spills the build phase prints
 PTXAS_KERNELS = ("qconv1x1", "qdwconv", "qconv", "qconv1x1_add",
                  "qconv_add", "conv1x1", "flash_attention",
-                 "decode_attention", "qadd")
+                 "decode_attention", "qadd", "qscale")
 # ---- the LLM serving phases: Llama-3.2-3B at full width and depth, bf16,
 # random weights drawn on the card by the launcher (torch.Generator seed 0)
 LLM_ARCH = "llama3.2-3b"
@@ -646,6 +651,13 @@ SPLITK_ZP = ((-128, -3), (127, 4))                # (zp_in, zp_out)
 # are aligned), MobileNetV2's widest add at 224
 HOSTILE_ADD = [(1, 1, 1), (3, 5, 7), (2, 3, 12), (4, 4, 16), (7, 7, 160),
                (56, 56, 24)]
+# K10's hostile shapes (H, W, C): one element, odd channel counts (one byte
+# a thread), C a multiple of 4 and of 16 (4- and 16-byte words where the
+# lanes are aligned), MobileNetV3-Large's widest channel scale at 224;
+# (mult, zp_x, zp_g, zp_out): plain, and saturating both rails
+HOSTILE_SCALE = [(1, 1, 1), (3, 5, 7), (2, 3, 12), (4, 4, 16),
+                 (7, 7, 960), (28, 28, 120)]
+SCALE_QP = ((0.0011, -9, -128, 3), (0.09, 40, 0, -100))
 # fused add params (mult_a, mult_b, zp_a, zp_b, zp_out); zp_a None = the
 # conv's zp_out.  Plain; saturating both rails; a negative multiplier.
 ADD_QP = ((0.71, 0.39, None, 2, -7), (23.5, 17.25, 60, 0, 100),
@@ -909,7 +921,7 @@ class Checks:
 
     def case(self, tag, kind, h, w, cin, cout, k, stride, hpad, wpad,
              mult, zp_in, zp_out, addp=None, lanes=2, ring=None,
-             aligned=False, clamp=None):
+             aligned=False, clamp=None, table=None):
         """Route one int8 configuration as ``qconv_fused``/
         ``qdwconv_fused``/``qconv_add_fused`` (``addp`` given) do and
         compare the kernel with the plain version (once per ``tag`` and
@@ -917,13 +929,14 @@ class Checks:
         bytes).  ``ring = (ring_rows, src)``: K2/K3/K5 read the H-row input
         as the window (src, H) of a ring of ``ring_rows`` rows, held
         against the ring-view plain versions.  ``clamp = (lo, hi)``: the
-        conv's int8 clamp pair (None: the fused ReLU's)."""
+        conv's int8 clamp pair (None: the fused ReLU's); ``table``: a
+        table activation's 256 int8 values (K1–K3's table epilogue)."""
         hp = self._pads(h, k, stride, hpad)
         wp = self._pads(w, k, stride, wpad)
         oh = (h + hp[0] + hp[1] - k) // stride + 1
         ow = (w + wp[0] + wp[1] - k) // stride + 1
         key = (tag, kind, h, w, cin, cout, k, stride, hp, wp, addp, ring,
-               aligned, clamp)
+               aligned, clamp, table is not None)
         if key in self.configs:
             return
         rows, src = ring or (h, 0)
@@ -935,6 +948,9 @@ class Checks:
         qp = dict(mult=mult, zp_in=zp_in, zp_out=zp_out)
         if clamp is not None:
             qp.update(lo=clamp[0], hi=clamp[1])
+        if table is not None:
+            assert addp is None, "K4/K5 take no table"
+            qp["table"] = self.torch.as_tensor(table, device=self.device)
         pw = k == 1 and stride == 1 and hp == (0, 0) and wp == (0, 0)
         assert not (pw and ring), "K1 takes no ring window"
         extra = 0
@@ -1046,6 +1062,60 @@ class Checks:
         self.checked["qadd"] += 1
         self.configs[key] = ("qadd", 0, 3 * h * w * c, (h, w, c, addp))
 
+    def case_scale(self, tag, h, w, c, qp, lanes=2, aligned=False,
+                   inplace=False):
+        """K10 against ``ref.qmul`` over ``lanes`` lanes a byte stride
+        apart (``aligned``: 16 bytes), the gates in lanes of their own;
+        ``inplace``: the output is the map's own bytes."""
+        key = (tag, "qscale", h, w, c, qp, lanes, aligned, inplace)
+        if key in self.configs:
+            return
+        x = self._lanes((h, w, c), lanes, aligned)
+        g = self._lanes((1, 1, c), lanes, aligned)
+        want = self.ref.qmul(x, g, *qp)
+        out = x if inplace else self._lanes((h, w, c), lanes, aligned)
+        got = self.ops.qscale(x, g, mult=qp[0], zp_x=qp[1], zp_g=qp[2],
+                              zp_out=qp[3], out=out)
+        self.torch.cuda.synchronize()
+        assert got is out
+        diff = (got.to(self.torch.int32) - want.to(self.torch.int32)).abs()
+        self.max_err["qscale"] = max(self.max_err["qscale"],
+                                     int(diff.max()))
+        self.mismatches["qscale"] += int((diff != 0).sum())
+        self.checked["qscale"] += 1
+        self.configs[key] = ("qscale", 0, 3 * h * w * c + c, (h, w, c, qp))
+
+    def tables_and_scales(self, d):
+        """MobileNetV3's deployment: K10 at every channel-scale shape of its
+        schedule (its own params, lanes aligned as the arena's and not, and
+        in place), and K1–K3 at every table-activated conv shape with that
+        conv's own table.  Returns the shapes and cases."""
+        g, shapes = d.exec_graph, set()
+        before = sum(self.checked.values())
+        for op in d.schedule:
+            a = op.attrs
+            if op.kind == "qmul":
+                h, w, c = g.tensors[op.output].shape
+                qp = (a["mult"], a["zp_x"], a["zp_g"], a["zp_out"])
+                shapes.add(("qmul", h, w, c))
+                for aligned in (False, True):
+                    self.case_scale("table", h, w, c, qp, aligned=aligned)
+                self.case_scale("table", h, w, c, qp, aligned=True,
+                                inplace=True)
+            if op.kind not in ("qconv", "qdwconv") or "table" not in a:
+                continue
+            h, w, cin = g.tensors[op.inputs[0]].shape
+            wq = a["weight_q"]
+            args = (op.kind, h, w, cin,
+                    wq.shape[3] if op.kind == "qconv" else 0, wq.shape[0],
+                    a["stride"], a.get("pex_pads"), a.get("pex_wpads"),
+                    a["mult"], a["zp_in"], a["zp_out"])
+            shapes.add(args[:9])
+            self.case("table", *args, clamp=(-128, 127), aligned=True,
+                      table=a["table"])
+            self.case("table", *args, clamp=(-128, 127), table=a["table"])
+        return len(shapes), sum(self.checked.values()) - before
+
     def clamps_and_adds(self, d):
         """MobileNetV2's deployment: K9 at every add shape of its schedule
         (its own add params, lanes aligned as the arena's and not, and in
@@ -1147,6 +1217,13 @@ class Checks:
                                   aligned=aligned)
             self.case_add("hostile", h, w, c, ADD_QP[2], aligned=True,
                           inplace=True)
+        for (h, w, c) in HOSTILE_SCALE:
+            for qp in SCALE_QP:
+                for aligned in (False, True):
+                    self.case_scale("hostile", h, w, c, qp, lanes=3,
+                                    aligned=aligned)
+            self.case_scale("hostile", h, w, c, SCALE_QP[1], aligned=True,
+                            inplace=True)
         for i, (mult, zi, zo) in enumerate(HOSTILE_QP):
             for (h, w, cin, cout, k, s, hp, wp, ring) in HOSTILE_RING:
                 kind = "qdwconv" if cout == 0 else "qconv"
@@ -4359,6 +4436,7 @@ def main() -> int:
 
     import repro_torch.deploy as deploy
     from repro_torch.graphs import (mobilenet_v1_graph, mobilenet_v2_graph,
+                                    mobilenet_v3_large_graph,
                                     swiftnet_cell_graph)
     from repro_torch.kernels import build
     from repro_torch.kernels.conv_pointwise import ops as pw_ops
@@ -4414,6 +4492,9 @@ def main() -> int:
                          quantize=True)
     mnv2 = planned("mnv2 int8 budget=320K", mobilenet_v2_graph(*MNV2),
                    MNV2_INT8, quantize=True, arena_budget=MNV2_BUDGET)
+    mnv3 = planned("mnv3 int8 budget=320K",
+                   mobilenet_v3_large_graph(*MNV3), MNV3_INT8,
+                   quantize=True, arena_budget=MNV2_BUDGET)
     assert sum(map(is_pointwise, swift_f32.schedule)) == SWIFT_F32_K6
 
     # ------------------------------------- kernels vs plain, on the card
@@ -4434,10 +4515,11 @@ def main() -> int:
     assert all(v == 0 for v in checks.mismatches.values()), checks.mismatches
     assert all(v > 0 for v in checks.checked.values()), checks.checked
     assert checks.ring_checked > 0
-    # K9 gets no timing line: its device time is the benchmark's
-    # add_roofline (portbench/, the mnv2_int8_320k cell)
+    # K9 and K10 get no timing line: their device times are the
+    # benchmark's add_roofline and scale_roofline (portbench/, the
+    # mnv2_int8_320k and mnv3l_int8_320k cells)
     timings = {name: checks.timing(name, card) for name in cnn_wrappers
-               if name != "qadd"}
+               if name not in ("qadd", "qscale")}
     checks.k1_shapes(card, int8[0][1])
     checks.k6_shapes(card, f32[0][1])
     checks.conv_shapes(card, [(f"int8 budget={b}", d) for b, d in int8]
@@ -4485,6 +4567,18 @@ def main() -> int:
                                exact=True)
     assert per_inf.get("qadd", 0) == sum(
         op.kind == "qadd" for op in mnv2.schedule), per_inf
+    t0 = time.perf_counter()
+    n_shapes, n_cases = checks.tables_and_scales(mnv3)
+    log(f"phase tables mnv3: {mnv3.schedule_result.method}, {n_shapes} "
+        f"channel-scale and table-conv shapes, {n_cases} cases: K10 == "
+        f"ref.qmul, K1-K3 with their tables == their plain versions; "
+        f"checked {checks.checked}, mismatches {checks.mismatches} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    assert all(v == 0 for v in checks.mismatches.values()), checks.mismatches
+    per_inf = paths.deployment("mnv3 int8 budget=320K", mnv3, 303,
+                               exact=True)
+    assert per_inf.get("qscale", 0) == sum(
+        op.kind == "qmul" for op in mnv3.schedule), per_inf
     # sharded continuous batching over the same deployments
     t0 = time.perf_counter()
     for i, (budget, d) in enumerate(int8):

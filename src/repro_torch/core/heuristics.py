@@ -383,7 +383,12 @@ def schedule(graph: Graph, exact_limit: int = 18, contract_limit: int = 40,
     over-budget runs (the cascade's tail).  When row rings alone still
     miss the budget, a final rung re-plans the cascade with W-strips
     (2-D tiled streaming: reorder → pex → 1-D cascade → 2-D tiled
-    cascade).  The lowest peak wins at every rung.
+    cascade).  Last, where both miss the budget and the graph has
+    residual diamonds, a rung re-plans row cascades through them
+    (``cascade_graph(skips=True)``: a block's input streamed beside its
+    branch into the add; its search grows with the diamonds a run holds,
+    so it runs only where the rungs before it fall short).  The lowest
+    peak wins at every rung.
 
     **Joint branch-and-bound rung.**  After the ladder, graphs with at most
     ``solver_op_limit`` operators get a bounded pass of the joint
@@ -405,6 +410,8 @@ def schedule(graph: Graph, exact_limit: int = 18, contract_limit: int = 40,
     **Rung times.**  Each rung that runs is a ``repro_torch.tracing``
     phase ``rung.<name>``: a span while tracing is on, and its host
     seconds added to ``phase_s`` when one is given.
+    A residual-cascade search left undone for its cap (``plan_cascade``)
+    is named in the result's ``notes``.
     """
     if rungs is None:
         active = frozenset(_ALL_RUNGS)
@@ -417,8 +424,10 @@ def schedule(graph: Graph, exact_limit: int = 18, contract_limit: int = 40,
         if "reorder" not in active:
             raise ValueError("the 'reorder' rung is the mandatory base of "
                              "the ladder and cannot be disabled")
-    best = _ladder(graph, exact_limit, contract_limit, beam_width,
-                   arena_budget, partition, partition_opts, active, phase_s)
+    notes: List[str] = []
+    best = result = _ladder(graph, exact_limit, contract_limit, beam_width,
+                            arena_budget, partition, partition_opts, active,
+                            phase_s, notes)
     if ("solver" in active and solver_nodes
             and 0 < len(graph.operators) <= solver_op_limit):
         from .solver import solve   # deferred: avoids import cycle
@@ -430,13 +439,11 @@ def schedule(graph: Graph, exact_limit: int = 18, contract_limit: int = 40,
                        macs_cap=macs_cap, max_nodes=solver_nodes,
                        max_rewrites=16 if joint else 0, seeds=[best])
         cand = sr.best
-        if mode == "latency":
-            if cand.peak <= arena_budget:
-                return cand
-            return cand if cand.peak < best.peak else best
-        if cand.peak < best.peak:
-            return cand
-    return best
+        if ((mode == "latency" and cand.peak <= arena_budget)
+                or cand.peak < best.peak):
+            result = cand
+    return dataclasses.replace(result, notes=tuple(notes)) if notes \
+        else result
 
 
 def _ladder(graph: Graph, exact_limit: int, contract_limit: int,
@@ -444,13 +451,15 @@ def _ladder(graph: Graph, exact_limit: int, contract_limit: int,
             partition: bool,
             partition_opts: Optional[dict],
             active: FrozenSet[str] = frozenset(_ALL_RUNGS),
-            phase_s: Optional[Dict[str, float]] = None
+            phase_s: Optional[Dict[str, float]] = None,
+            notes: Optional[List[str]] = None
             ) -> ScheduleResult:
     """The fixed escalation ladder: reorder → pex → cascade → pex-over-tail
     → 2-D tiled cascade (greedy search inside each rung); the joint solver
     refines on top.  ``active`` gates which rungs may fire (degradation
     path; "reorder" is always implied); each rung that runs is timed into
-    ``phase_s`` as ``rung.<name>``."""
+    ``phase_s`` as ``rung.<name>``, and the cascade planner's notes of
+    what it left unsearched are appended to ``notes``."""
     with phase("rung.reorder", phase_s):
         best = _schedule_plain(graph, exact_limit, contract_limit,
                                beam_width)
@@ -459,7 +468,8 @@ def _ladder(graph: Graph, exact_limit: int, contract_limit: int,
     if not want or not (active & {"pex", "cascade", "cascade2d"}):
         return best
     from .partition import (cascade_graph,    # deferred: partition is
-                            partition_graph)  # optional
+                            partition_graph,  # optional
+                            run_skips, sliceable_runs)
     if "pex" in active:
         with phase("rung.pex", phase_s):
             pr = partition_graph(graph, budget=arena_budget,
@@ -481,9 +491,12 @@ def _ladder(graph: Graph, exact_limit: int, contract_limit: int,
     shared = {k: v for k, v in (partition_opts or {}).items()
               if k in ("max_k", "overhead_cap", "k_choices")}
 
-    def cascade_rung(strips_choices, tag):
+    def cascade_rung(strips_choices, tag, skips=False):
         cr = cascade_graph(graph, budget=arena_budget,
-                           strips_choices=strips_choices, **shared)
+                           strips_choices=strips_choices, skips=skips,
+                           **shared)
+        if notes is not None:
+            notes.extend(cr.notes)
         if not cr.cascades:
             return None
         cg = cr.graph
@@ -514,11 +527,25 @@ def _ladder(graph: Graph, exact_limit: int, contract_limit: int,
                                    total_macs=cr.total_macs,
                                    extra_macs_frac=frac)
 
+    def residual_rung(best):
+        # row rings through residual diamonds too (a block's input streamed
+        # beside its branch into the join), where the linear runs' rings
+        # and strips miss the budget and the graph has such a fork for
+        # them to break at, as MobileNetV3's 112x112 first block
+        if (best.peak <= arena_budget or "cascade" not in active
+                or not any(run_skips(run)
+                           for run in sliceable_runs(graph, skips=True))):
+            return best
+        with phase("rung.rescascade", phase_s):
+            cand_res = cascade_rung((1,), "+rescascade", skips=True)
+        return (cand_res if cand_res is not None
+                and cand_res.peak < best.peak else best)
+
     if "cascade" in active:
         with phase("rung.cascade", phase_s):
             cand = cascade_rung((1,), "+cascade")
         if cand is None:
-            return best
+            return residual_rung(best)
         if cand.peak < best.peak:
             best = cand
     if best.peak > arena_budget and "cascade2d" in active:
@@ -530,4 +557,4 @@ def _ladder(graph: Graph, exact_limit: int, contract_limit: int,
             cand2d = cascade_rung((2, 3, 4), "+cascade2d")
         if cand2d is not None and cand2d.peak < best.peak:
             best = cand2d
-    return best
+    return residual_rung(best)

@@ -40,6 +40,7 @@ micro-interpreter).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -180,17 +181,87 @@ def _sliced_indices(op: Operator) -> Tuple[int, ...]:
             else tuple(range(len(op.inputs))))
 
 
-def sliceable_runs(graph: Graph) -> List[List[Operator]]:
+def _skips_sliced(op: Operator, cur: Sequence[Operator]) -> bool:
+    """Whether every input ``op`` reads from the run so far enters through
+    a sliced position (for a linear chain: its predecessor's output)."""
+    if spec_of(op) is None:
+        return False
+    made = {m.output for m in cur}
+    return all(idx in _sliced_indices(op)
+               for idx, t in enumerate(op.inputs) if t in made)
+
+
+def _residual_chains(graph: Graph) -> List[List[Operator]]:
+    """The maximal linear chains with every residual diamond merged in: where
+    a chain's last output ``t`` has exactly two consumers, one heading a
+    chain whose last output only the other reads, and that other (the join,
+    e.g. an add) reads ``t`` too, the branch chain and the chain the join
+    heads are appended.  In the merged chain every op still reads its
+    predecessor's output; the join also reads ``t``, a *skip* from an
+    earlier member."""
+    chains = linear_chains(graph)
+    by_head = {c[0].name: c for c in chains}
+    used: set = set()
+    merged: List[List[Operator]] = []
+    for chain in chains:
+        if chain[0].name in used:
+            continue
+        run = list(chain)
+        used.update(op.name for op in run)
+        while True:
+            t = run[-1].output
+            cons = graph.consumers(t)
+            if len(cons) != 2 or t in graph.outputs:
+                break
+            found = None
+            for a, b in ((cons[0], cons[1]), (cons[1], cons[0])):
+                branch, after = by_head.get(a.name), by_head.get(b.name)
+                if (branch is None or after is None or t not in b.inputs
+                        or branch[-1].output not in b.inputs
+                        or graph.consumers(branch[-1].output) != [b]
+                        or any(op.name in used for op in branch + after)):
+                    continue
+                found = branch + after
+                break
+            if found is None:
+                break
+            run += found
+            used.update(op.name for op in found)
+        merged.append(run)
+    return merged
+
+
+def run_skips(run: Sequence[Operator]) -> List[Tuple[int, int, int]]:
+    """(producer position, consumer position, input index) of every input
+    a member of ``run`` reads from a member other than its predecessor: the
+    skips of the residual diamonds ``sliceable_runs(skips=True)`` merged."""
+    pos = {op.output: p for p, op in enumerate(run)}
+    out = []
+    for j, op in enumerate(run):
+        for idx, t in enumerate(op.inputs):
+            p = pos.get(t)
+            if p is not None and p != j - 1:
+                out.append((p, j, idx))
+    return out
+
+
+def sliceable_runs(graph: Graph, skips: bool = False
+                   ) -> List[List[Operator]]:
     """Contiguous runs (length >= 2) of sliceable ops within the maximal
     linear chains of the graph, where every chain link enters its consumer
-    through a sliced input position."""
+    through a sliced input position.  ``skips`` merges residual diamonds
+    into the chains first (``_residual_chains``): a run may then hold a
+    join that also reads an earlier member's output, through a sliced
+    position (``run_skips``)."""
     runs: List[List[Operator]] = []
-    for chain in linear_chains(graph):
+    chains = _residual_chains(graph) if skips else linear_chains(graph)
+    for chain in chains:
         cur: List[Operator] = []
         for op in chain:
             links = (not cur or
                      _chain_input_index(op, cur[-1].output) in
-                     (_sliced_indices(op) if spec_of(op) else ()))
+                     (_sliced_indices(op) if spec_of(op) else ())
+                     and _skips_sliced(op, cur))
             if _op_eligible(graph, op) and links:
                 cur.append(op)
             else:
@@ -219,33 +290,8 @@ def slice_plans(graph: Graph, ops: Sequence[Operator], k: int
     h_final = _height(graph, ops[-1].output)
     assert h_final is not None and 2 <= k <= h_final
     bounds = [(s * h_final) // k for s in range(k + 1)]
-    plans: List[_SlicePlan] = []
-    for s in range(k):
-        out: Dict[str, Tuple[int, int]] = {}
-        ins: Dict[str, List[Optional[Tuple[int, int, int, int]]]] = {}
-        oa, ob = bounds[s], bounds[s + 1]
-        for d in range(len(ops) - 1, -1, -1):
-            op = ops[d]
-            spec = spec_of(op)
-            assert spec is not None
-            out[op.name] = (oa, ob)
-            sliced = _sliced_indices(op)
-            row_plan: List[Optional[Tuple[int, int, int, int]]] = []
-            for idx, inp in enumerate(op.inputs):
-                if idx not in sliced:
-                    row_plan.append(None)
-                    continue
-                h_in = _height(graph, inp)
-                assert h_in is not None
-                row_plan.append(in_rows(spec.kernel, spec.stride, h_in,
-                                        oa, ob))
-            ins[op.name] = row_plan
-            if d > 0:
-                ci = _chain_input_index(op, ops[d - 1].output)
-                lo, hi, _, _ = row_plan[ci]  # type: ignore[misc]
-                oa, ob = lo, hi
-        plans.append(_SlicePlan(out, ins))
-    return plans
+    return [_backprop_segment(graph, ops, bounds[s], bounds[s + 1])
+            for s in range(k)]
 
 
 # ----------------------------------------------------------------- cost model
@@ -668,14 +714,18 @@ class _CascadeSlice:
 def _backprop_segment(graph: Graph, ops: Sequence[Operator],
                       d_lo: int, d_hi: int) -> _SlicePlan:
     """Back-propagate an output row range through one segment's ops (the
-    single-segment ``slice_plans`` inner loop, reused per cascade delta)."""
+    per-slice step of ``slice_plans``, reused per cascade delta).  A member
+    whose output several members read (a residual skip) computes the union
+    of their windows; in a linear chain that is its consumer's window."""
     out: Dict[str, Tuple[int, int]] = {}
     ins: Dict[str, List[Optional[Tuple[int, int, int, int]]]] = {}
-    a, b = d_lo, d_hi
+    made = {op.output for op in ops}
+    need: Dict[str, Tuple[int, int]] = {ops[-1].output: (d_lo, d_hi)}
     for d in range(len(ops) - 1, -1, -1):
         op = ops[d]
         spec = spec_of(op)
         assert spec is not None
+        a, b = need[op.output]
         out[op.name] = (a, b)
         sliced = _sliced_indices(op)
         row_plan: List[Optional[Tuple[int, int, int, int]]] = []
@@ -685,18 +735,29 @@ def _backprop_segment(graph: Graph, ops: Sequence[Operator],
                 continue
             h_in = _height(graph, inp)
             assert h_in is not None
-            row_plan.append(in_rows(spec.kernel, spec.stride, h_in, a, b))
+            rp = in_rows(spec.kernel, spec.stride, h_in, a, b)
+            row_plan.append(rp)
+            if inp in made:
+                lo, hi = rp[0], rp[1]
+                if inp in need:
+                    lo, hi = min(lo, need[inp][0]), max(hi, need[inp][1])
+                need[inp] = (lo, hi)
         ins[op.name] = row_plan
-        if d > 0:
-            ci = _chain_input_index(op, ops[d - 1].output)
-            lo, hi, _, _ = row_plan[ci]  # type: ignore[misc]
-            a, b = lo, hi
     return _SlicePlan(out, ins)
 
 
-def _seg_need_hi(graph: Graph, ops: Sequence[Operator], ob: int) -> int:
+def _seg_need_hi(graph: Graph, ops: Sequence[Operator], ob: int,
+                 boundary: Optional[str] = None) -> int:
     """Highest input row (exclusive) of the segment's chain input needed to
-    produce output rows [*, ob) — the hi of the row-map composition."""
+    produce output rows [*, ob) — the hi of the row-map composition; with
+    ``boundary`` (the chain input's name), over every member that reads
+    it, a residual skip included."""
+    if boundary is not None and (run_skips(ops) or sum(
+            boundary in op.inputs for op in ops) > 1):
+        plan = _backprop_segment(graph, ops, ob - 1, ob)
+        return max(rp[1] for op in ops
+                   for t, rp in zip(op.inputs, plan.ins[op.name])
+                   if t == boundary and rp is not None)
     b = ob
     for op in reversed(ops):
         spec = spec_of(op)
@@ -838,7 +899,8 @@ def cascade_slice_plans(graph: Graph, segments: Sequence[List[Operator]],
             demand[i] = min(heights[i],
                             max(prev[i],
                                 _seg_need_hi(graph, segments[i + 1],
-                                             demand[i + 1])))
+                                             demand[i + 1],
+                                             segments[i][-1].output)))
         deltas: List[Tuple[int, int]] = [(0, 0)] * m
         plans: List[Optional[_SlicePlan]] = [None] * m
         reads: List[Optional[Tuple[int, int]]] = [None] * m
@@ -847,8 +909,9 @@ def cascade_slice_plans(graph: Graph, segments: Sequence[List[Operator]],
             ob = min(d_lo + caps[i], demand[i])
             if i > 0:
                 # never read past what the producer has pushed so far
-                while ob > d_lo and _seg_need_hi(graph, segments[i],
-                                                 ob) > prev[i - 1]:
+                while ob > d_lo and _seg_need_hi(
+                        graph, segments[i], ob,
+                        segments[i - 1][-1].output) > prev[i - 1]:
                     ob -= 1
             if ob <= d_lo:
                 deltas[i] = (d_lo, d_lo)
@@ -857,10 +920,13 @@ def cascade_slice_plans(graph: Graph, segments: Sequence[List[Operator]],
             plan = _backprop_segment(graph, segments[i], d_lo, ob)
             plans[i] = plan
             if i > 0:
-                first = segments[i][0]
-                ci = _chain_input_index(first, segments[i - 1][-1].output)
-                lo, hi, _, _ = plan.ins[first.name][ci]  # type: ignore[misc]
-                reads[i] = (lo, hi)
+                # the boundary's windows: the first member's, and a
+                # residual skip's where a later member reads it too
+                boundary = segments[i - 1][-1].output
+                wins = [rp for op in segments[i]
+                        for t, rp in zip(op.inputs, plan.ins[op.name])
+                        if t == boundary and rp is not None]
+                reads[i] = (min(w[0] for w in wins), max(w[1] for w in wins))
             prev[i] = ob
         slices.append(_CascadeSlice(deltas, plans, reads))
     assert prev[-1] == h_final, "cascade streaming failed to make progress"
@@ -998,6 +1064,44 @@ def estimate_cascade(graph: Graph, segments: Sequence[List[Operator]],
     return (ext_bytes + out_bytes + strip_peak, frac, rings, extra_macs)
 
 
+# the most cuts a cascade through residual diamonds is searched with, and
+# the most cut sets a run of diamonds is searched over: past it (MobileNetV2's
+# runs of eight diamonds at 32x32 hold ~35 000, a search of hours) the run is
+# not cascaded, and the planner's notes say so (``plan_cascade``)
+SKIP_CUTS = 4
+SKIP_CUT_SETS = 4096
+
+
+def _closed(graph: Graph, ops: Sequence[Operator]) -> bool:
+    """Whether every member output but the last is read by members only
+    (a cascade drops its interior tensors: a skip must not leave it)."""
+    names = {op.name for op in ops}
+    return all(c.name in names for op in ops[:-1]
+               for c in graph.consumers(op.output)) \
+        and not any(op.output in graph.outputs for op in ops[:-1])
+
+
+def _skips_streamable(skips: Sequence[Tuple[int, int, int]],
+                      cuts: Sequence[int], end: int) -> bool:
+    """Whether each skip ``(producer, join, _)`` of a run lies within the
+    cascade cut at ``cuts`` and ending at ``end`` so that the join can read
+    it: both in one segment, or the producer last in its segment and the
+    join in the next one (the boundary's ring)."""
+    bounds = sorted(cuts)
+
+    def seg(p: int) -> int:
+        return sum(c <= p for c in bounds)
+    for p, j, _ in skips:
+        if j >= end:
+            if p < end:
+                return False
+            continue
+        sp, sj = seg(p), seg(j)
+        if sj != sp and not (sj == sp + 1 and p + 1 in bounds):
+            return False
+    return True
+
+
 def _cut_candidates(graph: Graph, run: Sequence[Operator]) -> List[int]:
     """Positions p where ``run[:p]`` / ``run[p:]`` is a sensible boundary:
     after every op that shrinks the spatial height (stride > 1) — the
@@ -1037,13 +1141,148 @@ def _cascade_caps(graph: Graph, segments: Sequence[List[Operator]],
                  for c, h in zip(steady, heights))
 
 
+def _end_height(graph: Graph, ops: Sequence[Operator]) -> Optional[int]:
+    """The final height of a cascade over ``ops``, or None where no
+    cascade may end after them: fewer than two ops or rows, or an interior
+    output read outside them (``_closed``)."""
+    h = _height(graph, ops[-1].output)
+    if h is None or h < 2 or len(ops) < 2 or not _closed(graph, ops):
+        return None
+    return h
+
+
+# one end of a run's search: (end, final height, cut sets, W-strip counts)
+_EndSearch = Tuple[int, int, List[Tuple[int, ...]], List[int]]
+
+
+def _linear_search(graph: Graph, run: Sequence[Operator],
+                   cuts_all: Sequence[int],
+                   strips_choices: Sequence[int]) -> List[_EndSearch]:
+    """The ends and cut sets a linear run is searched over: ends at its
+    stride-level candidates and its last op, every subset of the
+    candidates before the end, and suffixes of two structural families
+    (``plan_cascade``)."""
+    import itertools
+
+    windowed = tuple(
+        p for p in range(1, len(run))
+        if (spec_of(run[p]).kernel > 1          # type: ignore[union-attr]
+            or spec_of(run[p]).stride > 1))     # type: ignore[union-attr]
+    singles = tuple(range(1, len(run)))
+    out: List[_EndSearch] = []
+    for end in sorted(set(cuts_all) | {len(run)}):
+        ops_e = run[:end]
+        h_final = _end_height(graph, ops_e)
+        if h_final is None:
+            continue
+        strips_e = [st for st in strips_choices
+                    if st == 1 or _strips_eligible(graph, ops_e, st)]
+        ends_cuts = [c for c in cuts_all if c < end]
+        if not ends_cuts:
+            continue
+        cut_sets = [cuts for r in range(1, len(ends_cuts) + 1)
+                    for cuts in itertools.combinations(ends_cuts, r)]
+        for fam in (windowed, singles,
+                    tuple(sorted(set(windowed) | set(ends_cuts)))):
+            fam_e = tuple(c for c in fam if c < end)
+            for j in range(min(4, len(fam_e))):
+                suffix = fam_e[j:]
+                if suffix and suffix not in cut_sets:
+                    cut_sets.append(suffix)
+        out.append((end, h_final, cut_sets, strips_e))
+    return out
+
+
+def _residual_search(graph: Graph, run: Sequence[Operator],
+                     skips: Sequence[Tuple[int, int, int]],
+                     strips_choices: Sequence[int]
+                     ) -> Tuple[List[_EndSearch], int]:
+    """The ends and cut sets a run with residual skips is searched over,
+    row rings only, and how many cut sets that is.  Its joins sit between
+    the stride levels, so every end whose interior stays inside the run
+    and every cut set of up to ``SKIP_CUTS`` cuts that keeps the skips
+    streamable (``_skips_streamable``; a cut set does exactly when each of
+    its cuts alone does) is searched.  Over ``SKIP_CUT_SETS`` cut sets the
+    search is left empty."""
+    import itertools
+
+    ends = [e for e in range(2, len(run) + 1) if _closed(graph, run[:e])]
+    allowed = {e: [c for c in range(1, e)
+                   if _skips_streamable(skips, (c,), e)] for e in ends}
+    count = sum(math.comb(len(a), r) for a in allowed.values()
+                for r in range(1, SKIP_CUTS + 1))
+    if count > SKIP_CUT_SETS:
+        return [], count
+    strips = [st for st in strips_choices if st == 1]
+    out: List[_EndSearch] = []
+    for end in ends:
+        h_final = _end_height(graph, run[:end])
+        cuts = allowed[end]
+        if h_final is None or not cuts:
+            continue
+        out.append((end, h_final,
+                    [c for r in range(1, min(len(cuts), SKIP_CUTS) + 1)
+                     for c in itertools.combinations(cuts, r)], strips))
+    return out, count
+
+
+def _best_cascade(graph: Graph, run: Sequence[Operator],
+                  search: Sequence[_EndSearch], budget: Optional[int],
+                  max_k: int, overhead_cap: float,
+                  k_choices: Sequence[int],
+                  min_rows_choices: Sequence[int],
+                  rate_div_choices: Sequence[int]) -> Optional[Cascade]:
+    """The best cascade of ``run`` over ``search``'s ends and cut sets and
+    every (K, chunk floor, rate divisor, W-strip count): meeting the budget
+    first, then estimated peak, halo overhead, K.  An early end's estimate
+    is floored by its tail's fattest single step."""
+    best: Optional[Tuple] = None
+    for end, h_final, cut_sets, strips_e in search:
+        tail_floor = (_local_baseline(graph, run[end:])
+                      if end < len(run) else 0)
+        for cuts in cut_sets:
+            segs = []
+            lo = 0
+            for c in list(cuts) + [end]:
+                segs.append(list(run[lo:c]))
+                lo = c
+            seen_caps: set = set()
+            for k in k_choices:
+                if k > min(max_k, h_final) or k < 2:
+                    continue
+                for mr in min_rows_choices:
+                    for rd in rate_div_choices:
+                        caps = _cascade_caps(graph, segs, k, mr, rd)
+                        for st in strips_e:
+                            if (caps, st) in seen_caps:
+                                continue
+                            seen_caps.add((caps, st))
+                            est, frac, rings, extra = estimate_cascade(
+                                graph, segs, k, mr, rd, st)
+                            if frac > overhead_cap:
+                                continue
+                            est = max(est, tail_floor)
+                            meets = budget is not None and est <= budget
+                            key = (0 if meets else 1, est, frac, k,
+                                   mr, rd, st)
+                            if best is None or key < best[0]:
+                                best = (key, segs, k, est, frac, rings,
+                                        mr, rd, extra, st)
+    if best is None:
+        return None
+    _, segs, k, est, frac, rings, mr, rd, extra, st = best
+    return Cascade(segs, k, rings, est, frac, mr, rd, extra, st)
+
+
 def plan_cascade(graph: Graph, budget: Optional[int] = None,
                  max_k: int = 16, overhead_cap: float = 0.25,
                  k_choices: Sequence[int] = (2, 3, 4, 6, 8, 12, 16),
                  max_cuts: int = 8,
                  min_rows_choices: Sequence[int] = (1, 2, 4),
                  rate_div_choices: Sequence[int] = (1, 2, 4),
-                 strips_choices: Sequence[int] = (1,)
+                 strips_choices: Sequence[int] = (1,),
+                 skips: bool = False,
+                 notes: Optional[List[str]] = None
                  ) -> List[Cascade]:
     """Choose, per sliceable run, the best (end, cut set, K, chunk floor,
     rate divisor, W-strip count) — ranked like ``_choose_in_run``: meeting
@@ -1073,76 +1312,39 @@ def plan_cascade(graph: Graph, budget: Optional[int] = None,
     (whole, already-charged) external input — recompute there trades
     against rings that would sit next to the fattest feature maps.  Only
     cascades with at least two segments qualify — a single segment is
-    whole-externals Pex."""
-    import itertools
+    whole-externals Pex.
 
+    ``skips`` plans the runs with residual diamonds merged in
+    (``sliceable_runs(skips=True)``).  A run that holds a skip is searched
+    by ``_residual_search``: the skip stays inside the cascade, its
+    producer and its join in one segment (the producer's window is the
+    union of both readers'), or the producer last in its segment and the
+    join in the next (both read the boundary's ring).  A run whose search
+    is over ``SKIP_CUT_SETS`` is not cascaded, and a line saying so is
+    appended to ``notes`` where one is given."""
     cascades: List[Cascade] = []
-    for run in sliceable_runs(graph):
+    for run in sliceable_runs(graph, skips):
         if len(run) < 3:
             continue
         cuts_all = _cut_candidates(graph, run)[:max_cuts]
         if not cuts_all:
             continue
-        windowed = tuple(
-            p for p in range(1, len(run))
-            if (spec_of(run[p]).kernel > 1          # type: ignore[union-attr]
-                or spec_of(run[p]).stride > 1))     # type: ignore[union-attr]
-        singles = tuple(range(1, len(run)))
-        best: Optional[Tuple[Tuple, List[List[Operator]], int, int,
-                             float, List[int], int, int]] = None
-        for end in sorted(set(cuts_all) | {len(run)}):
-            ops_e = run[:end]
-            h_final = _height(graph, ops_e[-1].output)
-            if h_final is None or h_final < 2 or len(ops_e) < 2:
-                continue
-            strips_e = [st for st in strips_choices
-                        if st == 1 or _strips_eligible(graph, ops_e, st)]
-            tail_floor = (_local_baseline(graph, run[end:])
-                          if end < len(run) else 0)
-            ends_cuts = [c for c in cuts_all if c < end]
-            if not ends_cuts:
-                continue
-            cut_sets = [cuts for r in range(1, len(ends_cuts) + 1)
-                        for cuts in itertools.combinations(ends_cuts, r)]
-            for fam in (windowed, singles,
-                        tuple(sorted(set(windowed) | set(ends_cuts)))):
-                fam_e = tuple(c for c in fam if c < end)
-                for j in range(min(4, len(fam_e))):
-                    suffix = fam_e[j:]
-                    if suffix and suffix not in cut_sets:
-                        cut_sets.append(suffix)
-            for cuts in cut_sets:
-                segs = []
-                lo = 0
-                for c in list(cuts) + [end]:
-                    segs.append(list(run[lo:c]))
-                    lo = c
-                seen_caps: set = set()
-                for k in k_choices:
-                    if k > min(max_k, h_final) or k < 2:
-                        continue
-                    for mr in min_rows_choices:
-                        for rd in rate_div_choices:
-                            caps = _cascade_caps(graph, segs, k, mr, rd)
-                            for st in strips_e:
-                                if (caps, st) in seen_caps:
-                                    continue
-                                seen_caps.add((caps, st))
-                                est, frac, rings, extra = estimate_cascade(
-                                    graph, segs, k, mr, rd, st)
-                                if frac > overhead_cap:
-                                    continue
-                                est = max(est, tail_floor)
-                                meets = budget is not None and est <= budget
-                                key = (0 if meets else 1, est, frac, k,
-                                       mr, rd, st)
-                                if best is None or key < best[0]:
-                                    best = (key, segs, k, est, frac, rings,
-                                            mr, rd, extra, st)
+        sk = run_skips(run)
+        if sk:
+            search, count = _residual_search(graph, run, sk, strips_choices)
+            if count > SKIP_CUT_SETS and notes is not None:
+                notes.append(
+                    f"cascade: the run of {len(run)} operators from "
+                    f"{run[0].name} through {len(sk)} residual skips holds "
+                    f"{count} cut sets, over SKIP_CUT_SETS = "
+                    f"{SKIP_CUT_SETS}: not searched")
+        else:
+            search = _linear_search(graph, run, cuts_all, strips_choices)
+        best = _best_cascade(graph, run, search, budget, max_k,
+                             overhead_cap, k_choices, min_rows_choices,
+                             rate_div_choices)
         if best is not None:
-            _, segs, k, est, frac, rings, mr, rd, extra, st = best
-            cascades.append(Cascade(segs, k, rings, est, frac, mr, rd,
-                                    extra, st))
+            cascades.append(best)
     return cascades
 
 
@@ -1168,6 +1370,23 @@ def _ring_push_fn(dst: int, ring_rows: int, first: bool) -> Callable[..., Any]:
             out[(dst + np.arange(part.shape[0])) % ring_rows] = part
             return out
     return fn
+
+
+def _sub_rows(old: Graph, new: Graph, part: str, tensor: str,
+              have: Tuple[int, int], want: Tuple[int, int], name: str,
+              seg_tag: str, phase: int, executable: bool) -> str:
+    """Rows ``want`` of ``tensor`` out of ``part``, the rows ``have`` of it
+    an iteration made: a ``pex_slice`` with rows relative to ``part``."""
+    lo, hi = want[0] - have[0], want[1] - have[0]
+    assert 0 <= lo < hi <= have[1] - have[0], (have, want)
+    t = old.tensors[tensor]
+    tname = f"{part}__{name}"
+    new.add_tensor(tname, (hi - lo) * _row_bytes(old, tensor),
+                   (hi - lo,) + tuple(t.shape[1:]), t.dtype)
+    new.add_operator(name, [part], tname, kind="pex_slice",
+                     fn=_slice_fn(lo, hi) if executable else None,
+                     pex_seg=seg_tag, pex_slice_idx=phase, pex_rows=(lo, hi))
+    return tname
 
 
 def _emit_cascade(old: Graph, new: Graph, casc: Cascade) -> None:
@@ -1250,6 +1469,7 @@ def _emit_cascade(old: Graph, new: Graph, casc: Cascade) -> None:
                     continue
                 plan = cs.plans[i]
                 assert plan is not None
+                made = {m.output: m for m in seg}
                 for d, op in enumerate(seg):
                     spec = spec_of(op)
                     assert spec is not None
@@ -1270,16 +1490,29 @@ def _emit_cascade(old: Graph, new: Graph, casc: Cascade) -> None:
                             pads = (top, bottom)
                         if cc is not None and (cc[2] or cc[3]):
                             wpads = (cc[2], cc[3])
-                        if d > 0 and inp == seg[d - 1].output:
-                            ins.append(f"{inp}__cpex{s}{sx}")
-                        elif (d == 0 and i > 0
-                              and inp == segments[i - 1][-1].output):
-                            # halo'd window out of the predecessor's ring
+                        if inp in made:
+                            # a member's rows of this iteration: all of them
+                            # for its successor; a residual skip's join
+                            # reads the part of the union it needs
+                            part_in = f"{inp}__cpex{s}{sx}"
+                            have = plan.out[made[inp].name]
+                            if have != (lo, hi):
+                                assert cc is None, "skips stream by rows"
+                                part_in = _sub_rows(
+                                    old, new, part_in, inp, have, (lo, hi),
+                                    f"cpexss__{head}_{i}_{s}{sx}_{d}_{idx}",
+                                    seg_tag, phase, executable)
+                            ins.append(part_in)
+                        elif (i > 0 and inp == segments[i - 1][-1].output):
+                            # halo'd window out of the predecessor's ring (a
+                            # second read where a residual skip's join in
+                            # this segment reads the boundary too)
                             ring = ring_cur[i - 1]
                             assert ring is not None
                             ring_rows = casc.ring_rows[i - 1]
                             t_b = old.tensors[inp]
-                            rname = f"{inp}__rw{s}{sx}"
+                            at = "" if d == 0 else f"_{d}"
+                            rname = f"{inp}__rw{s}{sx}{at}"
                             if cc is None:
                                 rbytes = (hi - lo) * _row_bytes(old, inp)
                                 shape = ((hi - lo,) + tuple(t_b.shape[1:])
@@ -1291,7 +1524,8 @@ def _emit_cascade(old: Graph, new: Graph, casc: Cascade) -> None:
                                          + tuple(t_b.shape[2:]))
                             new.add_tensor(rname, rbytes, shape, t_b.dtype)
                             new.add_operator(
-                                f"cpexrd__{head}_{i}_{s}{sx}", [ring], rname,
+                                f"cpexrd__{head}_{i}_{s}{sx}{at}", [ring],
+                                rname,
                                 kind="pex_ring_read",
                                 fn=(_ring_read_fn(lo, hi - lo, ring_rows)
                                     if executable else None),
@@ -1417,6 +1651,8 @@ class CascadeResult:
     graph: Graph
     cascades: List[Cascade]
     total_macs: int = 0      # graph_macs of the ORIGINAL graph
+    # runs the planner left unsearched, one line each (``plan_cascade``)
+    notes: List[str] = dataclasses.field(default_factory=list)
 
     @property
     def extra_macs(self) -> int:
@@ -1464,8 +1700,8 @@ def cascade_graph(graph: Graph, budget: Optional[int] = None,
                   max_k: int = 16, overhead_cap: float = 0.25,
                   k_choices: Sequence[int] = (2, 3, 4, 6, 8, 12, 16),
                   strips_choices: Sequence[int] = (1,),
-                  rf_redistribute: Optional[Tuple[str, str]] = None
-                  ) -> CascadeResult:
+                  rf_redistribute: Optional[Tuple[str, str]] = None,
+                  skips: bool = False) -> CascadeResult:
     """One-stop cascaded-streaming transform: plan cut sets / K against
     ``budget`` and rewrite the graph.  Returns the input graph unchanged
     (``result.graph is graph``) when no run can cascade.
@@ -1477,13 +1713,17 @@ def cascade_graph(graph: Graph, budget: Optional[int] = None,
     so 2-D tiling's per-axis halo bill shrinks while total network reach
     is conserved.  The shrink leg is a flagged model edit (see the
     transform's docstring), which is why it is opt-in per op pair and
-    never chosen silently by the planner."""
+    never chosen silently by the planner.  ``skips`` streams residual
+    diamonds too (``plan_cascade``), and the result's ``notes`` name the
+    runs whose search was over its cap."""
     if rf_redistribute is not None:
         from repro_torch.graphs.cnn_ops import redistribute_receptive_field
         graph = redistribute_receptive_field(graph, *rf_redistribute)
+    notes: List[str] = []
     cascades = plan_cascade(graph, budget, max_k, overhead_cap, k_choices,
-                            strips_choices=strips_choices)
+                            strips_choices=strips_choices, skips=skips,
+                            notes=notes)
     if not cascades:
-        return CascadeResult(graph, [], graph_macs(graph))
+        return CascadeResult(graph, [], graph_macs(graph), notes)
     return CascadeResult(apply_cascade(graph, cascades), cascades,
-                         graph_macs(graph))
+                         graph_macs(graph), notes)

@@ -40,6 +40,9 @@ class ScheduleResult:
     # plain reorder-only results that never touched a rewrite pass.
     extra_macs: Optional[int] = None
     total_macs: Optional[int] = None
+    # What a rung left undone that a reader of the result should know, one
+    # line each (a run of residual diamonds whose search was over its cap).
+    notes: Tuple[str, ...] = ()
 
 
 def _split(graph: Graph, x_set: FrozenSet[str]) -> Tuple[List[str], List[str]]:

@@ -24,7 +24,8 @@ cache) and makes no host read of the card's data.
 ``capture`` records how far each counter moved while the run was
 recorded, sets the counters back (recording launches nothing on the
 card), and every ``replay()`` adds those amounts: a counter still means
-"launches on the card".
+"launches on the card".  The same holds for a wrapper's
+``table_launches`` (K1–K3's launches with a table epilogue).
 
 **No fallback.**  A failed capture or replay raises ``CaptureError``
 naming ``what`` and the operator or layer that was running (the notes the
@@ -33,7 +34,7 @@ caller attached to the exception); nothing retries eagerly.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -72,16 +73,21 @@ class CapturedGraph:
     ``warmup_ms`` that of the warm-up runs."""
 
     def __init__(self, graph, output, launches: Dict[str, int],
-                 capture_ms: float, warmup_ms: float, what: str) -> None:
+                 capture_ms: float, warmup_ms: float, what: str,
+                 table_launches: Optional[Dict[str, int]] = None) -> None:
         self.graph = graph
         self.output = output
         self.launches = launches
+        self.table_launches = dict(table_launches or {})
         self.capture_ms = capture_ms
         self.warmup_ms = warmup_ms
         self.what = what
         wrappers = kernel_wrappers()
-        self._bumps: List[Tuple[Any, int]] = [
-            (wrappers[n], k) for n, k in launches.items() if k]
+        self._bumps: List[Tuple[Any, str, int]] = [
+            (wrappers[n], counter, k)
+            for counter, moved in (("launches", launches),
+                                   ("table_launches", self.table_launches))
+            for n, k in moved.items() if k]
 
     def replay(self) -> None:
         try:
@@ -89,8 +95,8 @@ class CapturedGraph:
         except Exception as e:
             raise CaptureError(f"replay of {self.what} failed: "
                                f"{type(e).__name__}: {e}") from e
-        for wrapper, k in self._bumps:
-            wrapper.launches += k
+        for wrapper, counter, k in self._bumps:
+            setattr(wrapper, counter, getattr(wrapper, counter) + k)
 
 
 def _warm_up(fn: Callable[[], Any], device: torch.device,
@@ -140,19 +146,30 @@ def capture(fn: Callable[[], Any], device: torch.device, *,
     if warmup_runs:
         warm_up(fn, device, what=what, runs=warmup_runs)
     t1 = time.perf_counter()
-    before = {n: f.launches for n, f in wrappers.items()}
+    before = _counters(wrappers)
     try:
         graph, out = _record(fn, device)
     except Exception as e:
         raise CaptureError(f"capture of {what} failed{_where(e)}: "
                            f"{type(e).__name__}: {e}") from e
     finally:
-        moved = {n: f.launches - before[n] for n, f in wrappers.items()}
-        for n, f in wrappers.items():
-            f.launches = before[n]
+        moved = {key: v - before[key]
+                 for key, v in _counters(wrappers).items()}
+        for (n, counter), v in before.items():
+            setattr(wrappers[n], counter, v)
     t2 = time.perf_counter()
-    return CapturedGraph(graph, out, moved, (t2 - t1) * 1e3,
-                         (t1 - t0) * 1e3, what)
+    return CapturedGraph(
+        graph, out, {n: k for (n, c), k in moved.items() if c == "launches"},
+        (t2 - t1) * 1e3, (t1 - t0) * 1e3, what,
+        table_launches={n: k for (n, c), k in moved.items()
+                        if c == "table_launches"})
+
+
+def _counters(wrappers) -> Dict[Tuple[str, str], int]:
+    """Every launch counter of the wrappers: ``launches``, and
+    ``table_launches`` where a wrapper keeps one."""
+    return {(n, c): getattr(f, c) for n, f in wrappers.items()
+            for c in ("launches", "table_launches") if hasattr(f, c)}
 
 
 __all__ = ["CAPTURE_MODE", "CapturedGraph", "WARMUP_RUNS", "capture",

@@ -3,6 +3,7 @@ from .figure1 import (figure1_executable_graph, figure1_graph,
 from .swiftnet import swiftnet_cell_graph
 from .mobilenet import mobilenet_v1_graph
 from .mobilenet_v2 import mobilenet_v2_graph
+from .mobilenet_v3 import mobilenet_v3_large_graph
 from .quantize import (QParams, QuantizedModel, build_quantized,
                        int8_scheduling_graph, quantize_graph)
 
@@ -34,6 +35,7 @@ def random_input(graph, seed: int = 0):
 
 __all__ = ["figure1_executable_graph", "figure1_graph", "figure1_int8_graph",
            "swiftnet_cell_graph", "mobilenet_v1_graph", "mobilenet_v2_graph",
+           "mobilenet_v3_large_graph",
            "graph_dtypes",
            "random_input", "QParams", "QuantizedModel", "build_quantized",
            "int8_scheduling_graph", "quantize_graph"]

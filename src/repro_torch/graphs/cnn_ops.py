@@ -16,19 +16,30 @@ receptive-field edits and ``params.apply_params`` all go through it.
 
 Activations: every conv and depthwise conv ends in its ``act`` attribute,
 ``"relu"`` (the default, and every graph's before MobileNetV2), ``"relu6"``
-or ``"none"`` (a linear conv, as MobileNetV2's projections).  The float
-ops clamp to [0, inf), to [0, 6] or not at all; the int8 rewrite
-(``graphs/quantize.py``) turns ``act`` into the int8 clamp pair ``lo,
-hi`` that the int8 ops and kernels apply after requantizing.
+or ``"none"`` (a linear conv, as MobileNetV2's projections), or one of
+MobileNetV3's ``"hswish"`` (``x * min(max(x + 3, 0), 6) / 6``) and
+``"hsigmoid"`` (``min(max(x + 3, 0), 6) / 6``).  The float ops clamp to
+[0, inf), to [0, 6], not at all, or compute those expressions in float32;
+the int8 rewrite (``graphs/quantize.py``) turns a clamp into the int8
+pair ``lo, hi`` that the int8 ops and kernels apply after requantizing,
+and h-swish / h-sigmoid into a 256-entry int8 ``table`` that maps the
+conv's requantized pre-activation value to its output
+(``TABLE_ACTIVATIONS``).
+
+``mul`` / ``qmul`` is squeeze-and-excite's channel scale: an H x W x C
+map times a 1 x 1 x C gate, broadcast over the map.  It slices like an
+elementwise op along its map; the gate goes whole to every slice.
 
 Numerics: int8 ops are bit-identical to the JAX package's.  Integer
 convolutions accumulate as an exact float64 convolution (``kernels/
 conv_quant/ref.py``), requantization replays ``round(f32(acc) *
 f32(mult)) + zp_out`` literally, and ``qadd`` (also in ``ref.py``, as the
 plain half of the fused conv→add kernels and of K9) is the same integer
-fixed-point sequence.  ``qconv2d``/``qdwconv2d`` go through the kernel
-wrappers, so on the card the int8 ops run the Hopper kernels, and the
-compiled program's ``qadd`` runs K9.  Float32 ops agree
+fixed-point sequence.  ``qmul`` and the table activations have no JAX
+counterpart; the plain reference of MobileNetV3 holds them.
+``qconv2d``/``qdwconv2d`` go through the kernel wrappers, so on the card
+the int8 ops run the Hopper kernels, and the compiled program's ``qadd``
+runs K9 and its ``qmul`` K10.  Float32 ops agree
 with XLA within accumulation order; TF32 is switched off for them on the
 card.
 """
@@ -48,7 +59,8 @@ from repro_torch.kernels.conv_quant import ops as conv_quant_ops
 from repro_torch.kernels.conv_quant.ops import (RingWindow, qconv_fused,
                                                 qdwconv_fused)
 from repro_torch.kernels.conv_quant.ref import (INT8_MAX, INT8_MIN,
-                                                f32_scalar, qadd, requantize)
+                                                f32_scalar, qadd, qmul,
+                                                requantize)
 
 
 def _weight(name: str, shape: Tuple[int, ...], scale: float = 0.1):
@@ -99,9 +111,13 @@ def _elementwise_slice_fn(op: Operator, pad_top: int, pad_bottom: int,
 
 _QCONV_ATTRS = ("weight_q", "stride", "mult", "zp_in", "zp_out")
 # the activation: the float convs' ``act``, the int8 convs' clamp pair
+# and, for a table activation, its table
 _ACT_KW = ("act",)
-_CLAMP_KW = ("lo", "hi")
-ACTIVATIONS = ("relu", "relu6", "none")
+_CLAMP_KW = ("lo", "hi", "table")
+ACTIVATIONS = ("relu", "relu6", "none", "hswish", "hsigmoid")
+# activations an int8 conv applies as a table after requantizing to its
+# pre-activation params, not as a clamp
+TABLE_ACTIVATIONS = ("hswish", "hsigmoid")
 
 
 def pex_spec(kind: str, out_shape: Tuple[int, int, int], cin: int,
@@ -145,6 +161,10 @@ def pex_spec(kind: str, out_shape: Tuple[int, int, int], cin: int,
     if kind == "qadd":
         return SliceSpec(1, 1, None, _elementwise_slice_fn,
                          macs_per_row=ow * cout)
+    if kind in ("mul", "qmul"):
+        # the map slices, the 1 x 1 gate goes whole to every slice
+        return SliceSpec(1, 1, (0,), _elementwise_slice_fn,
+                         macs_per_row=ow * cout)
     return None    # concat / avgpool / fc: not spatially sliceable
 
 
@@ -163,6 +183,8 @@ def op_semantics(kind: str, attrs: Dict[str, Any]
         return lambda x: maxpool2d(x, a["k"], a["stride"])
     if kind == "add":
         return lambda x, y: x + y
+    if kind == "mul":
+        return lambda x, g: x * g
     if kind == "concat":
         return lambda *xs: torch.cat(xs, dim=-1)
     if kind == "avgpool":
@@ -173,7 +195,7 @@ def op_semantics(kind: str, attrs: Dict[str, Any]
         kern = qconv2d if kind == "qconv" else qdwconv2d
         return lambda x: kern(x, a["weight_q"], a["stride"], a["mult"],
                               a["zp_in"], a["zp_out"], lo=a.get("lo"),
-                              hi=a.get("hi"))
+                              hi=a.get("hi"), table=a.get("table"))
     if kind == "qmaxpool":
         return lambda x: qmaxpool2d(x, a["k"], a["stride"])
     if kind == "qavgpool":
@@ -181,6 +203,9 @@ def op_semantics(kind: str, attrs: Dict[str, Any]
     if kind == "qadd":
         return lambda x, y: qadd(x, y, a["mult_a"], a["mult_b"], a["zp_a"],
                                  a["zp_b"], a["zp_out"])
+    if kind == "qmul":
+        return lambda x, g: qmul(x, g, a["mult"], a["zp_x"], a["zp_g"],
+                                 a["zp_out"])
     if kind == "qfc":
         return lambda x: qfc(x, a["weight_q"], a["mult"], a["zp_in"],
                              a["zp_out"])
@@ -268,6 +293,15 @@ class CNNBuilder:
         return self._emit("add", [a, b], self.shapes[a],
                           cin=self.shapes[a][2])
 
+    def mul(self, x: str, gate: str) -> str:
+        """The map ``x`` (H x W x C) scaled channel by channel by the 1 x 1
+        x C ``gate``: squeeze-and-excite's last step."""
+        h, w, c = self.shapes[x]
+        if self.shapes[gate] != (1, 1, c):
+            raise ValueError(f"gate {gate} is {self.shapes[gate]}, the map "
+                             f"{x} needs (1, 1, {c})")
+        return self._emit("mul", [x, gate], (h, w, c), cin=c)
+
     def avgpool(self, x: str) -> str:
         h, w, c = self.shapes[x]
         return self._emit("avgpool", [x], (1, 1, c))
@@ -288,13 +322,23 @@ def _activation(act: str) -> str:
 # ---------------------------------------------------------- float32 ops
 def activate(y: torch.Tensor, act: str) -> torch.Tensor:
     """A conv's activation on its float32 output: ReLU, ReLU6 (clamped at
-    exactly 6.0) or none."""
+    exactly 6.0), none, h-swish ``y * min(max(y + 3, 0), 6) / 6`` or
+    h-sigmoid ``min(max(y + 3, 0), 6) / 6``, each step rounded to float32
+    in that order (the int8 tables are computed by this same function).
+    The division is a true one on every device: by a 0-dim tensor on
+    ``y``'s device, since PyTorch's CUDA kernels turn a division by a
+    Python number into a product with its float32 reciprocal, which is not
+    the same rounding."""
     if act == "relu":
         return torch.clamp_min(y, 0.0)
     if act == "relu6":
         return torch.clamp(y, 0.0, 6.0)
     if act == "none":
         return y
+    if act in TABLE_ACTIVATIONS:
+        r6 = torch.clamp(y + 3.0, 0.0, 6.0)
+        return (y * r6 if act == "hswish" else r6) / f32_scalar(6.0,
+                                                                 y.device)
     raise ValueError(f"activation {act!r} is not one of {ACTIVATIONS}")
 
 
@@ -407,28 +451,36 @@ def dequantize_array(q, scale: float, zp: int):
     return (q.to(torch.float32) - zp) * s
 
 
+def _table(table, like: torch.Tensor) -> Optional[torch.Tensor]:
+    return None if table is None else _const(table, like)
+
+
 def qconv2d(x, w, stride: int, mult: float, zp_in: int, zp_out: int,
             hpad: Optional[Tuple[int, int]] = None,
             wpad: Optional[Tuple[int, int]] = None,
-            lo: Optional[int] = None, hi: Optional[int] = None):
+            lo: Optional[int] = None, hi: Optional[int] = None,
+            table=None):
     """x: (..., H, W, Cin) int8; w: (k, k, Cin, Cout) int8; SAME padding;
     the activation as the int8 clamp ``[lo, hi]`` (default the fused relu:
-    ``[zp_out, 127]``).  Through ``qconv_fused``: K1 or K3 on a CUDA
-    tensor, their plain versions on a CPU one."""
+    ``[zp_out, 127]``), then, for a table activation, the 256-entry
+    ``table`` (``mult`` and ``zp_out`` are then the pre-activation's).
+    Through ``qconv_fused``: K1 or K3 on a CUDA tensor, their plain
+    versions on a CPU one."""
     return qconv_fused(x, _const(w, x), stride=stride, mult=mult,
                        zp_in=zp_in, zp_out=zp_out, hpad=hpad, wpad=wpad,
-                       lo=lo, hi=hi)
+                       lo=lo, hi=hi, table=_table(table, x))
 
 
 def qdwconv2d(x, w, stride: int, mult: float, zp_in: int, zp_out: int,
               hpad: Optional[Tuple[int, int]] = None,
               wpad: Optional[Tuple[int, int]] = None,
-              lo: Optional[int] = None, hi: Optional[int] = None):
+              lo: Optional[int] = None, hi: Optional[int] = None,
+              table=None):
     """Depthwise twin of ``qconv2d``: w (k, k, C, 1) int8; K2 on a CUDA
     tensor."""
     return qdwconv_fused(x, _const(w, x), stride=stride, mult=mult,
                          zp_in=zp_in, zp_out=zp_out, hpad=hpad, wpad=wpad,
-                         lo=lo, hi=hi)
+                         lo=lo, hi=hi, table=_table(table, x))
 
 
 def qmaxpool2d(x, k: int, stride: int,
@@ -606,7 +658,9 @@ def _lower_conv(ctx, op: Operator, x, *, out):
         for key in ("pex_pads", "pex_wpads"):
             assert tuple(a.get(key) or (0, 0)) == (0, 0), (op.name, key)
         y = conv1x1_fused(x, ctx.param(op, "weight")[0, 0],
-                          relu=act != "none", out=out)
+                          relu=act in ("relu", "relu6"), out=out)
+        if act in TABLE_ACTIVATIONS:
+            return activate(y, act)
         return y.clamp_max_(6.0) if act == "relu6" else y
     return conv2d(x, ctx.param(op, "weight"), a["stride"],
                   hpad=a.get("pex_pads"), wpad=a.get("pex_wpads"), act=act)
@@ -632,6 +686,11 @@ def _lower_add(ctx, op: Operator, x, y, *, out):
     return x + y
 
 
+@register_lowering("mul")
+def _lower_mul(ctx, op: Operator, x, g, *, out):
+    return x * g
+
+
 @register_lowering("concat")
 def _lower_concat(ctx, op: Operator, *xs, out):
     return torch.cat(xs, dim=-1)
@@ -653,7 +712,14 @@ def _lower_qconv(ctx, op: Operator, x, *, out):
     return qconv_fused(x, ctx.param(op, "weight_q"), stride=a["stride"],
                        mult=a["mult"], zp_in=a["zp_in"], zp_out=a["zp_out"],
                        hpad=a.get("pex_pads"), wpad=a.get("pex_wpads"),
-                       out=out, lo=a.get("lo"), hi=a.get("hi"))
+                       out=out, lo=a.get("lo"), hi=a.get("hi"),
+                       table=_table_param(ctx, op))
+
+
+def _table_param(ctx, op: Operator) -> Optional[torch.Tensor]:
+    """A table activation's table on the arena's device (None for a
+    clamp)."""
+    return ctx.param(op, "table") if "table" in op.attrs else None
 
 
 @register_lowering("qdwconv")
@@ -663,7 +729,7 @@ def _lower_qdwconv(ctx, op: Operator, x, *, out):
                          mult=a["mult"], zp_in=a["zp_in"],
                          zp_out=a["zp_out"], hpad=a.get("pex_pads"),
                          wpad=a.get("pex_wpads"), out=out, lo=a.get("lo"),
-                         hi=a.get("hi"))
+                         hi=a.get("hi"), table=_table_param(ctx, op))
 
 
 @register_lowering("qmaxpool")
@@ -685,6 +751,16 @@ def _lower_qadd(ctx, op: Operator, x, y, *, out):
     return conv_quant_ops.qadd(x, y, mult_a=a["mult_a"], mult_b=a["mult_b"],
                                zp_a=a["zp_a"], zp_b=a["zp_b"],
                                zp_out=a["zp_out"], out=out)
+
+
+@register_lowering("qmul")
+def _lower_qmul(ctx, op: Operator, x, g, *, out):
+    # K10 on a CUDA arena, ref.qmul on a CPU one; a ring window handed as
+    # the map is gathered, as the add's legs are
+    a = op.attrs
+    x, g = (v.gather() if isinstance(v, RingWindow) else v for v in (x, g))
+    return conv_quant_ops.qscale(x, g, mult=a["mult"], zp_x=a["zp_x"],
+                                 zp_g=a["zp_g"], zp_out=a["zp_out"], out=out)
 
 
 @register_lowering("qavgpool")

@@ -7,11 +7,16 @@ per-tensor activation ranges, and rewrites the graph with
 * int8 tensors (1 byte per element — a 4x cut of every activation the
   planner, Pex cost model and arena executor account for), and
 * quantized operator semantics (``graphs/cnn_ops.py``: ``qconv`` /
-  ``qdwconv`` / ``qmaxpool`` / ``qadd`` / ``qavgpool`` / ``qfc`` /
-  ``qconcat``) with per-tensor (scale, zero-point) requantization, exact
-  integer accumulation and round-half-even.  A conv's activation
-  (``act``) becomes its int8 clamp pair ``lo, hi`` (``int8_clamp``), as
-  TFLite's ``activation_min/max``.
+  ``qdwconv`` / ``qmaxpool`` / ``qadd`` / ``qmul`` / ``qavgpool`` /
+  ``qfc`` / ``qconcat``) with per-tensor (scale, zero-point)
+  requantization, exact integer accumulation and round-half-even.  A
+  conv's clamp activation (``act``) becomes its int8 pair ``lo, hi``
+  (``int8_clamp``), as TFLite's ``activation_min/max``.  A table
+  activation (h-swish, h-sigmoid) becomes a 256-entry int8 table
+  (``activation_table``): the conv requantizes to the params of its
+  output *before* the activation, whose range calibration records too
+  (under ``pre_activation(name)``), and maps that through the table to
+  the output's params.
 
 Topology, tensor names and operator names are preserved, so any schedule
 found for the float graph maps 1:1, and the scheduling/partition machinery
@@ -35,7 +40,8 @@ from repro_torch.core.partition import PEX_ATTR
 from repro_torch.device import resolve_device
 from repro_torch.kernels.host_quant import quantize_int8
 
-from .cnn_ops import INT8_MAX, INT8_MIN, op_semantics, pex_spec
+from .cnn_ops import (INT8_MAX, INT8_MIN, TABLE_ACTIVATIONS, activate,
+                      op_semantics, pex_spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +95,28 @@ def int8_clamp(act: str, out: QParams) -> Tuple[int, int]:
     raise ValueError(f"no int8 clamp for activation {act!r}")
 
 
+def pre_activation(tensor: str) -> str:
+    """The key under which calibration keeps the range, and quantization
+    the params, of a table-activated conv's output before its activation
+    (a value the program never stores)."""
+    return f"{tensor}:pre"
+
+
+def activation_table(act: str, pre: QParams, out: QParams) -> np.ndarray:
+    """The 256 int8 values a table activation maps a requantized
+    pre-activation ``q`` (index ``q + 128``) to: element-wise in float32,
+    ``x = s_pre * (q - zp_pre)``, ``f(x)`` by the float pass's own
+    ``activate``, then ``clip(round(f(x) / s_out) + zp_out, -128, 127)``
+    (half to even)."""
+    if act not in TABLE_ACTIVATIONS:
+        raise ValueError(f"no int8 table for activation {act!r}")
+    q = torch.arange(INT8_MIN, INT8_MAX + 1, dtype=torch.float32)
+    x = torch.tensor(np.float32(pre.scale)) * (q - pre.zero_point)
+    y = activate(x, act) / torch.tensor(np.float32(out.scale))
+    y = torch.round(y) + out.zero_point
+    return torch.clamp(y, INT8_MIN, INT8_MAX).to(torch.int8).numpy()
+
+
 def weight_qparams(w: np.ndarray) -> Tuple[np.ndarray, float]:
     """Symmetric per-tensor weight quantization: (w_q int8, scale)."""
     scale = float(max(np.abs(w).max(), 1e-8)) / INT8_MAX
@@ -100,7 +128,9 @@ def calibrate(graph: Graph, batches: Sequence[Dict[str, np.ndarray]],
               device: Union[str, torch.device] = "cpu"
               ) -> Dict[str, Tuple[float, float]]:
     """Observed [min, max] per tensor over an eager run of the float graph
-    on each calibration batch, on ``device``."""
+    on each calibration batch, on ``device``; a conv ending in a table
+    activation also has its output's range before the activation, under
+    ``pre_activation(output)``."""
     ranges: Dict[str, Tuple[float, float]] = {}
 
     def track(name: str, value: torch.Tensor) -> None:
@@ -121,7 +151,17 @@ def calibrate(graph: Graph, batches: Sequence[Dict[str, np.ndarray]],
                 raise ValueError(
                     f"cannot calibrate: operator {op.name!r} has no "
                     f"semantics")
-            out = op.fn(*[bufs[i] for i in op.inputs])
+            args = [bufs[i] for i in op.inputs]
+            act = op.attrs.get("act")
+            if act in TABLE_ACTIVATIONS:
+                # the same conv linear, then the activation on its output:
+                # what op.fn computes, with the value in between kept
+                pre = op_semantics(op.kind, {**op.attrs, "act": "none"})(
+                    *args)
+                track(pre_activation(op.output), pre)
+                out = activate(pre, act)
+            else:
+                out = op.fn(*args)
             bufs[op.output] = out
             track(op.output, out)
     return ranges
@@ -223,10 +263,18 @@ def _quantize_op(old: Graph, new: Graph, op, qp: Dict[str, QParams]) -> None:
         s_in, zp_in = qp[ins[0]].scale, qp[ins[0]].zero_point
         s_out, zp_out = qp[out].scale, qp[out].zero_point
         act = op.attrs.get("act", "relu")
-        lo, hi = int8_clamp(act, qp[out])
         attrs = dict(weight_q=wq, weight_bytes=wq.nbytes, k=op.attrs["k"],
-                     stride=op.attrs["stride"], mult=s_in * sw / s_out,
-                     zp_in=zp_in, zp_out=zp_out, act=act, lo=lo, hi=hi)
+                     stride=op.attrs["stride"], zp_in=zp_in, act=act)
+        if act in TABLE_ACTIVATIONS:
+            # requantize to the pre-activation's params over the whole
+            # grid, then the table to the output's
+            pre = qp[pre_activation(out)]
+            attrs.update(mult=s_in * sw / pre.scale, zp_out=pre.zero_point,
+                         lo=INT8_MIN, hi=INT8_MAX,
+                         table=activation_table(act, pre, qp[out]))
+        else:
+            lo, hi = int8_clamp(act, qp[out])
+            attrs.update(mult=s_in * sw / s_out, zp_out=zp_out, lo=lo, hi=hi)
     elif op.kind == "maxpool":
         attrs = dict(k=op.attrs["k"], stride=op.attrs["stride"])
     elif op.kind == "avgpool":
@@ -237,6 +285,11 @@ def _quantize_op(old: Graph, new: Graph, op, qp: Dict[str, QParams]) -> None:
                      mult_b=qp[ins[1]].scale / s_out,
                      zp_a=qp[ins[0]].zero_point, zp_b=qp[ins[1]].zero_point,
                      zp_out=zp_out)
+    elif op.kind == "mul":
+        x, g = qp[ins[0]], qp[ins[1]]
+        attrs = dict(mult=x.scale * g.scale / qp[out].scale,
+                     zp_x=x.zero_point, zp_g=g.zero_point,
+                     zp_out=qp[out].zero_point)
     elif op.kind == "concat":
         s_out, zp_out = qp[out].scale, qp[out].zero_point
         attrs = dict(mults=tuple(qp[i].scale / s_out for i in ins),

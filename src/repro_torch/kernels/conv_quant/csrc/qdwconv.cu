@@ -1,5 +1,5 @@
-// K2: depthwise k x k, stride-s int8 convolution + requantize + clamp for
-// Hopper (sm_90a).
+// K2: depthwise k x k, stride-s int8 convolution + requantize + clamp (or
+// the table of an h-swish / h-sigmoid) for Hopper (sm_90a).
 //
 // Replaces repro/kernels/conv_quant/kernel.py:qdwconv_pallas (via
 // _windowed_call, body _qdwconv_kernel): per channel, k*k shifted int32
@@ -35,8 +35,9 @@
 //   so the executor copies nothing before K2 runs.
 // - One channel a thread, channels on the fast axis (NHWC): a warp's
 //   copies, tile reads and byte stores are consecutive bytes.  A thread's
-//   k*k weights are loaded into registers (k = 3) before the tile, so both
-//   are in flight together.  Four channels a thread (a 4-byte word, fewer
+//   k*k weights are loaded into registers (k = 3, and k = 5 for
+//   MobileNetV3's 5x5 depthwise convs) before the tile, so both are in
+//   flight together.  Four channels a thread (a 4-byte word, fewer
 //   threads) made every block's chain longer and was slower or level at
 //   every shape of the repo's int8 graphs on an H100.
 // Tiles (ops.plan_dw_tile): 128 threads; cq channels a block (a power of
@@ -50,7 +51,9 @@
 // Interface: x and out are arena views, each lane contiguous, lanes x_bs /
 // o_bs bytes apart (the batch stride is passed; no copy).  x holds
 // ring_rows rows; the input is the H-row window starting at ring row src.
-// w is a contiguous [k, k, C] int8 array.
+// w is a contiguous [k, k, C] int8 array.  The epilogue (requant.cuh) is
+// a template parameter: RequantClamp, or RequantTable where table is not
+// null, so the clamp instances' code is what it was without tables.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -83,15 +86,16 @@ __device__ __forceinline__ void copy_async(int8_t* dst, const int8_t* src) {
 
 // KC: k when it is known at compile time (weights in registers), 0 for any
 // k (weights read from device memory, through L1, where used).  LD: bytes
-// a copy moves (16, 4; 1: the scalar path, no tile).
-template <int KC, int LD>
+// a copy moves (16, 4; 1: the scalar path, no tile).  Epilogue: the
+// requantize step (requant.cuh).
+template <int KC, int LD, class Epilogue>
 __global__ void __launch_bounds__(THREADS)
 qdwconv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                int8_t* __restrict__ out, int H, int ring_rows, int src,
                int W, int C, int OH, int OW, int k_rt, int stride,
                int pad_top, int pad_left, long long x_bs, long long o_bs,
-               float mult, int zp_in, int zp_out, int lo, int hi, int cq,
-               int gx, int gy, int ppt, int tiles_x, int tiles_c) {
+               int zp_in, Epilogue ep, int cq, int gx, int gy, int ppt,
+               int tiles_x, int tiles_c) {
   extern __shared__ __align__(16) int8_t smem[];
   const int k = KC ? KC : k_rt;
   const int tc = cq;                        // channels a block
@@ -226,8 +230,7 @@ qdwconv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   for (int j = 0; j < 4; ++j) {
     const int ox = ox0 + gxi * ppt + j;
     if (j >= ppt || ox >= OW) break;
-    ob[(long long)ox * C] =
-        requant_clamp(acc[j] - zp_in * wsum, mult, zp_out, lo, hi);
+    ob[(long long)ox * C] = ep(acc[j] - zp_in * wsum, 0, 0);
   }
 }
 
@@ -240,13 +243,12 @@ struct Args {
   int8_t* out;
   int H, ring_rows, src, W, C, OH, OW, k, stride, pad_top, pad_left;
   long long x_bs, o_bs;
-  float mult;
-  int zp_in, zp_out, lo, hi, cq, gx, gy, ppt, tiles_x, tiles_c;
+  int zp_in, cq, gx, gy, ppt, tiles_x, tiles_c;
 };
 
-template <int KC, int LD>
-int launch(const Args& a) {
-  auto kern = qdwconv_kernel<KC, LD>;
+template <int KC, int LD, class Epilogue>
+int launch(const Args& a, const Epilogue& ep) {
+  auto kern = qdwconv_kernel<KC, LD, Epilogue>;
   if (a.smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
@@ -254,30 +256,38 @@ int launch(const Args& a) {
   }
   kern<<<a.grid, THREADS, a.smem, a.stream>>>(
       a.x, a.w, a.out, a.H, a.ring_rows, a.src, a.W, a.C, a.OH, a.OW, a.k,
-      a.stride, a.pad_top, a.pad_left, a.x_bs, a.o_bs, a.mult, a.zp_in,
-      a.zp_out, a.lo, a.hi, a.cq, a.gx, a.gy, a.ppt, a.tiles_x, a.tiles_c);
+      a.stride, a.pad_top, a.pad_left, a.x_bs, a.o_bs, a.zp_in, ep, a.cq,
+      a.gx, a.gy, a.ppt, a.tiles_x, a.tiles_c);
   return (int)cudaGetLastError();
 }
 
-template <int KC>
-int launch_ld(int ld, const Args& a) {
-  if (ld == 16) return launch<KC, 16>(a);
-  if (ld == 4) return launch<KC, 4>(a);
-  return launch<KC, 1>(a);
+template <int KC, class Epilogue>
+int launch_ld(int ld, const Args& a, const Epilogue& ep) {
+  if (ld == 16) return launch<KC, 16>(a, ep);
+  if (ld == 4) return launch<KC, 4>(a, ep);
+  return launch<KC, 1>(a, ep);
+}
+
+template <class Epilogue>
+int launch_k(const Args& a, const Epilogue& ep, int ld) {
+  if (a.k == 3) return launch_ld<3>(ld, a, ep);
+  if (a.k == 5) return launch_ld<5>(ld, a, ep);
+  return launch_ld<0>(ld, a, ep);
 }
 
 }  // namespace
 
-// ld: bytes a copy moves (16, 4 or 1; ops.load_width); cq/gx/gy/ppt: the
-// tile (ops.plan_dw_tile), cq * gx * gy == 128.
+// table: null for the clamp epilogue, else the table epilogue's 256
+// bytes; ld: bytes a copy moves (16, 4 or 1; ops.load_width); cq/gx/gy/
+// ppt: the tile (ops.plan_dw_tile), cq * gx * gy == 128.
 extern "C" int qdwconv_launch(const void* x, const void* w, void* out,
                               int B, int H, int ring_rows, int src, int W,
                               int C, int OH, int OW, int k, int stride,
                               int pad_top, int pad_left, long long x_bs,
                               long long o_bs, float mult, int zp_in,
-                              int zp_out, int lo, int hi, int ld, int cq,
-                              int gx, int gy, int ppt, int device,
-                              void* stream) {
+                              int zp_out, int lo, int hi, const void* table,
+                              int ld, int cq, int gx, int gy, int ppt,
+                              int device, void* stream) {
   if (cq * gx * gy != THREADS || ppt < 1 || ppt > 4 ||
       (ld != 16 && ld != 4 && ld != 1) || (ld > 1 && C % ld) || cq % ld ||
       src < 0 || src >= ring_rows || H < 1)
@@ -298,8 +308,10 @@ extern "C" int qdwconv_launch(const void* x, const void* w, void* out,
   a.out = (int8_t*)out;
   a.H = H, a.ring_rows = ring_rows, a.src = src, a.W = W, a.C = C;
   a.OH = OH, a.OW = OW, a.k = k, a.stride = stride, a.pad_top = pad_top;
-  a.pad_left = pad_left, a.x_bs = x_bs, a.o_bs = o_bs, a.mult = mult;
-  a.zp_in = zp_in, a.zp_out = zp_out, a.lo = lo, a.hi = hi, a.cq = cq;
-  a.gx = gx, a.gy = gy, a.ppt = ppt;
-  return k == 3 ? launch_ld<3>(ld, a) : launch_ld<0>(ld, a);
+  a.pad_left = pad_left, a.x_bs = x_bs, a.o_bs = o_bs, a.zp_in = zp_in;
+  a.cq = cq, a.gx = gx, a.gy = gy, a.ppt = ppt;
+  if (table)
+    return launch_k(
+        a, RequantTable{mult, zp_out, lo, hi, (const int8_t*)table}, ld);
+  return launch_k(a, RequantClamp{mult, zp_out, lo, hi}, ld);
 }

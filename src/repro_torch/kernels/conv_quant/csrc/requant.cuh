@@ -1,4 +1,4 @@
-// The requantize epilogue shared by the int8 conv kernels.
+// The requantize epilogues shared by the int8 conv kernels.
 //
 // It replays the reference's element-wise sequence bit for bit
 // (repro/kernels/conv_quant/kernel.py:_requant, cnn_ops.requantize):
@@ -30,5 +30,22 @@ struct RequantClamp {
   __device__ __forceinline__ int8_t operator()(int acc, long long,
                                                long long) const {
     return requant_clamp(acc, mult, zp_out, lo, hi);
+  }
+};
+
+// The table epilogue (K1-K3 where the conv ends in MobileNetV3's h-swish
+// or h-sigmoid): requantize to the pre-activation's params and clamp to
+// [lo, hi], which the host holds to [-128, 127], then write table[q +
+// 128], one of the 256 int8 values graphs/quantize.py computed from the
+// activation's float definition.  The 256 bytes are read through the
+// read-only cache; the clamp path is the other template instance, so its
+// code is unchanged.
+struct RequantTable {
+  float mult;
+  int zp_out, lo, hi;
+  const int8_t* table;
+  __device__ __forceinline__ int8_t operator()(int acc, long long,
+                                               long long) const {
+    return __ldg(table + 128 + requant_clamp(acc, mult, zp_out, lo, hi));
   }
 };

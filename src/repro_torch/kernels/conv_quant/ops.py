@@ -1,8 +1,8 @@
-"""Host wrappers of the int8 conv kernels K1–K5 and of the residual add
-K9, and the q-op drop-ins ``qconv_fused``/``qdwconv_fused``/
-``qconv_add_fused`` with the reference's routing rule (k=1, stride 1 and
-no pads to the 1x1 kernel K1/K4, everything else to the implicit-GEMM
-kernel K3/K5).
+"""Host wrappers of the int8 conv kernels K1–K5, of the residual add K9
+and of squeeze-and-excite's channel scale K10, and the q-op drop-ins
+``qconv_fused``/``qdwconv_fused``/``qconv_add_fused`` with the
+reference's routing rule (k=1, stride 1 and no pads to the 1x1 kernel
+K1/K4, everything else to the implicit-GEMM kernel K3/K5).
 
 Every conv clamps its requantized output to the activation's int8 pair
 ``[lo, hi]`` (``ref.clamp_pair``: ``lo`` None is the fused ReLU's
@@ -21,7 +21,15 @@ lie any number of bytes apart (the batch stride is passed to the kernel,
 so no copy is made).  ``out`` (optional) is the destination view.
 
 Each kernel wrapper counts its launches in ``<wrapper>.launches``, a plain
-integer that only a kernel launch increments.
+integer that only a kernel launch increments; K1–K3's wrappers also count
+in ``table_launches`` their launches with a table epilogue.
+
+A table activation (``table``, a 256-entry int8 tensor on the device):
+K1–K3 requantize to ``mult``/``zp_out`` (the pre-activation's params),
+clip to [-128, 127] (the clamp pair must be that) and write ``table[q +
+128]``: the table epilogue of ``csrc/requant.cuh``, a template instance
+of its own beside the clamp's.  K10 (``qscale``) is squeeze-and-excite's
+channel scale ``ref.qmul``, one launch over every lane.
 
 K1 and K4 split Cin over a cluster of blocks where the output tiles alone
 would leave SMs idle (``plan_split_k``); the blocks add their int32
@@ -119,6 +127,24 @@ def _require_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
                   out: torch.Tensor) -> None:
     if not (x.is_cuda and w.is_cuda and out.is_cuda):
         raise ValueError(f"{name}: x, w and out must all be CUDA tensors")
+
+
+def _table_ptr(table: Optional[torch.Tensor], like: torch.Tensor,
+               clamp: Tuple[int, int]) -> int:
+    """The table's device pointer for a launch, 0 for none; a table needs
+    the full clamp pair (it maps every requantized int8 value)."""
+    if table is None:
+        return 0
+    _require_int8("table", table)
+    if (tuple(table.shape) != (ref.TABLE_SIZE,) or not table.is_contiguous()
+            or not _same_device(table, like)):
+        raise ValueError(f"table must be {ref.TABLE_SIZE} contiguous int8 "
+                         f"values on {like.device}, got "
+                         f"{tuple(table.shape)} on {table.device}")
+    if clamp != (ref.INT8_MIN, ref.INT8_MAX):
+        raise ValueError(f"a table activation requantizes to the whole int8 "
+                         f"range, not the clamp {clamp}")
+    return table.data_ptr()
 
 
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
@@ -354,11 +380,11 @@ def plan_qconv(oh: int, ow: int, cin: int, cout: int, k: int,
 # ------------------------------------------------------------------ kernels
 def qconv1x1(x: torch.Tensor, w: torch.Tensor, *, mult: float, zp_in: int,
              zp_out: int, out: Optional[torch.Tensor] = None,
-             lo: Optional[int] = None, hi: Optional[int] = None
-             ) -> torch.Tensor:
+             lo: Optional[int] = None, hi: Optional[int] = None,
+             table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: x [..., H, W, Cin] int8, w [Cin, Cout] int8 -> [..., H, W, Cout]
     int8; the stride-1, unpadded 1x1 case of ``qconv2d``, clamped to
-    ``[lo, hi]``."""
+    ``[lo, hi]``, then mapped through ``table`` where one is given."""
     _require_int8("x", x)
     _require_int8("w", w)
     lanes, x_bs = _lanes("x", x)
@@ -369,15 +395,19 @@ def qconv1x1(x: torch.Tensor, w: torch.Tensor, *, mult: float, zp_in: int,
     shape = (*xs[:-1], ws[1])
     if x.is_cpu:
         return _plain(ref.qconv1x1_ref(x, w, mult=mult, zp_in=zp_in,
-                                       zp_out=zp_out, lo=lo, hi=hi), out)
+                                       zp_out=zp_out, lo=lo, hi=hi,
+                                       table=table), out)
     out = _destination(out, shape, x)
     _, o_bs = _lanes("out", out)
     if out.numel():
+        clamp = ref.clamp_pair(zp_out, lo, hi)
         # ctypes rounds mult to float32 as np.float32 does (to nearest)
         _launch("qconv1x1", x, w, out, lanes, m, cin, ws[1], x_bs, o_bs,
-                float(mult), zp_in, zp_out, *ref.clamp_pair(zp_out, lo, hi),
+                float(mult), zp_in, zp_out, *clamp,
+                _table_ptr(table, x, clamp),
                 split_k=(lanes, m, cin, ws[1]))
         qconv1x1.launches += 1
+        qconv1x1.table_launches += table is not None
     return out
 
 
@@ -402,11 +432,12 @@ def qconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
           zp_in: int, zp_out: int, hpad: Tuple[int, int],
           wpad: Tuple[int, int], out: Optional[torch.Tensor] = None,
           src: int = 0, n: Optional[int] = None, lo: Optional[int] = None,
-          hi: Optional[int] = None) -> torch.Tensor:
+          hi: Optional[int] = None,
+          table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3: x [..., H, W, Cin] int8, w [k, k, Cin, Cout] int8 ->
     [..., OH, OW, Cout] int8, explicit (before, after) pads, clamped to
-    ``[lo, hi]``.  With ``n``, x is a ring and the input its window (src,
-    n)."""
+    ``[lo, hi]`` (then ``table``).  With ``n``, x is a ring and the input
+    its window (src, n)."""
     _require_int8("x", x)
     _require_int8("w", w)
     lanes, x_bs = _lanes("x", x)
@@ -419,16 +450,18 @@ def qconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
     oh, ow = _out_hw(h, wd, k, stride, hpad, wpad)
     if x.device.type == "cpu":
         qp = dict(stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
-                  hpad=hpad, wpad=wpad, lo=lo, hi=hi)
+                  hpad=hpad, wpad=wpad, lo=lo, hi=hi, table=table)
         return _plain(ref.qconv_ref(x, w, **qp) if n is None else
                       ref.qconv_ring_ref(x, w, src=src, n=h, **qp), out)
     out = _destination(out, (*x.shape[:-3], oh, ow, cout), x)
     _, o_bs = _lanes("out", out)
     if out.numel():
+        clamp = ref.clamp_pair(zp_out, lo, hi)
         _launch_qconv("qconv", x, w, out, lanes, x_bs, o_bs, h, src, cout,
                       oh, ow, k, stride, hpad, wpad, mult, zp_in, zp_out,
-                      ref.clamp_pair(zp_out, lo, hi))
+                      clamp, _table_ptr(table, x, clamp))
         qconv.launches += 1
+        qconv.table_launches += table is not None
     return out
 
 
@@ -436,10 +469,12 @@ def qdwconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
             zp_in: int, zp_out: int, hpad: Tuple[int, int],
             wpad: Tuple[int, int], out: Optional[torch.Tensor] = None,
             src: int = 0, n: Optional[int] = None, lo: Optional[int] = None,
-            hi: Optional[int] = None) -> torch.Tensor:
+            hi: Optional[int] = None,
+            table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2: x [..., H, W, C] int8, w [k, k, C] int8 -> [..., OH, OW, C] int8
-    (depthwise), explicit (before, after) pads, clamped to ``[lo, hi]``.
-    With ``n``, x is a ring and the input its window (src, n)."""
+    (depthwise), explicit (before, after) pads, clamped to ``[lo, hi]``
+    (then ``table``).  With ``n``, x is a ring and the input its window
+    (src, n)."""
     _require_int8("x", x)
     _require_int8("w", w)
     lanes, x_bs = _lanes("x", x)
@@ -451,7 +486,7 @@ def qdwconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
     oh, ow = _out_hw(h, wd, k, stride, hpad, wpad)
     if x.device.type == "cpu":
         qp = dict(stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
-                  hpad=hpad, wpad=wpad, lo=lo, hi=hi)
+                  hpad=hpad, wpad=wpad, lo=lo, hi=hi, table=table)
         return _plain(ref.qdwconv_ref(x, w, **qp) if n is None else
                       ref.qdwconv_ring_ref(x, w, src=src, n=h, **qp), out)
     out = _destination(out, (*x.shape[:-3], oh, ow, c), x)
@@ -459,12 +494,14 @@ def qdwconv(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
     if out.numel():
         _require_cuda("qdwconv", x, w, out)
         plan = _dw_plan(lanes, oh, ow, c, k, stride, x.get_device())
+        clamp = ref.clamp_pair(zp_out, lo, hi)
         _launch("qdwconv", x, w, out, lanes, h, rows, src, wd, c, oh, ow, k,
                 stride, hpad[0], wpad[0], x_bs, o_bs,
-                float(np.float32(mult)), zp_in, zp_out,
-                *ref.clamp_pair(zp_out, lo, hi),
+                float(np.float32(mult)), zp_in, zp_out, *clamp,
+                _table_ptr(table, x, clamp),
                 load_width(c, x.data_ptr(), x_bs), *plan)
         qdwconv.launches += 1
+        qdwconv.table_launches += table is not None
     return out
 
 
@@ -588,15 +625,52 @@ def qadd(a: torch.Tensor, b: torch.Tensor, *, mult_a: float, mult_b: float,
     return out
 
 
-qconv1x1.launches = 0
-qconv.launches = 0
-qdwconv.launches = 0
+def qscale(x: torch.Tensor, g: torch.Tensor, *, mult: float, zp_x: int,
+           zp_g: int, zp_out: int,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K10: squeeze-and-excite's channel scale ``ref.qmul`` as one launch
+    over every lane: the map ``x`` [..., H, W, C] int8 times its lane's
+    gate ``g`` [..., 1, 1, C] int8, requantized through ``mult``.  The
+    map, the gate and the output are read and written where they lie in
+    the arena (each lane contiguous, lanes any number of bytes apart)."""
+    _require_int8("x", x)
+    _require_int8("g", g)
+    lanes, x_bs = _lanes("x", x)
+    c = x.shape[-1]
+    if (tuple(g.shape) != (*x.shape[:-3], 1, 1, c)
+            or not _same_device(g, x)):
+        raise ValueError(f"g is {tuple(g.shape)} on {g.device}, expected "
+                         f"{(*x.shape[:-3], 1, 1, c)} on {x.device}")
+    _, g_bs = _lanes("g", g)
+    if x.is_cpu:
+        return _plain(ref.qmul(x, g, mult, zp_x, zp_g, zp_out), out)
+    out = _destination(out, x.shape, x)
+    _, o_bs = _lanes("out", out)
+    n = x.numel() // max(lanes, 1)
+    if out.numel():
+        _require_cuda("qscale", x, g, out)
+        dev = x.get_device()
+        CONV_QUANT.launch(
+            "qscale", x.data_ptr(), g.data_ptr(), out.data_ptr(), lanes, n,
+            c, x_bs, g_bs, o_bs, float(mult), int(zp_x), int(zp_g),
+            int(zp_out),
+            load_width(c, x.data_ptr(), x_bs, g.data_ptr(), g_bs,
+                       out.data_ptr(), o_bs),
+            dev, _current_stream(dev))
+        qscale.launches += 1
+    return out
+
+
+qconv1x1.launches = qconv1x1.table_launches = 0
+qconv.launches = qconv.table_launches = 0
+qdwconv.launches = qdwconv.table_launches = 0
 qconv1x1_add.launches = 0
 qconv_add.launches = 0
 qadd.launches = 0
+qscale.launches = 0
 KERNEL_WRAPPERS = {"qconv1x1": qconv1x1, "qdwconv": qdwconv, "qconv": qconv,
                    "qconv1x1_add": qconv1x1_add, "qconv_add": qconv_add,
-                   "qadd": qadd}
+                   "qadd": qadd, "qscale": qscale}
 
 
 def _gathered(x: Union[torch.Tensor, RingWindow]) -> torch.Tensor:
@@ -623,23 +697,26 @@ def qconv_fused(x: Union[torch.Tensor, RingWindow], w: torch.Tensor, *,
                 hpad: Optional[Tuple[int, int]] = None,
                 wpad: Optional[Tuple[int, int]] = None,
                 out: Optional[torch.Tensor] = None, lo: Optional[int] = None,
-                hi: Optional[int] = None) -> torch.Tensor:
+                hi: Optional[int] = None,
+                table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Drop-in for ``qconv2d`` (w in the graph's (k, k, Cin, Cout) layout,
     SAME pads unless ``hpad``/``wpad`` override them, clamped to ``[lo,
-    hi]``), bit-identical.  k=1, stride=1 and no pads go to K1,
-    everything else to K3.  ``x`` may be a ``RingWindow``: K3 reads it in
-    place, K1 a gathered copy."""
+    hi]``, then ``table``), bit-identical.  k=1, stride=1 and no pads go
+    to K1, everything else to K3.  ``x`` may be a ``RingWindow``: K3 reads
+    it in place, K1 a gathered copy."""
     hpad = None if hpad is None else tuple(hpad)
     wpad = None if wpad is None else tuple(wpad)
     k = w.shape[0]
     if _is_1x1(k, stride, hpad, wpad):
         return qconv1x1(_gathered(x), w.reshape(w.shape[2:]), mult=mult,
-                        zp_in=zp_in, zp_out=zp_out, out=out, lo=lo, hi=hi)
+                        zp_in=zp_in, zp_out=zp_out, out=out, lo=lo, hi=hi,
+                        table=table)
     hp = _pads(x.shape[-3], k, stride) if hpad is None else hpad
     wp = _pads(x.shape[-2], w.shape[1], stride) if wpad is None else wpad
     x, ring = _in_place(x)
     return qconv(x, w, stride=stride, mult=mult, zp_in=zp_in, zp_out=zp_out,
-                 hpad=hp, wpad=wp, out=out, lo=lo, hi=hi, **ring)
+                 hpad=hp, wpad=wp, out=out, lo=lo, hi=hi, table=table,
+                 **ring)
 
 
 def qconv_add_fused(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
@@ -676,11 +753,11 @@ def qdwconv_fused(x: Union[torch.Tensor, RingWindow], w: torch.Tensor, *,
                   hpad: Optional[Tuple[int, int]] = None,
                   wpad: Optional[Tuple[int, int]] = None,
                   out: Optional[torch.Tensor] = None,
-                  lo: Optional[int] = None, hi: Optional[int] = None
-                  ) -> torch.Tensor:
+                  lo: Optional[int] = None, hi: Optional[int] = None,
+                  table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Drop-in for ``qdwconv2d`` (w in the graph's (k, k, C, 1) layout,
-    clamped to ``[lo, hi]``), bit-identical; always K2, which reads a
-    ``RingWindow`` ``x`` in place."""
+    clamped to ``[lo, hi]``, then ``table``), bit-identical; always K2,
+    which reads a ``RingWindow`` ``x`` in place."""
     k = w.shape[0]
     hp = _pads(x.shape[-3], k, stride) if hpad is None else tuple(hpad)
     wp = _pads(x.shape[-2], w.shape[1], stride) if wpad is None else \
@@ -688,11 +765,11 @@ def qdwconv_fused(x: Union[torch.Tensor, RingWindow], w: torch.Tensor, *,
     x, ring = _in_place(x)
     return qdwconv(x, w.reshape(k, w.shape[1], x.shape[-1]), stride=stride,
                    mult=mult, zp_in=zp_in, zp_out=zp_out, hpad=hp, wpad=wp,
-                   out=out, lo=lo, hi=hi, **ring)
+                   out=out, lo=lo, hi=hi, table=table, **ring)
 
 
 __all__ = ["qconv1x1", "qconv", "qdwconv", "qconv1x1_add", "qconv_add",
-           "qadd",
+           "qadd", "qscale",
            "qconv_fused", "qdwconv_fused", "qconv_add_fused",
            "KERNEL_WRAPPERS", "plan_split_k", "RingWindow", "ring_spans",
            "reads_in_place", "plan_dw_tile", "dw_tile", "dw_smem",

@@ -29,6 +29,12 @@ arguments (ring, src, n, ...; ring_rows is the ring's row count).
 The fused conv -> add kernels K4/K5 are K1/K3 followed by ``qadd``, the
 port's fixed-point add (it lives here, and ``graphs/cnn_ops.py`` imports
 it, so that the plain K4/K5 and the graph op are one function).
+
+A table activation (MobileNetV3's h-swish and h-sigmoid): K1–K3 given a
+256-entry int8 ``table`` requantize to the pre-activation's params,
+clipped to [-128, 127], and write ``table[q + 128]`` (``table_lookup``).
+``qmul`` is squeeze-and-excite's channel scale, K10's plain version:
+``(x - zp_x) * (g - zp_g)`` in int32, requantized like a linear conv.
 """
 from __future__ import annotations
 
@@ -64,6 +70,26 @@ def requantize(acc: torch.Tensor, mult: float, zp_out: int,
     return torch.clamp(y, lo, hi).to(torch.int8)
 
 
+TABLE_SIZE = 256    # one entry per int8 value, entry 0 for -128
+
+
+def table_lookup(q: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[q + 128]`` for every element of the int8 tensor ``q``."""
+    if table.dtype != torch.int8 or tuple(table.shape) != (TABLE_SIZE,):
+        raise ValueError(f"an activation table is {TABLE_SIZE} int8 values, "
+                         f"got {table.dtype} {tuple(table.shape)}")
+    return table.to(q.device)[q.to(torch.int64) - INT8_MIN]
+
+
+def _epilogue(acc: torch.Tensor, mult: float, zp_out: int,
+              lo: Optional[int], hi: Optional[int],
+              table: Optional[torch.Tensor]) -> torch.Tensor:
+    """The conv's epilogue on its int32 accumulator: requantize and clamp,
+    then the table where there is one."""
+    y = requantize(acc, mult, zp_out, *clamp_pair(zp_out, lo, hi))
+    return y if table is None else table_lookup(y, table)
+
+
 def clamp_pair(zp_out: int, lo: Optional[int] = None,
                hi: Optional[int] = None) -> Tuple[int, int]:
     """The conv's int8 clamp ``(lo, hi)``; ``lo`` None is the fused ReLU's
@@ -93,33 +119,35 @@ def _conv_acc(x: torch.Tensor, w_oihw: torch.Tensor, stride: int, zp_in: int,
 
 def qconv1x1_ref(x: torch.Tensor, w: torch.Tensor, *, mult: float,
                  zp_in: int, zp_out: int, lo: Optional[int] = None,
-                 hi: Optional[int] = None) -> torch.Tensor:
+                 hi: Optional[int] = None,
+                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1's function: x [..., H, W, Cin] int8, w [Cin, Cout] int8 ->
     [..., H, W, Cout] int8."""
     acc = torch.matmul(x.to(torch.float64) - zp_in, w.to(torch.float64))
-    return requantize(acc.to(torch.int32), mult, zp_out,
-                      *clamp_pair(zp_out, lo, hi))
+    return _epilogue(acc.to(torch.int32), mult, zp_out, lo, hi, table)
 
 
 def qconv_ref(x: torch.Tensor, w: torch.Tensor, *, stride: int, mult: float,
               zp_in: int, zp_out: int, hpad: Tuple[int, int],
               wpad: Tuple[int, int], lo: Optional[int] = None,
-              hi: Optional[int] = None) -> torch.Tensor:
+              hi: Optional[int] = None,
+              table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3's function: x [..., H, W, Cin] int8, w [k, k, Cin, Cout] int8 ->
     [..., OH, OW, Cout] int8 with explicit (before, after) pads."""
     acc = _conv_acc(x, w.permute(3, 2, 0, 1), stride, zp_in, hpad, wpad)
-    return requantize(acc, mult, zp_out, *clamp_pair(zp_out, lo, hi))
+    return _epilogue(acc, mult, zp_out, lo, hi, table)
 
 
 def qdwconv_ref(x: torch.Tensor, w: torch.Tensor, *, stride: int,
                 mult: float, zp_in: int, zp_out: int, hpad: Tuple[int, int],
                 wpad: Tuple[int, int], lo: Optional[int] = None,
-                hi: Optional[int] = None) -> torch.Tensor:
+                hi: Optional[int] = None,
+                table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2's function: x [..., H, W, C] int8, w [k, k, C] int8 (depthwise)
     -> [..., OH, OW, C] int8 with explicit (before, after) pads."""
     acc = _conv_acc(x, w.permute(2, 0, 1)[:, None], stride, zp_in, hpad,
                     wpad, groups=x.shape[-1])
-    return requantize(acc, mult, zp_out, *clamp_pair(zp_out, lo, hi))
+    return _epilogue(acc, mult, zp_out, lo, hi, table)
 
 
 def ring_window(ring: torch.Tensor, src: int, n: int) -> torch.Tensor:
@@ -183,6 +211,16 @@ def qadd(a: torch.Tensor, b: torch.Tensor, mult_a: float, mult_b: float,
     return torch.clamp(y, INT8_MIN, INT8_MAX).to(torch.int8)
 
 
+def qmul(x: torch.Tensor, g: torch.Tensor, mult: float, zp_x: int,
+         zp_g: int, zp_out: int) -> torch.Tensor:
+    """Squeeze-and-excite's channel scale: the map x [..., H, W, C] int8
+    times the gate g [..., 1, 1, C] int8, ``(x - zp_x) * (g - zp_g)`` in
+    int32 (|product| <= 255 * 255), requantized through ``mult = s_x * s_g
+    / s_out`` to [-128, 127].  Also K10's plain version (``ops.qscale``)."""
+    acc = (x.to(torch.int32) - zp_x) * (g.to(torch.int32) - zp_g)
+    return requantize(acc, mult, zp_out)
+
+
 def qconv1x1_add_ref(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor, *,
                      mult: float, zp_in: int, zp_out: int,
                      add_params: Tuple[float, float, int, int, int],
@@ -219,4 +257,4 @@ __all__ = ["f32_scalar", "requantize", "clamp_pair", "qconv1x1_ref",
            "qconv_ref", "qdwconv_ref", "qadd", "qadd_multipliers",
            "qconv1x1_add_ref", "qconv_add_ref", "QADD_SHIFT", "INT8_MIN",
            "INT8_MAX", "ring_window", "qconv_ring_ref", "qdwconv_ring_ref",
-           "qconv_add_ring_ref"]
+           "qconv_add_ring_ref", "qmul", "table_lookup", "TABLE_SIZE"]

@@ -133,7 +133,8 @@ def test_wrappers_check_inputs():
         kernels.qconv_add_fused(x, w, r, stride=1,
                                 add_params=(100.0, 100.0, 0, 0, 0), **_QP)
     assert set(ops.KERNEL_WRAPPERS) == {"qconv1x1", "qdwconv", "qconv",
-                                        "qconv1x1_add", "qconv_add", "qadd"}
+                                        "qconv1x1_add", "qconv_add", "qadd",
+                                        "qscale"}
 
 
 @pytest.mark.parametrize("zp_in", [-128, 0, 127])
